@@ -1,13 +1,18 @@
 """CLI entry point (counterpart of fr_tpu/cli/main.py, same flag surface).
 
+    python -m fr_tpu_torch.cli.main --config ms1m_arcface_122 --mode train \
+        --network AlterNet50 --synthetic --num_epoch 6 --device cuda
     python -m fr_tpu_torch.cli.main --config ms1m_arcface_122 --mode test \
         --network AlterNet50 --synthetic --test_b 64 --device cuda
 
-Ported: ``--mode test --test_type pair --synthetic``, with ``--ckpt_path``
-taking an fr_tpu ``.npz`` encoder snapshot. ``--device {cuda,cpu}`` takes
-the place of JAX_PLATFORMS; it raises when CUDA is asked for and absent and
-never switches device on its own. Flags of paths not ported yet raise
-NotImplementedError naming their ROADMAP item.
+Ported: ``--mode train --synthetic`` on one device (128 synthetic classes ×
+8 images by default, validation on 256 synthetic pairs, encoder snapshots
+in fr_tpu's ``.npz`` layout) and ``--mode test --test_type pair
+--synthetic``, with ``--ckpt_path`` taking an fr_tpu ``.npz`` encoder
+snapshot. ``--device {cuda,cpu}`` takes the place of JAX_PLATFORMS; it
+raises when CUDA is asked for and absent and never switches device on its
+own. Flags of paths not ported yet raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import time
 from pathlib import Path
 
 _MULTI_GPU = "multi-GPU runs are not ported yet: ROADMAP §1, multi-GPU"
+_LOADERS = ("dataset loaders are not ported yet (pass --synthetic): ROADMAP "
+            "§1, eval extras")
 
 
 def parse_args(argv=None):
@@ -43,7 +50,7 @@ def parse_args(argv=None):
                    help="test-mode batch (pairs); default 1")
     p.add_argument("--img_size", type=int, default=None)
     p.add_argument("--synthetic", action="store_true",
-                   help="evaluate on synthetic identity data")
+                   help="train/evaluate on synthetic identity data")
     p.add_argument("--synthetic_classes", type=int, default=128)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--profile", type=int, default=0)
@@ -94,6 +101,40 @@ def make_save_dir(args, conf) -> Path:
     return save
 
 
+def train(args):
+    """Synthetic-data training on one device; returns the task (its
+    ``history`` holds each epoch's results)."""
+    from fr_tpu_torch.data.synthetic import (ArrayPairDataset,
+                                             ArrayTrainLoader,
+                                             synthetic_corpus,
+                                             synthetic_pairs)
+    from fr_tpu_torch.train.task import FaceRecognitionTask, resolve_device
+    from fr_tpu_torch.train.trainer import Trainer
+
+    if args.distributed or (args.mesh_data or 1) * (args.mesh_model or 1) > 1:
+        raise NotImplementedError(_MULTI_GPU)
+    if not args.synthetic:
+        raise NotImplementedError(_LOADERS)
+    if args.sample_block > 1:
+        raise NotImplementedError("--sample_block > 1 is not ported yet: "
+                                  "ROADMAP §1 slice 5")
+    device = resolve_device(args.device)
+    conf = build_conf(args)
+    imgs, labels = synthetic_corpus(args.synthetic_classes, 8, conf.img_size)
+    conf.n_classes = args.synthetic_classes
+    conf.val_dataset = ["synthetic"]
+    save = make_save_dir(args, conf)
+    logger = str(save / "log.txt")
+
+    loader = ArrayTrainLoader(imgs, labels, conf.b)
+    pairs, same = synthetic_pairs(256, args.synthetic_classes, conf.img_size)
+    vals = {"synthetic": ArrayPairDataset(pairs, same)}
+    task = FaceRecognitionTask(conf, logger=logger, stage="train",
+                               device=device)
+    return Trainer(conf, save, "train", logger).train(
+        task, loader, vals, resume=args.resume, profile_steps=args.profile)
+
+
 def test(args):
     """Pair test; returns {dataset name: Config(acc, infer_time, roc,
     embeddings)}."""
@@ -107,9 +148,7 @@ def test(args):
         raise NotImplementedError("--test_type cross is not ported yet: "
                                   "ROADMAP §1, eval extras")
     if not args.synthetic:
-        raise NotImplementedError("dataset loaders are not ported yet "
-                                  "(pass --synthetic): ROADMAP §1, eval "
-                                  "extras")
+        raise NotImplementedError(_LOADERS)
     device = resolve_device(args.device)
     conf = build_conf(args)
     save = make_save_dir(args, conf)
@@ -127,10 +166,11 @@ def test(args):
 
 
 def main(argv=None):
+    """Runs the mode; returns the trained task (train) or the test report
+    (test)."""
     args = parse_args(argv)
     if args.mode == "train":
-        raise NotImplementedError("--mode train is not ported yet: ROADMAP "
-                                  "§1 slice 2 (AlterNet50 training step)")
+        return train(args)
     return test(args)
 
 

@@ -1,0 +1,389 @@
+// Cosine window attention, backward (recompute), for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel fr_tpu/ops/fused_window_attn.py::_pk_bwd_pallas
+// (body _pk_bwd_groups), the backward the model runs (stored_stats=False).
+// Its contract is that file's per-head jnp math, _bwd_jnp: per window w and
+// head h, with g the output cotangent rounded to the compute dtype T,
+//   q̂, k̂  = L2-normalised q, k in f32 (eps 1e-12, rsqrt form);
+//   s_raw  = round_T(q̂)·round_T(k̂)ᵀ accumulated in f32;
+//   p      = softmax(s_raw·scale[h] + bias16[h] (+ mask[w mod nW])) in f32,
+//            max per head;
+//   dp     = g·vᵀ,  dv = round_T(p)ᵀ·g       (f32 accumulation);
+//   ds     = p ∘ (dp − rowsum(dp ∘ p));
+//   dbias[h] += ds,  dscale[h] += Σ ds ∘ s_raw;
+//   dq̂     = round_T(ds·scale[h])·round_T(k̂),  dk̂ = round_T(ds·scale[h])ᵀ·round_T(q̂);
+//   dq     = r_q·(dq̂ − [Σx² > eps²]·q̂·rowsum(dq̂ ∘ q̂)), and dk alike.
+// dqkv is written in T with fr_tpu's channel layout (q heads, k heads,
+// v heads); dscale (h,) and dbias (h, N, N) are f32 sums over all windows.
+//
+// What bounds it on the card: like the forward, device-memory bytes (qkv
+// and g in, dqkv out, about 7·N·hd elements per (window, head) against
+// ~10·N²·hd flops) plus the per-block dbias partials. One block per
+// (window, head) recomputes the forward with everything in shared memory:
+// the scores, p and ds never touch device memory.
+//
+// dscale and dbias are sums over every window. A block writes its own
+// (N·N + 1) partials to a scratch buffer and a second kernel sums them over
+// the windows in a fixed order: the result is the same bit for bit from run
+// to run, which f32 atomicAdd would not give. The TPU kernel's lane
+// packing (segment matrices, head-repeated k/v, a softmax max shared by all
+// heads of a row) is not carried over, as in the forward.
+//
+// This first version computes every product with f32 FMAs on the CUDA
+// cores; tensor cores and TMA are later steps.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cmath>
+#include <cstddef>
+
+namespace {
+
+constexpr float kEps2 = 1e-24f;  // (1e-12)^2, the l2_normalize guard
+constexpr int kReduceCols = 32;  // second pass: columns per block
+constexpr int kReduceRows = 16;  // second pass: window slices per column
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Round to the compute dtype T and widen again: the casts _bwd_jnp applies
+// before each product.
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Shared memory, in floats: q̂, k̂, dq̂, dk̂, v and g as (N, hd+1), the
+// padded row keeping every product loop free of bank conflicts; s_raw, p
+// and dp/ds as (N, N+1); 6N row values (two inverse norms, two active
+// flags, two row sums); 32 per-warp partial sums. The Python wrapper
+// computes the same size (_bwd_smem_bytes).
+__host__ __device__ inline size_t smem_floats(int N, int hd) {
+  const size_t n = static_cast<size_t>(N);
+  return 6 * n * (hd + 1) + 3 * n * (N + 1) + 6 * n + 32;
+}
+
+// One block per (window, head); blockIdx.x = window·num_heads + head.
+// partial[blockIdx.x] receives this block's ds (N·N values) and its
+// Σ ds·s_raw (one value). Every value is rounded to T once, where _bwd_jnp
+// casts it, and kept rounded in shared memory for the products.
+template <typename T>
+__global__ void window_attn_bwd_kernel(const T* __restrict__ qkv,
+                                       const float* __restrict__ scale,
+                                       const float* __restrict__ bias16,
+                                       const float* __restrict__ mask,
+                                       const T* __restrict__ g,
+                                       T* __restrict__ dqkv,
+                                       float* __restrict__ partial, int N,
+                                       int C, int num_heads,
+                                       int n_win_per_img) {
+  extern __shared__ float smem[];
+  const int hd = C / num_heads;
+  const int ld = hd + 1;
+  const int lds = N + 1;
+  float* qs = smem;            // q, then round(q̂), then q̂ (f32)
+  float* ks = qs + N * ld;     // k, then round(k̂), then k̂
+  float* dqs = ks + N * ld;    // dq̂
+  float* dks = dqs + N * ld;   // dk̂
+  float* vs = dks + N * ld;    // v
+  float* gs = vs + N * ld;     // g in the compute dtype
+  float* sr = gs + N * ld;     // s_raw
+  float* ps = sr + N * lds;    // s, then p
+  float* dps = ps + N * lds;   // round(p), then dp, then round(ds·scale)
+  float* rn = dps + N * lds;   // 1/‖q‖ (N), 1/‖k‖ (N)
+  float* an = rn + 2 * N;      // Σx² > eps² for q (N), k (N)
+  float* rs = an + 2 * N;      // row sums
+  float* wsum = rs + 2 * N;    // one partial sum per warp
+
+  const long long w = blockIdx.x / num_heads;
+  const int h = static_cast<int>(blockIdx.x - w * num_heads);
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthr >> 5;
+  const size_t row_stride = static_cast<size_t>(3) * C;
+  const size_t head_off = static_cast<size_t>(h) * hd;
+  const T* base = qkv + static_cast<size_t>(w) * N * row_stride + head_off;
+  const T* gbase = g + static_cast<size_t>(w) * N * C + head_off;
+  T* dbase = dqkv + static_cast<size_t>(w) * N * row_stride + head_off;
+
+  // 1. stage this head's q, k, v and g
+  for (int i = tid; i < N * hd; i += nthr) {
+    const int n = i / hd;
+    const int d = i - n * hd;
+    const T* row = base + static_cast<size_t>(n) * row_stride + d;
+    qs[n * ld + d] = to_f32<T>(row[0]);
+    ks[n * ld + d] = to_f32<T>(row[C]);
+    vs[n * ld + d] = to_f32<T>(row[2 * C]);
+    gs[n * ld + d] = to_f32<T>(gbase[static_cast<size_t>(n) * C + d]);
+  }
+  __syncthreads();
+
+  // 2. inverse L2 norms and active flags of the q and k rows
+  for (int r = tid; r < 2 * N; r += nthr) {
+    const float* x = r < N ? qs + r * ld : ks + (r - N) * ld;
+    float s2 = 0.f;
+    for (int d = 0; d < hd; ++d) s2 = fmaf(x[d], x[d], s2);
+    rn[r] = rsqrtf(fmaxf(s2, kEps2));
+    an[r] = s2 > kEps2 ? 1.f : 0.f;
+  }
+  __syncthreads();
+
+  for (int i = tid; i < N * hd; i += nthr) {
+    const int n = i / hd;
+    const int d = i - n * hd;
+    qs[n * ld + d] = round_to<T>(qs[n * ld + d] * rn[n]);
+    ks[n * ld + d] = round_to<T>(ks[n * ld + d] * rn[N + n]);
+  }
+  __syncthreads();
+
+  // 3. s_raw and the scaled, biased (and masked) scores
+  const float sc = scale[h];
+  const float* bh = bias16 + static_cast<size_t>(h) * N * N;
+  const float* mw =
+      mask != nullptr
+          ? mask + static_cast<size_t>(w % n_win_per_img) * N * N
+          : nullptr;
+  for (int i = tid; i < N * N; i += nthr) {
+    const int r = i / N;
+    const int c = i - r * N;
+    const float* qr = qs + r * ld;
+    const float* kr = ks + c * ld;
+    float acc = 0.f;
+    for (int d = 0; d < hd; ++d) acc = fmaf(qr[d], kr[d], acc);
+    float s = acc * sc + bh[i];
+    if (mw != nullptr) s += mw[i];
+    sr[r * lds + c] = acc;
+    ps[r * lds + c] = s;
+  }
+  __syncthreads();
+
+  // 4. p = softmax(s) in f32, one warp per row, max per head; round(p)
+  for (int r = warp; r < N; r += nwarps) {
+    float* pr = ps + r * lds;
+    float m = -INFINITY;
+    for (int c = lane; c < N; c += 32) m = fmaxf(m, pr[c]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int c = lane; c < N; c += 32) {
+      const float e = expf(pr[c] - m);
+      pr[c] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int c = lane; c < N; c += 32) {
+      pr[c] = pr[c] / sum;
+      dps[r * lds + c] = round_to<T>(pr[c]);
+    }
+  }
+  __syncthreads();
+
+  // 5. dv = round(p)ᵀ·g straight to the output
+  for (int i = tid; i < N * hd; i += nthr) {
+    const int j = i / hd;
+    const int d = i - j * hd;
+    float acc = 0.f;
+    for (int r = 0; r < N; ++r)
+      acc = fmaf(dps[r * lds + j], gs[r * ld + d], acc);
+    dbase[static_cast<size_t>(j) * row_stride + 2 * C + d] = from_f32<T>(acc);
+  }
+  __syncthreads();
+
+  // 6. dp = g·vᵀ
+  for (int i = tid; i < N * N; i += nthr) {
+    const int r = i / N;
+    const int c = i - r * N;
+    const float* gr = gs + r * ld;
+    const float* vr = vs + c * ld;
+    float acc = 0.f;
+    for (int d = 0; d < hd; ++d) acc = fmaf(gr[d], vr[d], acc);
+    dps[r * lds + c] = acc;
+  }
+  __syncthreads();
+
+  // 7. ds = p∘(dp − rowsum(dp∘p)), one warp per row: its dbias partial,
+  //    its share of Σ ds·s_raw, and round(ds·scale) kept for the products
+  float* pblk = partial + static_cast<size_t>(blockIdx.x) * (N * N + 1);
+  float dsc_acc = 0.f;
+  for (int r = warp; r < N; r += nwarps) {
+    const float* pr = ps + r * lds;
+    float* dr = dps + r * lds;
+    float t = 0.f;
+    for (int c = lane; c < N; c += 32) t = fmaf(dr[c], pr[c], t);
+    t = warp_sum(t);
+    for (int c = lane; c < N; c += 32) {
+      const float ds = pr[c] * (dr[c] - t);
+      pblk[r * N + c] = ds;
+      dsc_acc = fmaf(ds, sr[r * lds + c], dsc_acc);
+      dr[c] = round_to<T>(ds * sc);
+    }
+  }
+  dsc_acc = warp_sum(dsc_acc);
+  if (lane == 0) wsum[warp] = dsc_acc;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.f;
+    for (int i = 0; i < nwarps; ++i) total += wsum[i];
+    pblk[N * N] = total;
+  }
+
+  // 8. dq̂ = dsc·round(k̂), dk̂ = dscᵀ·round(q̂)
+  for (int i = tid; i < N * hd; i += nthr) {
+    const int n = i / hd;
+    const int d = i - n * hd;
+    float aq = 0.f;
+    float ak = 0.f;
+    for (int j = 0; j < N; ++j) {
+      aq = fmaf(dps[n * lds + j], ks[j * ld + d], aq);
+      ak = fmaf(dps[j * lds + n], qs[j * ld + d], ak);
+    }
+    dqs[n * ld + d] = aq;
+    dks[n * ld + d] = ak;
+  }
+  __syncthreads();
+
+  // 9. the L2-norm backward needs the unrounded q̂, k̂: recompute them from
+  //    the inputs, then the row sums of dq̂∘q̂ and dk̂∘k̂, then dq, dk
+  for (int i = tid; i < N * hd; i += nthr) {
+    const int n = i / hd;
+    const int d = i - n * hd;
+    const T* row = base + static_cast<size_t>(n) * row_stride + d;
+    qs[n * ld + d] = to_f32<T>(row[0]) * rn[n];
+    ks[n * ld + d] = to_f32<T>(row[C]) * rn[N + n];
+  }
+  __syncthreads();
+  for (int r = tid; r < 2 * N; r += nthr) {
+    const float* x = r < N ? qs + r * ld : ks + (r - N) * ld;
+    const float* dx = r < N ? dqs + r * ld : dks + (r - N) * ld;
+    float t = 0.f;
+    for (int d = 0; d < hd; ++d) t = fmaf(dx[d], x[d], t);
+    rs[r] = t;
+  }
+  __syncthreads();
+  for (int i = tid; i < N * hd; i += nthr) {
+    const int n = i / hd;
+    const int d = i - n * hd;
+    const float dq = rn[n] * (dqs[n * ld + d] -
+                              an[n] * qs[n * ld + d] * rs[n]);
+    const float dk = rn[N + n] * (dks[n * ld + d] -
+                                  an[N + n] * ks[n * ld + d] * rs[N + n]);
+    T* drow = dbase + static_cast<size_t>(n) * row_stride + d;
+    drow[0] = from_f32<T>(dq);
+    drow[C] = from_f32<T>(dk);
+  }
+}
+
+// Second pass: out[h, i] = Σ_w partial[w·num_heads + h, i] for every
+// column i < N·N + 1. Each thread sums a fixed slice of the windows and the
+// slices are added in a fixed order, so the sum does not depend on the
+// schedule.
+__global__ void window_sum_kernel(const float* __restrict__ partial,
+                                  float* __restrict__ out, int n_windows,
+                                  int num_heads, int cols) {
+  __shared__ float part[kReduceRows][kReduceCols];
+  const int h = blockIdx.y;
+  const int col = blockIdx.x * kReduceCols + threadIdx.x;
+  float acc = 0.f;
+  if (col < cols) {
+    for (int w = threadIdx.y; w < n_windows; w += kReduceRows)
+      acc += partial[(static_cast<size_t>(w) * num_heads + h) * cols + col];
+  }
+  part[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < cols) {
+    float total = 0.f;
+    for (int r = 0; r < kReduceRows; ++r) total += part[r][threadIdx.x];
+    out[static_cast<size_t>(h) * cols + col] = total;
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* qkv, const void* scale, const void* bias16,
+                   const void* mask, const void* g, void* dqkv, void* partial,
+                   void* out, long long n_windows, int N, int C,
+                   int num_heads, int n_win_per_img, int threads,
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats(N, C / num_heads);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        window_attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const unsigned blocks = static_cast<unsigned>(n_windows * num_heads);
+  window_attn_bwd_kernel<T><<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const float*>(scale),
+      static_cast<const float*>(bias16), static_cast<const float*>(mask),
+      static_cast<const T*>(g), static_cast<T*>(dqkv),
+      static_cast<float*>(partial), N, C, num_heads, n_win_per_img);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int cols = N * N + 1;
+  const dim3 grid((cols + kReduceCols - 1) / kReduceCols, num_heads);
+  const dim3 block(kReduceCols, kReduceRows);
+  window_sum_kernel<<<grid, block, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out),
+      static_cast<int>(n_windows), num_heads, cols);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype code: 0 = float32, 1 = bfloat16, for qkv, g and dqkv alike.
+// partial holds n_windows·num_heads·(N·N + 1) floats of scratch; out
+// receives (num_heads, N·N + 1): dbias in the first N·N columns, dscale in
+// the last. Returns the launches' cudaGetLastError(); both kernels run
+// asynchronously on `stream`.
+extern "C" int window_attn_bwd(const void* qkv, const void* scale,
+                               const void* bias16, const void* mask,
+                               const void* g, void* dqkv, void* partial,
+                               void* out, long long n_windows, int N, int C,
+                               int num_heads, int n_win_per_img, int dtype,
+                               int threads, void* stream) {
+  if (n_windows <= 0 || N <= 0 || num_heads <= 0 || C % num_heads != 0 ||
+      n_win_per_img <= 0 || threads <= 0 || threads > 1024 ||
+      threads % 32 != 0 || n_windows * num_heads > INT_MAX ||
+      n_windows > INT_MAX || dtype < 0 || dtype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(qkv, scale, bias16, mask, g, dqkv, partial, out,
+                         n_windows, N, C, num_heads, n_win_per_img, threads,
+                         s);
+  return launch<__nv_bfloat16>(qkv, scale, bias16, mask, g, dqkv, partial,
+                               out, n_windows, N, C, num_heads,
+                               n_win_per_img, threads, s);
+}

@@ -1,4 +1,5 @@
-"""Synthetic identity data (numpy copies of fr_tpu/data/synthetic.py, whose
+"""Synthetic identity data and in-memory loaders (numpy copies of
+fr_tpu/data/synthetic.py and fr_tpu/data/folder.py::ArrayTrainLoader, whose
 package top imports jax). Each class has a fixed template; samples are
 template + noise. Real-dataset loaders wait for datasets in the repository
 (ROADMAP §1, eval extras)."""
@@ -51,3 +52,28 @@ class ArrayPairDataset:
     def batches(self, batch_size: int):
         for s in range(0, len(self.labels), batch_size):
             yield self.pairs[s:s + batch_size], self.labels[s:s + batch_size]
+
+
+class ArrayTrainLoader:
+    """In-memory training batches: a seeded permutation per epoch, whole
+    batches only (fr_tpu's ArrayTrainLoader on one process)."""
+
+    def __init__(self, images: np.ndarray, labels: np.ndarray,
+                 batch_size: int, seed: int = 0):
+        if images.dtype != np.uint8 or images.ndim != 4:
+            raise ValueError(f"uint8 NHWC images expected, got "
+                             f"{images.dtype} {images.shape}")
+        self.images = images
+        self.labels = labels.astype(np.int32)
+        self.batch_size = batch_size
+        self.seed = seed
+
+    def steps_per_epoch(self) -> int:
+        return len(self.images) // self.batch_size
+
+    def epoch(self, epoch: int):
+        order = np.random.default_rng(self.seed + epoch).permutation(
+            len(self.images))
+        for s in range(self.steps_per_epoch()):
+            sel = order[s * self.batch_size:(s + 1) * self.batch_size]
+            yield self.images[sel], self.labels[sel]

@@ -11,14 +11,14 @@ fr_tpu/utils/torch_export.py:140-205 also writes.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from fr_tpu_torch.models.common import (BatchNorm1d, BatchNorm2d, Conv, Dense,
-                                        max_pool_3x3_s2)
+                                        dropout, max_pool_3x3_s2)
 from fr_tpu_torch.models.resnet import BasicBlock
 from fr_tpu_torch.models.swin_common import (DropPath, WindowAttention,
                                              adaptive_avg_pool,
@@ -49,8 +49,9 @@ class AlterSwinBlock(nn.Module):
                 input_resolution[0], input_resolution[1], window, shift))
         self.register_buffer("attn_mask", mask)
 
-    def forward(self, x):
-        """x: NCHW (channels_last memory) → same."""
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """x: NCHW (channels_last memory) → same; ``generator`` feeds
+        DropPath in training."""
         H, W = x.shape[2], x.shape[3]
         s, ws = self.shift, self.window
         xh = x.permute(0, 2, 3, 1)
@@ -61,7 +62,7 @@ class AlterSwinBlock(nn.Module):
         if s > 0:
             xh = torch.roll(xh, (s, s), dims=(1, 2))
         out = self.norm2(xh.permute(0, 3, 1, 2))
-        return x + self.drop_path(out)
+        return x + self.drop_path(out, generator)
 
 
 def alt_sequence(blocks: int, blocks2: int) -> Sequence[bool]:
@@ -77,7 +78,11 @@ def alt_sequence(blocks: int, blocks2: int) -> Sequence[bool]:
 
 
 class AlterNet(nn.Module):
-    """Forward takes NHWC images; any stage plan, like the flax module."""
+    """Forward takes NHWC images; any stage plan, like the flax module.
+
+    In training, head dropout and every block's DropPath draw from the
+    ``generator`` passed to forward (fr_tpu's "dropout" RNG stream); a
+    non-zero rate without one raises."""
 
     def __init__(self, num_blocks: Sequence[int], num_blocks2: Sequence[int],
                  heads: Sequence[int], img_size: int = 192,
@@ -109,16 +114,21 @@ class AlterNet(nn.Module):
             setattr(self, f"layer{si}", nn.Sequential(*mods))
             inplanes = planes
         self.bn2 = BatchNorm2d(emd_size)
-        self.dropout = nn.Dropout(head_drop)
+        self.head_drop = head_drop
         self.fc = Dense(emd_size * 36, emd_size)
         self.bn3 = BatchNorm1d(emd_size)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
         for si in range(1, 5):
-            x = getattr(self, f"layer{si}")(x)
-        x = self.dropout(F.relu(self.bn2(x))).float()
+            for block in getattr(self, f"layer{si}"):
+                x = (block(x, generator) if isinstance(block, AlterSwinBlock)
+                     else block(x))
+        x = F.relu(self.bn2(x))
+        if self.training:
+            x = dropout(x, self.head_drop, generator)
+        x = x.float()
         x = adaptive_avg_pool(x.permute(0, 2, 3, 1), 6, 6)
         # NCHW flatten order, as fr_tpu transposes before its Dense
         x = x.permute(0, 3, 1, 2).flatten(1)

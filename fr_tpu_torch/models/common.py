@@ -12,11 +12,16 @@ to its input's dtype (fr_tpu/models/common.py:61-81).
 
 Initialisation matches fr_tpu: Xavier-normal (untruncated) conv and dense
 weights, zero biases, BN gamma 1 and beta 0.
+
+Randomness in training (dropout, stochastic depth) draws from an explicit
+``torch.Generator`` that the caller passes down; nothing here touches the
+global RNG.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -38,19 +43,57 @@ class Conv(nn.Conv2d):
                         self.padding)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """torch defaults (eps 1e-5, momentum 0.1); statistics and affine math in
-    f32 whatever the input dtype, output cast back to it."""
+class _FlaxBatchNorm:
+    """flax BatchNorm semantics (fr_tpu/models/common.py:61-81): eps 1e-5,
+    running statistics updated as 0.9·old + 0.1·batch, statistics and affine
+    math in f32 whatever the input dtype, output cast back to it.
+
+    In training the running variance takes the *biased* batch variance, as
+    flax does; torch's own BatchNorm takes the unbiased one, n/(n−1) larger
+    (a third larger for BN1d over 4 samples). torch's update runs inside
+    its fused BatchNorm, R₁ = (1−m)·R₀ + m·v·n/(n−1); the batch's share is
+    then scaled back by (n−1)/n on the (C,) buffer, which needs no second
+    pass over the activations."""
 
     def forward(self, x):
-        return super().forward(x.float()).to(x.dtype)
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(xf, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0,
+                                self.eps).to(x.dtype)
+        m = self.momentum
+        n = xf.numel() // xf.shape[1]
+        # torch updates a copy: autograd keeps the buffer it was given
+        updated = self.running_var.clone()
+        y = F.batch_norm(xf, self.running_mean, updated, self.weight,
+                         self.bias, True, m, self.eps)
+        with torch.no_grad():
+            kept = self.running_var * (1.0 - m)
+            self.running_var.copy_(kept + (updated - kept) * ((n - 1) / n))
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
-class BatchNorm1d(nn.BatchNorm1d):
-    """The embedding head's BN1d, f32 math like BatchNorm2d."""
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """torch layout and defaults (eps 1e-5, momentum 0.1 = flax 0.9)."""
 
-    def forward(self, x):
-        return super().forward(x.float()).to(x.dtype)
+
+class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    """The embedding head's BN1d."""
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep each element with probability
+    1 − rate and scale the kept ones by 1/(1 − rate)."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs an explicit "
+                         "torch.Generator (the port uses no global RNG)")
+    keep = 1.0 - rate
+    draw = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 
 class Dense(nn.Linear):

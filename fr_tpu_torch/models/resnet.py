@@ -8,7 +8,7 @@ loads with ``load_state_dict(strict=True)``.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -43,7 +43,8 @@ class BasicBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Face-embedding ResNet; forward takes NHWC images."""
+    """Face-embedding ResNet; forward takes NHWC images. It draws no random
+    numbers; ``generator`` is accepted for the encoders' common call."""
 
     def __init__(self, layers: Sequence[int], emd_size: int = 512,
                  img_size: int = 112,
@@ -65,7 +66,7 @@ class ResNet(nn.Module):
         self.fc = Dense(emd_size * side * side, emd_size)
         self.bn3 = BatchNorm1d(emd_size)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         x = max_pool_3x3_s2(F.relu(self.bn1(self.conv1(x))))
         for si in range(1, 5):

@@ -6,8 +6,9 @@ and the continuous-position-bias tables are numpy constants computed with
 the same math as fr_tpu; attention is cosine attention with a per-head
 clamped logit scale and the 2→512→heads CPB MLP with 16·sigmoid bias.
 
-Everything between the qkv and output projections runs in one kernel,
-``ops.fused_window_attention_packed``. fr_tpu's spatial and entry-fused
+Everything between the qkv and output projections runs in one op,
+``ops.fused_window_attention_packed``: a forward kernel, and under autograd
+a recompute backward kernel. fr_tpu's spatial and entry-fused
 variants are off by default there (SPATIAL_KERNEL_CONFIGS is empty,
 entry_fused=False) and are not ported.
 """
@@ -147,19 +148,25 @@ class WindowAttention(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth; identity in eval. Its training draw
-    (under an explicit torch.Generator) comes with the training step,
-    ROADMAP §1 slice 2."""
+    """Per-sample stochastic depth (fr_tpu/models/swin_common.py:394-405):
+    in training each sample's branch is kept with probability 1 − rate and
+    scaled by 1/(1 − rate), drawn from the explicit generator; identity in
+    eval."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         if self.rate == 0.0 or not self.training:
             return x
-        raise NotImplementedError("DropPath in training mode is not ported "
-                                  "yet: ROADMAP §1 slice 2")
+        if generator is None:
+            raise ValueError("DropPath in training needs an explicit "
+                             "torch.Generator (the port uses no global RNG)")
+        keep = 1.0 - self.rate
+        draw = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                          generator=generator, device=x.device)
+        return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 
 def adaptive_avg_pool(x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:

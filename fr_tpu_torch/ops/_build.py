@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``fr_tpu_torch/csrc/`` have a plain C interface. At first
-use they are compiled with nvcc for sm_90a into one shared library under
-``fr_tpu_torch/_build/`` (listed in .gitignore), named by a hash of the
-sources and flags so an edit rebuilds, and loaded with ctypes: every pointer
-and the stream pass as ``c_void_p``. A missing nvcc or a failed build
-raises; nothing falls back.
+use each is compiled with nvcc for sm_90a into an object file, all of them
+at once in parallel, and the objects are linked into one shared library
+under ``fr_tpu_torch/_build/`` (listed in .gitignore), named by a hash of
+the sources and flags so an edit rebuilds. The library is loaded with
+ctypes: every pointer and the stream pass as ``c_void_p``. A missing nvcc or
+a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -21,11 +22,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("window_attn_fwd.cu",)
+SOURCES = ("window_attn_fwd.cu", "window_attn_bwd.cu", "margin_ce.cu")
 # -Xptxas -v writes each kernel's registers, shared memory and spills to
 # the build log next to the library.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -60,16 +61,42 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+            for name, obj in zip(SOURCES, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    log, failed = [], []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=900)
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} (exit code {proc.returncode}):\n"
+                              f"{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    build_log_path().write_text(" ".join(cmd) + "\n" + proc.stdout
-                                + proc.stderr)
-    if proc.returncode != 0:
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit code {proc.returncode}):\n"
+                          f"{proc.stderr}")
+    build_log_path().write_text("\n".join(log))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stderr}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)   # atomic: a concurrent process never loads half a file
     return so
 
@@ -77,10 +104,32 @@ def build() -> Path:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.window_attn_fwd.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong,
-                                    i32, i32, i32, i32, i32, i32, i32, vp]
-    lib.window_attn_fwd.restype = i32
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i64 = ctypes.c_longlong
+    margin = [i32, f32, f32, f32, f32, f32, f32]   # kind, s, cos_m .. m
+    signatures = {
+        "window_attn_fwd": [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32,
+                            i32, i32, vp],
+        "window_attn_bwd": [vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
+                            i32, i32, i32, i32, vp],
+        "margin_ce_stats": [vp, vp, vp, vp, i32, i32, i32, i32, *margin, i32,
+                            vp, vp, vp, vp, vp],
+        "margin_ce_grad_emb": [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                               *margin, i32, vp, vp, vp],
+        "margin_ce_grad_w": [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                             *margin, vp, vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i32
     lib.cuda_error_string.argtypes = [i32]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raises when a launch entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.cuda_error_string(err).decode()})")

@@ -1,1 +1,2 @@
-"""Embedding step, task and trainer of the port (counterpart of fr_tpu/train)."""
+"""Training and embedding steps, optimizers, schedule, state, task and
+trainer of the port (counterpart of fr_tpu/train)."""

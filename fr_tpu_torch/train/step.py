@@ -1,17 +1,105 @@
-"""The embedding step (counterpart of fr_tpu/train/step.py:452-475 and
-:545-559), single device.
+"""The training step and the embedding step (counterpart of
+fr_tpu/train/step.py: ``_device_step`` :103-226 with one device, the
+augmentation dispatch :253-272, and :452-475, :545-559), single device.
 
-The training step is not ported yet (ROADMAP §1, slice 2).
+The training step, in fr_tpu's order:
+  sample the head's columns (positives forced in) → each sample's target
+  column → encoder in train mode (BN batch statistics, running statistics
+  updated) → f32 L2-normalise → shard_softmax_ce, mean over the batch →
+  backward → clip the encoder's gradients to global norm 5 → update the
+  encoder, then the head's sampled rows.
+Augmentation, when configured, runs as its own call before the step.
+
+Random numbers come from explicit generators, one per fr_tpu RNG stream
+(``stream_generators``); JAX and torch streams differ, so a test feeds the
+JAX side's sampled columns in through ``sample_idx``.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from fr_tpu_torch.data.augment import augment
+from fr_tpu_torch.heads.partial_fc import (PFCConfig, label_columns,
+                                          sample_columns, shard_softmax_ce,
+                                          shard_valid_mask)
 from fr_tpu_torch.models.common import l2_normalize
+from fr_tpu_torch.train.optim import (clip_by_global_norm, encoder_update,
+                                      pfc_row_update)
+from fr_tpu_torch.train.state import TrainState
+
+# fr_tpu's stream_key tags
+STREAMS = {"sample": 0, "augment": 1, "dropout": 2}
+MAX_GRAD_NORM = 5.0
+
+
+def stream_generators(seed: int, device) -> Dict[str, torch.Generator]:
+    """One generator per RNG stream (negative sampling, augmentation,
+    dropout), seeded apart from each other."""
+    return {name: torch.Generator(device=device).manual_seed(
+        seed * len(STREAMS) + tag) for name, tag in STREAMS.items()}
+
+
+def make_train_step(conf, pfc_cfg: PFCConfig, device,
+                    augment_cfg: Optional[tuple] = None,
+                    seed: int = 0) -> Callable:
+    """step(state, images, labels, lr, sample_idx=None) → metrics.
+
+    images: (B, H, W, 3) float32, or uint8 when augment_cfg is given; labels
+    (B,) int class ids; lr a float. Updates ``state`` in place and returns
+    {"loss", "grad_norm"} as device scalars and "lr". ``sample_idx`` (test
+    use) replaces the drawn sampled columns with a given sorted index
+    vector. The encoder is the state's."""
+    device = torch.device(device)
+    gens = stream_generators(seed, device)
+    optimizer = conf.optimizer_name
+    cfg = pfc_cfg
+    valid = shard_valid_mask(cfg, device)
+
+    def step(state: TrainState, images, labels, lr: float,
+             sample_idx=None) -> Dict:
+        images = torch.as_tensor(images).to(device)
+        labels = torch.as_tensor(labels).to(device).long()
+        if augment_cfg is not None:
+            images = augment(images, augment_cfg, gens["augment"])
+        pfc = state.pfc
+        if cfg.sampling:
+            if sample_idx is None:
+                owned = (labels >= 0) & (labels < cfg.num_local)
+                pos = torch.zeros(cfg.num_local, dtype=torch.bool,
+                                  device=device)
+                pos[labels[owned]] = True
+                idx = sample_columns(cfg, gens["sample"], pos, valid)
+            else:
+                idx = torch.as_tensor(sample_idx).to(device).long()
+            col_valid = valid[idx]
+            w_rows = pfc.weight.index_select(0, idx)
+        else:
+            idx, col_valid, w_rows = None, valid, pfc.weight
+        label_cols = label_columns(cfg, labels, idx)
+
+        encoder = state.encoder
+        encoder.train()
+        names, params = zip(*encoder.named_parameters())
+        w_act = w_rows.detach().requires_grad_(True)
+        emb = l2_normalize(encoder(images, gens["dropout"]).float())
+        loss = shard_softmax_ce(cfg, emb, label_cols, w_act, col_valid).mean()
+        *g_enc, g_rows = torch.autograd.grad(loss, [*params, w_act])
+
+        g_enc, grad_norm = clip_by_global_norm(g_enc, MAX_GRAD_NORM)
+        slots = {k: [v[n] for n in names] for k, v in state.opt_slots.items()}
+        encoder_update(optimizer, conf, [p.data for p in params], g_enc,
+                       slots, lr, state.step + 1)
+        pfc_row_update(optimizer, conf, pfc.weight, pfc.slots, idx, g_rows,
+                       lr, pfc.count + 1, cfg.sample_block)
+        state.step += 1
+        pfc.count += 1
+        return {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr}
+
+    return step
 
 
 def _resize_weights(in_size: int, out_size: int) -> np.ndarray:

@@ -1,32 +1,48 @@
-"""Task module: owns the encoder and the evaluation logic (counterpart of
-fr_tpu/train/task.py), with fr_tpu's Lightning-style hook names so the
-Trainer mirrors fr_tpu's call for call.
+"""Task module: owns the encoder, the PartialFC head, the optimizer state,
+the schedule and the evaluation logic (counterpart of fr_tpu/train/task.py),
+with fr_tpu's Lightning-style hook names so the Trainer mirrors fr_tpu's
+call for call.
 
-Ported: the test-stage hooks (test_step / test_epoch_end and the
-validation_* pair). The PartialFC head, the optimizer and the training
-hooks are ROADMAP §1 slice 2; the all-pairs cross test is ROADMAP §1,
-eval extras.
+Ported: the training hooks (training_step / training_epoch_end) on one
+device, and the test-stage hooks (test_step / test_epoch_end and the
+validation_* pair). The all-pairs cross test is ROADMAP §1, eval extras.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from fr_tpu.configs.base import Config
 from fr_tpu.utils.logger import print_log
+from fr_tpu_torch.data.augment import augment_cfg_from_conf
 from fr_tpu_torch.eval.verification import (pair_score, performance_acc,
                                             performance_roc)
+from fr_tpu_torch.heads.partial_fc import PFCConfig
 from fr_tpu_torch.models import build_encoder
 from fr_tpu_torch.models.common import init_weights
-from fr_tpu_torch.train.step import embed_global_batch, make_embed_step
+from fr_tpu_torch.train.schedule import get_schedule
+from fr_tpu_torch.train.state import init_train_state
+from fr_tpu_torch.train.step import (embed_global_batch, make_embed_step,
+                                     make_train_step)
 
-_TRAINING = "training is not ported yet: ROADMAP §1 slice 2 (AlterNet50 " \
-            "training step)"
 _CROSS = "the cross test is not ported yet: ROADMAP §1, eval extras"
+
+
+def pfc_config_from_conf(conf) -> PFCConfig:
+    """The head's configuration; use_fused (the margin-softmax CE kernels)
+    comes from conf as in fr_tpu, default off."""
+    return PFCConfig(
+        num_classes=conf.n_classes, embedding_size=conf.emd_size,
+        sample_rate=conf.get("sample_rate", 1.0),
+        margin=conf.metric, s=conf.loss_s, m=conf.loss_m,
+        mixed_precision=conf.mixed_precision, optimizer=conf.optimizer_name,
+        use_fused=bool(conf.get("use_fused", False)),
+        easy_margin=bool(conf.get("easy_margin", False)),
+        sample_block=int(conf.get("sample_block", 1)))
 
 
 def resolve_device(name) -> torch.device:
@@ -40,12 +56,14 @@ def resolve_device(name) -> torch.device:
 
 
 class FaceRecognitionTask:
-    """Encoder + eval logic on one device."""
+    """Encoder (+ head, optimizer state and schedule for stage "train") and
+    eval logic on one device. Training batches are uint8 images; the
+    train-time augmentation runs on the device, as in fr_tpu."""
 
     def __init__(self, conf, logger=None, stage: str = "test",
                  device="cuda", seed: int = 0):
-        if stage != "test":
-            raise NotImplementedError(_TRAINING)
+        if stage not in ("train", "test"):
+            raise ValueError(f"stage must be 'train' or 'test', got {stage!r}")
         self.conf = conf
         self.logger_ = logger
         self.device = resolve_device(device)
@@ -57,8 +75,21 @@ class FaceRecognitionTask:
                 conf.ckpt_path, conf.network, conf.img_size), strict=True)
         self.encoder.to(self.device).eval()
         n_params = sum(p.numel() for p in self.encoder.parameters())
-        print_log(logger, f"{conf.network}: {n_params:,} encoder parameters "
-                          f"on {self.device}")
+        msg = f"{conf.network}: {n_params:,} encoder parameters"
+        if stage == "train":
+            self.pfc_cfg = pfc_config_from_conf(conf)
+            self.schedule = get_schedule(conf)
+            self.epoch = 0
+            self.history: List[Dict[str, Any]] = []
+            self.state = init_train_state(conf, self.encoder, self.pfc_cfg,
+                                          self.device, seed)
+            self._train_step = make_train_step(
+                conf, self.pfc_cfg, self.device,
+                augment_cfg_from_conf(conf), seed)
+            msg += (f", head {self.pfc_cfg.num_classes_padded:,} x "
+                    f"{conf.emd_size} ({self.pfc_cfg.num_sample:,} columns "
+                    f"sampled per step)")
+        print_log(logger, f"{msg} on {self.device}")
         self._embed = make_embed_step(conf, self.encoder, self.device)
         self.min_level = conf.min_level
         self.max_level = conf.max_level
@@ -66,13 +97,51 @@ class FaceRecognitionTask:
         self.test_msg: Dict[str, Config] = {}
 
     # ------------------------------------------------------------------
-    # Training (not ported)
+    # Training
     # ------------------------------------------------------------------
-    def training_step(self, batch):
-        raise NotImplementedError(_TRAINING)
+    def training_step(self, batch) -> Dict[str, Any]:
+        """One optimisation step on (images, labels) host arrays or
+        tensors; the loss stays on the device."""
+        images, labels = batch
+        lr = self.schedule(self.epoch)
+        metrics = self._train_step(self.state, images, labels, lr)
+        return {"loss": metrics["loss"], "lr": lr}
 
-    def training_epoch_end(self, outputs, running_t=None):
-        raise NotImplementedError(_TRAINING)
+    def training_epoch_end(self, outputs: List[Dict], running_t=None):
+        """Per-epoch report (fr_tpu's text); appends the epoch's results to
+        ``history``."""
+        train_loss = float(torch.stack([o["loss"] for o in outputs]).mean())
+        lr = self.schedule(self.epoch)
+        epoch = self.epoch + 1
+
+        msg = "=" * 50
+        msg += (f'\n[Training with "{self.conf.train_dataset}"]\n'
+                f"- Epoch {epoch}/{self.conf.num_epoch}\n"
+                f"- Learning Rate: {lr}\n"
+                f"- Train Loss: {train_loss:.4f}\n")
+        if running_t is not None:
+            msg += f"- Training Time per Epoch: {running_t:.2f}s\n"
+            n_imgs = len(outputs) * self.conf.b
+            if running_t > 0:
+                msg += (f"- Throughput: {n_imgs / running_t:.1f} imgs/sec "
+                        f"({n_imgs / running_t:.1f} imgs/sec/chip)\n")
+
+        val_acc = None
+        if epoch % self.conf.valid_freq == 0 and self.val_msg:
+            val_acc = Config()
+            for name, vm in self.val_msg.items():
+                val_acc[name] = vm.acc
+                msg += "\n".join([
+                    f'\n\n[Validation with "{name}"]',
+                    f"- Val Accuracy: {vm.acc:.2f}%",
+                    f"- Val Inference Time: {vm.infer_time:.2f}ms\n"])
+                msg += vm.roc
+        msg += "=" * 50 + "\n"
+        print_log(self.logger_, msg)
+        self.epoch += 1
+        results = {"lr": lr, "train_loss": train_loss, "val_acc": val_acc}
+        self.history.append(results)
+        return results
 
     # ------------------------------------------------------------------
     # Validation / pair test

@@ -1,10 +1,19 @@
-"""Test loop (counterpart of fr_tpu/train/trainer.py:132-160), with the same
-report text. The training loop is ROADMAP §1 slice 2."""
+"""Training and test loops (counterpart of fr_tpu/train/trainer.py), with
+the same report text.
+
+The training loop: epochs of the loader's batches through the task's
+training step, validation every ``valid_freq`` epochs, the epoch report,
+and an encoder snapshot every ``save_epoch`` epochs in fr_tpu's ``.npz``
+layout. Not ported yet: the resumable full-state checkpoint (``resume``,
+ROADMAP §1 slice 3), the profiler trace (``profile_steps``, ROADMAP §1,
+tools and the port's bench) and TensorBoard scalars.
+"""
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Optional
 
 from fr_tpu.utils.logger import print_log
 
@@ -16,10 +25,50 @@ class Trainer:
         self.save_dir = Path(save_dir)
         self.logger_ = logger
 
-    def train(self, task, train_loader, val_datasets=None, resume=False,
-              profile_steps: int = 0):
-        raise NotImplementedError("training is not ported yet: ROADMAP §1 "
-                                  "slice 2 (AlterNet50 training step)")
+    def train(self, task, train_loader, val_datasets: Optional[Dict] = None,
+              resume: bool = False, profile_steps: int = 0):
+        """task: FaceRecognitionTask(stage="train"); train_loader: with
+        .epoch(e); val_datasets: {name: pair dataset}."""
+        if resume:
+            raise NotImplementedError(
+                "resuming from a full training state is not ported yet: "
+                "ROADMAP §1 slice 3 (checkpoints with exact resume)")
+        if profile_steps:
+            raise NotImplementedError(
+                "--profile is not ported yet: ROADMAP §1, tools and the "
+                "port's bench")
+        from fr_tpu_torch.utils.jax_import import export_encoder_npz
+
+        conf = self.conf
+        for epoch in range(conf.num_epoch):
+            running_t = 0.0
+            train_outputs: List[Dict] = []
+            print_log(self.logger_, f"{epoch + 1} Epoch Training")
+            for batch in train_loader.epoch(epoch):
+                t0 = time.time()
+                train_outputs.append(task.training_step(batch))
+                running_t += time.time() - t0
+            # the steps run asynchronously on the device: fetch the last
+            # loss inside the timed region so the epoch time is honest
+            if train_outputs:
+                t0 = time.time()
+                float(train_outputs[-1]["loss"])
+                running_t += time.time() - t0
+
+            if (epoch + 1) % conf.valid_freq == 0 and val_datasets:
+                print_log(self.logger_, f"{epoch + 1} Epoch Validation")
+                for v_idx, (name, ds) in enumerate(val_datasets.items()):
+                    val_outputs = [task.validation_step(b, v_idx)
+                                   for b in ds.batches(conf.b)]
+                    task.validation_epoch_end(val_outputs)
+
+            task.training_epoch_end(train_outputs, running_t)
+
+            if (epoch + 1) % conf.save_epoch == 0:
+                export_encoder_npz(
+                    str(self.save_dir / f"{epoch + 1}_epoch_encoder.npz"),
+                    task.encoder, epoch + 1, conf.network, conf.img_size)
+        return task
 
     def test(self, task, test_datasets: Dict):
         """Pair test over each dataset; conf.test_b pairs per batch."""

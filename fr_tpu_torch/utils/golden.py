@@ -1,5 +1,5 @@
-"""Seeded full-width weights and images: how a card without jax is held to
-fr_tpu at the full AlterNet50 width.
+"""Seeded full-width weights, images and training runs: how a card without
+jax is held to fr_tpu at the full AlterNet50 width.
 
 ``seeded_state_dict`` draws every reference-named state-dict key of a port
 encoder from a numpy seed, in state-dict order. fr_tpu takes the same dict
@@ -8,17 +8,27 @@ with ``load_state_dict``. tests/data/alternet50_golden.npz keeps the seed and
 fr_tpu's f32 embeddings of ``golden_images(seed)``; tests/test_torch_alternet.py
 regenerates it with jax and checks the port against it on the CPU, and
 chip_smoke.py checks the card against it.
+
+tests/data/alternet50_train_golden.npz keeps fr_tpu's two SGD steps of the
+seeded AlterNet50 on ``train_golden_batches(seed)``: losses, gradient norms
+and the norm of each tensor's update (``run_train_golden`` is the port's
+side; tests/test_torch_train_golden.py regenerates the file with jax).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from fr_tpu_torch.models.common import xavier_std
+
+# the training golden: full-width AlterNet50, f32, 4 images of 2 synthetic
+# identities per step, 1,000 classes, every class active, SGD, drop rates 0
+TRAIN_GOLDEN = dict(img_size=192, emd_size=512, n_classes=1000, batch=4,
+                    steps=2, lr=1e-4)
 
 # buffers that are functions of the architecture, kept as the model made them
 _FIXED = ("num_batches_tracked", "relative_coords_table",
@@ -58,3 +68,80 @@ def golden_images(seed: int, n: int = 4, img_size: int = 192) -> np.ndarray:
     """(n, img_size, img_size, 3) f32 normalised-range NHWC images."""
     rng = np.random.default_rng(seed + 1)
     return rng.standard_normal((n, img_size, img_size, 3)).astype(np.float32)
+
+
+def train_golden_conf():
+    """The training golden's configuration (SGD, ArcFace s=30 m=0.35, f32,
+    sample_rate 1.0)."""
+    from fr_tpu.configs.base import Config
+
+    return Config(network="AlterNet50", img_size=TRAIN_GOLDEN["img_size"],
+                  emd_size=TRAIN_GOLDEN["emd_size"],
+                  n_classes=TRAIN_GOLDEN["n_classes"], metric="ArcFace",
+                  loss_s=30.0, loss_m=0.35, optimizer_name="SGD",
+                  optimizer="SGD", wd=5e-4, mom=0.9, eps=1e-8,
+                  betas=(0.9, 0.999), mixed_precision=False, sample_rate=1.0)
+
+
+def train_golden_batches(seed: int) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """(images (4, 192, 192, 3) f32, labels (4,) int32) per step: two
+    synthetic identities, template + noise."""
+    rng = np.random.default_rng(seed + 2)
+    size, n = TRAIN_GOLDEN["img_size"], TRAIN_GOLDEN["batch"]
+    templates = rng.standard_normal((2, size, size, 3))
+    classes = rng.choice(TRAIN_GOLDEN["n_classes"], 2, replace=False)
+    out = []
+    for _ in range(TRAIN_GOLDEN["steps"]):
+        ident = np.arange(n) % 2
+        images = templates[ident] + 0.3 * rng.standard_normal(
+            (n, size, size, 3))
+        out.append((images.astype(np.float32),
+                    classes[ident].astype(np.int32)))
+    return out
+
+
+def train_golden_head(seed: int) -> np.ndarray:
+    """The head weight (1000, 512) f32, N(0, 0.01)."""
+    rng = np.random.default_rng(seed + 3)
+    return (0.01 * rng.standard_normal(
+        (TRAIN_GOLDEN["n_classes"], TRAIN_GOLDEN["emd_size"]))).astype(
+            np.float32)
+
+
+def run_train_golden(seed: int, device) -> Dict[str, np.ndarray]:
+    """The port's side of the training golden on ``device``: losses,
+    grad_norms, and update_names / update_norms (‖after − before‖ of every
+    encoder parameter by its state-dict name, then "head")."""
+    from fr_tpu_torch.heads.partial_fc import PFCConfig, PFCState
+    from fr_tpu_torch.models.alternet import ALTERNET_PLANS, AlterNet
+    from fr_tpu_torch.train.state import TrainState, init_encoder_slots
+    from fr_tpu_torch.train.step import make_train_step
+
+    conf = train_golden_conf()
+    model = AlterNet(*ALTERNET_PLANS["AlterNet50"],
+                     img_size=conf.img_size, emd_size=conf.emd_size,
+                     drop_path_rate=0.0, head_drop=0.0)
+    model.load_state_dict(seeded_state_dict(model, seed), strict=True)
+    model.to(device)
+    w0 = torch.from_numpy(train_golden_head(seed)).to(device)
+    state = TrainState(step=0, encoder=model,
+                       opt_slots=init_encoder_slots("SGD", model),
+                       pfc=PFCState(weight=w0.clone(), slots={
+                           "momentum": torch.zeros_like(w0)}))
+    cfg = PFCConfig(conf.n_classes, conf.emd_size, margin="ArcFace",
+                    s=30.0, m=0.35, mixed_precision=False)
+    step = make_train_step(conf, cfg, device)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    losses, norms = [], []
+    for images, labels in train_golden_batches(seed):
+        m = step(state, images, labels, TRAIN_GOLDEN["lr"])
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    names = list(before) + ["head"]
+    after = dict(model.named_parameters())
+    updates = [float(torch.linalg.vector_norm(after[n].detach() - before[n]))
+               for n in before]
+    updates.append(float(torch.linalg.vector_norm(state.pfc.weight - w0)))
+    return {"losses": np.array(losses), "grad_norms": np.array(norms),
+            "update_names": np.array(names), "update_norms":
+            np.array(updates)}

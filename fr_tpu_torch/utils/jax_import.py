@@ -1,4 +1,5 @@
-"""Carry fr_tpu's encoder weights into the port.
+"""Carry fr_tpu's encoder weights and training state into the port, and the
+port's back into fr_tpu's layout.
 
 fr_tpu keeps flax parameter trees ({"Conv_0": {"Conv_0": {"kernel": ...}},
 "BasicBlock_3": ...}) and BN statistics in a separate tree. The port's
@@ -7,18 +8,24 @@ fr_tpu/utils/torch_export.py writes, buffers included, so the result of
 ``encoder_state_dict_from_jax`` loads with ``load_state_dict(strict=True)``;
 that strict load is the check that every name and shape lines up.
 
-Works on numpy arrays alone: no jax import, so it also reads fr_tpu's
-``.npz`` encoder snapshots (fr_tpu/ckpt/checkpoint.py export_encoder) on a
-machine without jax.
+One table of entries (port key ↔ flax tree and path, and the layout change)
+drives both directions: the import of weights, BN statistics and optimizer
+slots (which have the parameters' tree), and the export of an encoder
+snapshot in fr_tpu's ``.npz`` layout (fr_tpu/ckpt/checkpoint.py:145-152),
+which ``load_encoder_npz`` and fr_tpu's own ``load_encoder`` both read.
 
-Conventions: flax conv kernel (kh, kw, I, O) → torch (O, I, kh, kw); flax
-dense kernel (I, O) → torch (O, I); flax BN scale/bias + mean/var → torch
-weight/bias/running_mean/running_var, num_batches_tracked 0.
+Works on numpy arrays alone: no jax import, so it also runs on a machine
+without jax.
+
+Conventions: flax conv kernel (kh, kw, I, O) ↔ torch (O, I, kh, kw); flax
+dense kernel (I, O) ↔ torch (O, I); flax BN scale/bias + mean/var ↔ torch
+weight/bias/running_mean/running_var, num_batches_tracked 0 on import.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,94 +37,111 @@ from fr_tpu_torch.models.swin_common import (relative_coords_table,
                                              shifted_window_mask)
 
 StateDict = Dict[str, torch.Tensor]
+Tree = Dict[str, Any]
 
 
-def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+@dataclasses.dataclass(frozen=True)
+class _Entry:
+    key: str                 # the port's state-dict key
+    tree: str                # "params" or "batch_stats"
+    path: Tuple[str, ...]    # flax path inside that tree
+    kind: str                # "conv", "dense" or "vec"
 
 
-def _conv(sd: StateDict, name: str, tree: Mapping) -> None:
-    sd[f"{name}.weight"] = _t(np.transpose(tree["Conv_0"]["kernel"],
-                                           (3, 2, 0, 1)))
+_TO_TORCH = {"conv": (3, 2, 0, 1), "dense": (1, 0)}
+_TO_FLAX = {"conv": (2, 3, 1, 0), "dense": (1, 0)}
 
 
-def _linear(sd: StateDict, name: str, tree: Mapping) -> None:
-    sd[f"{name}.weight"] = _t(np.transpose(tree["kernel"]))
-    if "bias" in tree:
-        sd[f"{name}.bias"] = _t(tree["bias"])
+class _Table:
+    """The entries of one encoder, plus its architecture-fixed buffers."""
+
+    def __init__(self):
+        self.entries: List[_Entry] = []
+        self.fixed: StateDict = {}
+
+    def conv(self, name: str, path: Tuple[str, ...]) -> None:
+        self.entries.append(_Entry(f"{name}.weight", "params",
+                                   path + ("Conv_0", "kernel"), "conv"))
+
+    def linear(self, name: str, path: Tuple[str, ...], bias: bool) -> None:
+        self.entries.append(_Entry(f"{name}.weight", "params",
+                                   path + ("kernel",), "dense"))
+        if bias:
+            self.entries.append(_Entry(f"{name}.bias", "params",
+                                       path + ("bias",), "vec"))
+
+    def vec(self, key: str, path: Tuple[str, ...]) -> None:
+        self.entries.append(_Entry(key, "params", path, "vec"))
+
+    def bn(self, name: str, path: Tuple[str, ...]) -> None:
+        p = path + ("BatchNorm_0",)
+        for leaf, tree, flax_leaf in (("weight", "params", "scale"),
+                                      ("bias", "params", "bias"),
+                                      ("running_mean", "batch_stats", "mean"),
+                                      ("running_var", "batch_stats", "var")):
+            self.entries.append(_Entry(f"{name}.{leaf}", tree,
+                                       p + (flax_leaf,), "vec"))
+        self.fixed[f"{name}.num_batches_tracked"] = torch.tensor(
+            0, dtype=torch.long)
+
+    def basic_block(self, tb: str, path: Tuple[str, ...],
+                    downsample: bool) -> None:
+        self.conv(f"{tb}.conv1", path + ("Conv_0",))
+        self.bn(f"{tb}.bn1", path + ("BatchNorm_0",))
+        self.conv(f"{tb}.conv2", path + ("Conv_1",))
+        self.bn(f"{tb}.bn2", path + ("BatchNorm_1",))
+        if downsample:
+            self.conv(f"{tb}.downsample.0", path + ("Conv_2",))
+            self.bn(f"{tb}.downsample.1", path + ("BatchNorm_2",))
+
+    def swin_block(self, tb: str, path: Tuple[str, ...], window: int,
+                   res: int, shift: int) -> None:
+        a = path + ("WindowAttention_0",)
+        pre = f"{tb}.attn"
+        self.entries.append(_Entry(f"{pre}.qkv.weight", "params",
+                                   a + ("qkv_kernel",), "dense"))
+        for leaf in ("q_bias", "v_bias", "logit_scale"):
+            self.vec(f"{pre}.{leaf}", a + (leaf,))
+        self.linear(f"{pre}.cpb_mlp.0", a + ("cpb_fc1",), bias=True)
+        self.linear(f"{pre}.cpb_mlp.2", a + ("cpb_fc2",), bias=False)
+        self.fixed[f"{pre}.relative_coords_table"] = torch.from_numpy(
+            relative_coords_table((window, window)))
+        self.fixed[f"{pre}.relative_position_index"] = torch.from_numpy(
+            relative_position_index((window, window)).astype(np.int64))
+        self.linear(f"{pre}.proj", a + ("proj",), bias=True)
+        self.bn(f"{tb}.norm2", path + ("BatchNorm_0",))
+        if shift > 0:
+            self.fixed[f"{tb}.attn_mask"] = torch.from_numpy(
+                shifted_window_mask(res, res, window, shift))
+
+    def head(self) -> None:
+        self.bn("bn2", ("BatchNorm_1",))
+        self.linear("fc", ("Dense_0", "Dense_0"), bias=True)
+        self.bn("bn3", ("BatchNorm_2",))
 
 
-def _bn(sd: StateDict, name: str, params: Mapping, stats: Mapping) -> None:
-    p, s = params["BatchNorm_0"], stats["BatchNorm_0"]
-    sd[f"{name}.weight"] = _t(p["scale"])
-    sd[f"{name}.bias"] = _t(p["bias"])
-    sd[f"{name}.running_mean"] = _t(s["mean"])
-    sd[f"{name}.running_var"] = _t(s["var"])
-    sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
-
-
-def _basic_block(sd: StateDict, tb: str, p: Mapping, s: Mapping) -> None:
-    _conv(sd, f"{tb}.conv1", p["Conv_0"])
-    _bn(sd, f"{tb}.bn1", p["BatchNorm_0"], s["BatchNorm_0"])
-    _conv(sd, f"{tb}.conv2", p["Conv_1"])
-    _bn(sd, f"{tb}.bn2", p["BatchNorm_1"], s["BatchNorm_1"])
-    if "Conv_2" in p:
-        _conv(sd, f"{tb}.downsample.0", p["Conv_2"])
-        _bn(sd, f"{tb}.downsample.1", p["BatchNorm_2"], s["BatchNorm_2"])
-
-
-def _swin_block(sd: StateDict, tb: str, p: Mapping, s: Mapping,
-                window: int, res: int, shift: int) -> None:
-    a = p["WindowAttention_0"]
-    pre = f"{tb}.attn"
-    sd[f"{pre}.qkv.weight"] = _t(np.transpose(a["qkv_kernel"]))
-    sd[f"{pre}.q_bias"] = _t(a["q_bias"])
-    sd[f"{pre}.v_bias"] = _t(a["v_bias"])
-    sd[f"{pre}.logit_scale"] = _t(a["logit_scale"])
-    _linear(sd, f"{pre}.cpb_mlp.0", a["cpb_fc1"])
-    _linear(sd, f"{pre}.cpb_mlp.2", a["cpb_fc2"])
-    sd[f"{pre}.relative_coords_table"] = torch.from_numpy(
-        relative_coords_table((window, window)))
-    sd[f"{pre}.relative_position_index"] = torch.from_numpy(
-        relative_position_index((window, window)).astype(np.int64))
-    _linear(sd, f"{pre}.proj", a["proj"])
-    _bn(sd, f"{tb}.norm2", p["BatchNorm_0"], s["BatchNorm_0"])
-    if shift > 0:
-        sd[f"{tb}.attn_mask"] = torch.from_numpy(
-            shifted_window_mask(res, res, window, shift))
-
-
-def _head(sd: StateDict, params: Mapping, stats: Mapping) -> None:
-    _bn(sd, "bn2", params["BatchNorm_1"], stats["BatchNorm_1"])
-    _linear(sd, "fc", params["Dense_0"]["Dense_0"])
-    _bn(sd, "bn3", params["BatchNorm_2"], stats["BatchNorm_2"])
-
-
-def _resnet_state_dict(params: Mapping, stats: Mapping,
-                       layers: Sequence[int]) -> StateDict:
-    sd: StateDict = {}
-    _conv(sd, "conv1", params["Conv_0"])
-    _bn(sd, "bn1", params["BatchNorm_0"], stats["BatchNorm_0"])
+def _resnet_table(layers: Sequence[int]) -> _Table:
+    t = _Table()
+    t.conv("conv1", ("Conv_0",))
+    t.bn("bn1", ("BatchNorm_0",))
     i = 0
     for stage, blocks in enumerate(layers, start=1):
         for b in range(blocks):
-            _basic_block(sd, f"layer{stage}.{b}", params[f"BasicBlock_{i}"],
-                         stats[f"BasicBlock_{i}"])
+            t.basic_block(f"layer{stage}.{b}", (f"BasicBlock_{i}",),
+                          downsample=stage > 1 and b == 0)
             i += 1
-    _head(sd, params, stats)
-    return sd
+    t.head()
+    return t
 
 
-def _alternet_state_dict(params: Mapping, stats: Mapping,
-                         num_blocks: Sequence[int],
-                         num_blocks2: Sequence[int],
-                         img_size: int = 192) -> StateDict:
+def _alternet_table(num_blocks: Sequence[int], num_blocks2: Sequence[int],
+                    img_size: int = 192) -> _Table:
     """Walks the stage plan in construction order: flax numbers modules per
     type (BasicBlock_i, AlterSwinBlock_j), the reference per stage
     (layer{s}.{k})."""
-    sd: StateDict = {}
-    _conv(sd, "conv1", params["Conv_0"])
-    _bn(sd, "bn1", params["BatchNorm_0"], stats["BatchNorm_0"])
+    t = _Table()
+    t.conv("conv1", ("Conv_0",))
+    t.bn("bn1", ("BatchNorm_0",))
     basic_i = swin_i = 0
     res = img_size // 4
     for stage, (blocks, blocks2, win) in enumerate(
@@ -125,51 +149,103 @@ def _alternet_state_dict(params: Mapping, stats: Mapping,
         if stage > 1:
             res //= 2
         k = 0
-        kinds = [False] + list(alt_sequence(blocks, blocks2))
-        for is_alt in kinds:
+        for slot, is_alt in enumerate([False]
+                                      + list(alt_sequence(blocks, blocks2))):
             if not is_alt:
-                _basic_block(sd, f"layer{stage}.{k}",
-                             params[f"BasicBlock_{basic_i}"],
-                             stats[f"BasicBlock_{basic_i}"])
+                t.basic_block(f"layer{stage}.{k}", (f"BasicBlock_{basic_i}",),
+                              downsample=stage > 1 and slot == 0)
                 basic_i += 1
                 k += 1
                 continue
             for shift in (0, win // 2):
-                _swin_block(sd, f"layer{stage}.{k}",
-                            params[f"AlterSwinBlock_{swin_i}"],
-                            stats[f"AlterSwinBlock_{swin_i}"], win, res, shift)
+                t.swin_block(f"layer{stage}.{k}",
+                             (f"AlterSwinBlock_{swin_i}",), win, res, shift)
                 swin_i += 1
                 k += 1
-    _head(sd, params, stats)
-    return sd
+    t.head()
+    return t
+
+
+def _table(network: str, img_size: Optional[int] = None,
+           plan: Optional[Tuple] = None) -> _Table:
+    """``plan`` overrides the named network's stage plan: ResNet layers, or
+    AlterNet (num_blocks, num_blocks2)."""
+    if "ResNet" in network:
+        return _resnet_table(plan or RESNET_LAYERS[network])
+    if "AlterNet" in network and "V1" not in network and "Sep" not in network:
+        num_blocks, num_blocks2 = plan or ALTERNET_PLANS[network][:2]
+        return _alternet_table(num_blocks, num_blocks2, img_size or 192)
+    raise NotImplementedError(
+        f"weight import for {network} is not ported yet (ROADMAP §1)")
+
+
+def _get(tree: Mapping, path: Tuple[str, ...]):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _set(tree: Tree, path: Tuple[str, ...], value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def _to_torch(leaf, kind: str) -> torch.Tensor:
+    x = np.array(leaf, dtype=np.float32)
+    if kind in _TO_TORCH:
+        x = np.ascontiguousarray(np.transpose(x, _TO_TORCH[kind]))
+    return torch.from_numpy(x)
+
+
+def _to_flax(t: torch.Tensor, kind: str) -> np.ndarray:
+    x = t.detach().float().cpu().numpy()
+    if kind in _TO_FLAX:
+        x = np.ascontiguousarray(np.transpose(x, _TO_FLAX[kind]))
+    return x
 
 
 def encoder_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
                                 network: str, img_size: Optional[int] = None,
                                 plan: Optional[Tuple] = None) -> StateDict:
-    """fr_tpu (params, batch_stats) → the port's state_dict. ``plan``
-    overrides the named network's stage plan: ResNet layers, or AlterNet
-    (num_blocks, num_blocks2)."""
-    if "ResNet" in network:
-        return _resnet_state_dict(params, batch_stats,
-                                  plan or RESNET_LAYERS[network])
-    if "AlterNet" in network and "V1" not in network and "Sep" not in network:
-        num_blocks, num_blocks2 = plan or ALTERNET_PLANS[network][:2]
-        return _alternet_state_dict(params, batch_stats, num_blocks,
-                                    num_blocks2, img_size or 192)
-    raise NotImplementedError(
-        f"weight import for {network} is not ported yet (ROADMAP §1)")
+    """fr_tpu (params, batch_stats) → the port's state_dict."""
+    table = _table(network, img_size, plan)
+    trees = {"params": params, "batch_stats": batch_stats}
+    sd = {e.key: _to_torch(_get(trees[e.tree], e.path), e.kind)
+          for e in table.entries}
+    sd.update({k: v.clone() for k, v in table.fixed.items()})
+    return sd
+
+
+def encoder_trees_from_state_dict(state_dict: Mapping[str, torch.Tensor],
+                                  network: str,
+                                  img_size: Optional[int] = None,
+                                  plan: Optional[Tuple] = None
+                                  ) -> Tuple[Tree, Tree]:
+    """The inverse: the port's state_dict → fr_tpu (params, batch_stats) as
+    numpy trees."""
+    trees: Dict[str, Tree] = {"params": {}, "batch_stats": {}}
+    for e in _table(network, img_size, plan).entries:
+        _set(trees[e.tree], e.path, _to_flax(state_dict[e.key], e.kind))
+    return trees["params"], trees["batch_stats"]
 
 
 def _unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for key, v in flat.items():
-        *parents, leaf = key.split(".")
-        node = tree
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = v
+        _set(tree, tuple(key.split(".")), v)
     return tree
+
+
+def _flatten(tree: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
 
 
 def load_encoder_npz(path: str, network: str,
@@ -183,3 +259,78 @@ def load_encoder_npz(path: str, network: str,
                  if k.startswith("batch_stats.")}
     return encoder_state_dict_from_jax(_unflatten(params), _unflatten(stats),
                                        network, img_size)
+
+
+def export_encoder_npz(path: str, encoder: torch.nn.Module, epoch: int,
+                       network: str, img_size: Optional[int] = None) -> None:
+    """Write the ``{epoch}_epoch_encoder.npz`` snapshot in fr_tpu's layout
+    (fr_tpu/ckpt/checkpoint.py export_encoder)."""
+    params, stats = encoder_trees_from_state_dict(encoder.state_dict(),
+                                                  network, img_size)
+    flat = _flatten(params, "params")
+    flat.update(_flatten(stats, "batch_stats"))
+    np.savez(path, __epoch__=epoch, __name__=network, **flat)
+
+
+def train_state_from_jax(jax_state, encoder: torch.nn.Module, network: str,
+                         img_size: Optional[int] = None,
+                         plan: Optional[Tuple] = None):
+    """fr_tpu's TrainState (arrays readable by np.asarray) → the port's
+    TrainState around ``encoder``, on the encoder's device: weights and BN
+    statistics, the encoder's optimizer slots through the same entries as
+    the parameters (transposes included), the head weight, slots and count,
+    and the step."""
+    from fr_tpu_torch.heads.partial_fc import PFCState
+    from fr_tpu_torch.train.state import TrainState
+
+    def host(tree):
+        if isinstance(tree, Mapping):
+            return {k: host(v) for k, v in tree.items()}
+        return np.asarray(tree)
+
+    device = next(encoder.parameters()).device
+    encoder.load_state_dict(encoder_state_dict_from_jax(
+        host(jax_state.params), host(jax_state.batch_stats), network,
+        img_size, plan), strict=True)
+    entries = [e for e in _table(network, img_size, plan).entries
+               if e.tree == "params"]
+    names = [n for n, _ in encoder.named_parameters()]
+    if sorted(names) != sorted(e.key for e in entries):
+        raise ValueError("the encoder's parameters do not match fr_tpu's "
+                         "parameter tree")
+    opt_slots = {}
+    for slot, tree in jax_state.opt_slots.items():
+        tree = host(tree)
+        opt_slots[slot] = {e.key: _to_torch(_get(tree, e.path), e.kind)
+                           .to(device) for e in entries}
+    pfc = PFCState(
+        weight=torch.from_numpy(np.array(jax_state.pfc.weight, np.float32)
+                                ).to(device),
+        slots={k: torch.from_numpy(np.array(v, np.float32)).to(device)
+               for k, v in jax_state.pfc.slots.items()},
+        count=int(np.asarray(jax_state.pfc.count)))
+    return TrainState(step=int(np.asarray(jax_state.step)), encoder=encoder,
+                      opt_slots=opt_slots, pfc=pfc)
+
+
+def train_state_to_jax_layout(state, network: str,
+                              img_size: Optional[int] = None,
+                              plan: Optional[Tuple] = None) -> Dict[str, Any]:
+    """The port's TrainState in fr_tpu's layout, as numpy: {"step",
+    "params", "batch_stats", "opt_slots", "pfc": {"weight", "slots",
+    "count"}}, for holding it against fr_tpu's state leaf by leaf."""
+    params, stats = encoder_trees_from_state_dict(
+        state.encoder.state_dict(), network, img_size, plan)
+    opt_slots = {}
+    for slot, tensors in state.opt_slots.items():
+        tree: Tree = {}
+        for e in _table(network, img_size, plan).entries:
+            if e.tree == "params":
+                _set(tree, e.path, _to_flax(tensors[e.key], e.kind))
+        opt_slots[slot] = tree
+    return {"step": state.step, "params": params, "batch_stats": stats,
+            "opt_slots": opt_slots,
+            "pfc": {"weight": state.pfc.weight.detach().cpu().numpy(),
+                    "slots": {k: v.detach().cpu().numpy()
+                              for k, v in state.pfc.slots.items()},
+                    "count": state.pfc.count}}
