@@ -66,7 +66,7 @@ def parse_args(argv=None):
 
 
 def build_conf(args):
-    from fr_tpu.configs import default_img_size, load_config
+    from fr_tpu_torch.configs import default_img_size, load_config
 
     conf = load_config(
         args.config, network=args.network, loss=args.loss,
@@ -90,7 +90,7 @@ def build_conf(args):
 
 def make_save_dir(args, conf) -> Path:
     """Timestamped run dir with the resolved config dump and log.txt."""
-    from fr_tpu.utils.logger import print_log
+    from fr_tpu_torch.utils.logger import print_log
 
     stamp = time.strftime("%Y%m%d_%H%M%S")
     save = Path(args.save_root) / f"{conf.network}_{conf.loss}_{stamp}"

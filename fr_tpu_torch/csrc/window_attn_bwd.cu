@@ -1,9 +1,13 @@
 // Cosine window attention, backward (recompute), for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel fr_tpu/ops/fused_window_attn.py::_pk_bwd_pallas
-// (body _pk_bwd_groups), the backward the model runs (stored_stats=False).
-// Its contract is that file's per-head jnp math, _bwd_jnp: per window w and
-// head h, with g the output cotangent rounded to the compute dtype T,
+// Replaces two TPU kernels of fr_tpu/ops/fused_window_attn.py, the
+// recompute backwards the models run (stored_stats=False): the packed
+// entry's _pk_bwd_pallas (body _pk_bwd_groups) and the per-head entry's
+// _bwd_pallas (N 49, head dims 32 and 38: the padded row lengths hd+1 = 33
+// and 39 are odd, so a warp reading one channel of k̂, v or g across 32
+// token rows still hits 32 banks). Their contract is that file's per-head
+// jnp math, _bwd_jnp: per window w and head h, with g the output cotangent
+// rounded to the compute dtype T,
 //   q̂, k̂  = L2-normalised q, k in f32 (eps 1e-12, rsqrt form);
 //   s_raw  = round_T(q̂)·round_T(k̂)ᵀ accumulated in f32;
 //   p      = softmax(s_raw·scale[h] + bias16[h] (+ mask[w mod nW])) in f32,
@@ -32,58 +36,9 @@
 // This first version computes every product with f32 FMAs on the CUDA
 // cores; tensor cores and TMA are later steps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <climits>
-#include <cmath>
-#include <cstddef>
+#include "window_attn_common.cuh"
 
 namespace {
-
-constexpr float kEps2 = 1e-24f;  // (1e-12)^2, the l2_normalize guard
-constexpr int kReduceCols = 32;  // second pass: columns per block
-constexpr int kReduceRows = 16;  // second pass: window slices per column
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Round to the compute dtype T and widen again: the casts _bwd_jnp applies
-// before each product.
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Shared memory, in floats: q̂, k̂, dq̂, dk̂, v and g as (N, hd+1), the
 // padded row keeping every product loop free of bank conflicts; s_raw, p
@@ -306,30 +261,6 @@ __global__ void window_attn_bwd_kernel(const T* __restrict__ qkv,
   }
 }
 
-// Second pass: out[h, i] = Σ_w partial[w·num_heads + h, i] for every
-// column i < N·N + 1. Each thread sums a fixed slice of the windows and the
-// slices are added in a fixed order, so the sum does not depend on the
-// schedule.
-__global__ void window_sum_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ out, int n_windows,
-                                  int num_heads, int cols) {
-  __shared__ float part[kReduceRows][kReduceCols];
-  const int h = blockIdx.y;
-  const int col = blockIdx.x * kReduceCols + threadIdx.x;
-  float acc = 0.f;
-  if (col < cols) {
-    for (int w = threadIdx.y; w < n_windows; w += kReduceRows)
-      acc += partial[(static_cast<size_t>(w) * num_heads + h) * cols + col];
-  }
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < cols) {
-    float total = 0.f;
-    for (int r = 0; r < kReduceRows; ++r) total += part[r][threadIdx.x];
-    out[static_cast<size_t>(h) * cols + col] = total;
-  }
-}
-
 template <typename T>
 cudaError_t launch(const void* qkv, const void* scale, const void* bias16,
                    const void* mask, const void* g, void* dqkv, void* partial,
@@ -349,15 +280,10 @@ cudaError_t launch(const void* qkv, const void* scale, const void* bias16,
       static_cast<const float*>(bias16), static_cast<const float*>(mask),
       static_cast<const T*>(g), static_cast<T*>(dqkv),
       static_cast<float*>(partial), N, C, num_heads, n_win_per_img);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int cols = N * N + 1;
-  const dim3 grid((cols + kReduceCols - 1) / kReduceCols, num_heads);
-  const dim3 block(kReduceCols, kReduceRows);
-  window_sum_kernel<<<grid, block, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out),
-      static_cast<int>(n_windows), num_heads, cols);
-  return cudaGetLastError();
+  return launch_window_sum(partial, out, n_windows, num_heads, N * N + 1,
+                           stream);
 }
 
 }  // namespace

@@ -1,8 +1,10 @@
 // Cosine window attention, forward, for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel fr_tpu/ops/fused_window_attn.py::_pk_fwd_pallas
-// (body _pk_fwd_groups). Its contract is that file's per-head jnp math,
-// _heads_fwd: per window w and head h,
+// Replaces two TPU kernels of fr_tpu/ops/fused_window_attn.py: the packed
+// entry's _pk_fwd_pallas (body _pk_fwd_groups; the AlterNet shapes, N 9 and
+// 36, head dim 32) and the per-head entry's _fwd_pallas (batched bodies;
+// the Swin and EffiAlterNet shapes, N 49, head dims 32 and 38). Both answer
+// to that file's per-head jnp math, _heads_fwd: per window w and head h,
 //   q̂, k̂ = L2-normalised q, k in f32 (eps 1e-12, rsqrt form), rounded to
 //          the compute dtype (the dtype of qkv);
 //   s     = (q̂·k̂ᵀ accumulated in f32)·scale[h] + bias16[h] (+ mask[w mod nW]);
@@ -21,191 +23,12 @@
 // TPU kernel return non-finite values when one head's scores sit ~88 below
 // another's.
 //
-// This first version computes both products with f32 FMAs on the CUDA
-// cores. Moving them to the tensor cores (mma.sync or wgmma) and staging
+// The kernel itself is in window_attn_common.cuh, which the stored-stats
+// forward (window_attn_stats.cu) instantiates to also write p. This first
+// version computes both products with f32 FMAs on the CUDA cores. Moving them to the tensor cores (mma.sync or wgmma) and staging
 // with TMA are later steps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <climits>
-#include <cmath>
-#include <cstddef>
-
-namespace {
-
-constexpr float kEps2 = 1e-24f;  // (1e-12)^2, the l2_normalize guard
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Round to the compute dtype T and widen again: the casts _heads_fwd
-// applies to q̂, k̂ and p before each product.
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <typename O>
-__device__ __forceinline__ O from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Shared memory, in floats: q̂ and k̂ (N, hd+1) each, the padded row keeping
-// the score loop free of bank conflicts; v (N, hd); scores (N, N+1); the
-// 2N row norms. The Python wrapper computes the same size (_smem_bytes).
-__host__ __device__ inline size_t smem_floats(int N, int hd) {
-  return 2 * static_cast<size_t>(N) * (hd + 1) +
-         static_cast<size_t>(N) * hd + static_cast<size_t>(N) * (N + 1) +
-         2 * static_cast<size_t>(N);
-}
-
-// One block per (window, head); blockIdx.x = window·num_heads + head, so
-// the heads of one window run in neighbouring blocks and share its rows.
-template <typename T, typename O>
-__global__ void window_attn_fwd_kernel(const T* __restrict__ qkv,
-                                       const float* __restrict__ scale,
-                                       const float* __restrict__ bias16,
-                                       const float* __restrict__ mask,
-                                       O* __restrict__ out, int N, int C,
-                                       int num_heads, int n_win_per_img) {
-  extern __shared__ float smem[];
-  const int hd = C / num_heads;
-  const int ld = hd + 1;
-  float* qs = smem;
-  float* ks = qs + N * ld;
-  float* vs = ks + N * ld;
-  float* ss = vs + N * hd;
-  float* rn = ss + N * (N + 1);
-
-  const long long w = blockIdx.x / num_heads;
-  const int h = static_cast<int>(blockIdx.x - w * num_heads);
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const T* base = qkv + static_cast<size_t>(w) * N * 3 * C +
-                  static_cast<size_t>(h) * hd;
-
-  // 1. stage this head's q, k, v; neighbouring threads read neighbouring
-  //    channels of one token row.
-  for (int i = tid; i < N * hd; i += nthr) {
-    const int n = i / hd;
-    const int d = i - n * hd;
-    const T* row = base + static_cast<size_t>(n) * 3 * C + d;
-    qs[n * ld + d] = to_f32<T>(row[0]);
-    ks[n * ld + d] = to_f32<T>(row[C]);
-    vs[i] = to_f32<T>(row[2 * C]);
-  }
-  __syncthreads();
-
-  // 2. inverse L2 norms of the q rows and the k rows
-  for (int r = tid; r < 2 * N; r += nthr) {
-    const float* x = r < N ? qs + r * ld : ks + (r - N) * ld;
-    float s2 = 0.f;
-    for (int d = 0; d < hd; ++d) s2 = fmaf(x[d], x[d], s2);
-    rn[r] = rsqrtf(fmaxf(s2, kEps2));
-  }
-  __syncthreads();
-
-  for (int i = tid; i < N * hd; i += nthr) {
-    const int n = i / hd;
-    const int d = i - n * hd;
-    qs[n * ld + d] = round_to<T>(qs[n * ld + d] * rn[n]);
-    ks[n * ld + d] = round_to<T>(ks[n * ld + d] * rn[N + n]);
-  }
-  __syncthreads();
-
-  // 3. scores, scaled and biased (and masked), kept in shared memory
-  const float sc = scale[h];
-  const float* bh = bias16 + static_cast<size_t>(h) * N * N;
-  const float* mw =
-      mask != nullptr
-          ? mask + static_cast<size_t>(w % n_win_per_img) * N * N
-          : nullptr;
-  for (int i = tid; i < N * N; i += nthr) {
-    const int r = i / N;
-    const int c = i - r * N;
-    const float* qr = qs + r * ld;
-    const float* kr = ks + c * ld;
-    float acc = 0.f;
-    for (int d = 0; d < hd; ++d) acc = fmaf(qr[d], kr[d], acc);
-    float s = acc * sc + bh[i];
-    if (mw != nullptr) s += mw[i];
-    ss[r * (N + 1) + c] = s;
-  }
-  __syncthreads();
-
-  // 4. softmax over each score row, one warp per row, max per head
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = nthr >> 5;
-  for (int r = warp; r < N; r += nwarps) {
-    float* sr = ss + r * (N + 1);
-    float m = -INFINITY;
-    for (int c = lane; c < N; c += 32) m = fmaxf(m, sr[c]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int c = lane; c < N; c += 32) {
-      const float e = expf(sr[c] - m);
-      sr[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int c = lane; c < N; c += 32) sr[c] = round_to<T>(sr[c] / sum);
-  }
-  __syncthreads();
-
-  // 5. p·v, written straight into this head's channels of the output row
-  O* orow = out + static_cast<size_t>(w) * N * C + static_cast<size_t>(h) * hd;
-  for (int i = tid; i < N * hd; i += nthr) {
-    const int r = i / hd;
-    const int d = i - r * hd;
-    const float* pr = ss + r * (N + 1);
-    float acc = 0.f;
-    for (int c = 0; c < N; ++c) acc = fmaf(pr[c], vs[c * hd + d], acc);
-    orow[static_cast<size_t>(r) * C + d] = from_f32<O>(acc);
-  }
-}
-
-template <typename T, typename O>
-cudaError_t launch(const void* qkv, const void* scale, const void* bias16,
-                   const void* mask, void* out, long long n_windows, int N,
-                   int C, int num_heads, int n_win_per_img, int threads,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(N, C / num_heads);
-  const unsigned blocks = static_cast<unsigned>(n_windows * num_heads);
-  window_attn_fwd_kernel<T, O><<<blocks, threads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(scale),
-      static_cast<const float*>(bias16), static_cast<const float*>(mask),
-      static_cast<O*>(out), N, C, num_heads, n_win_per_img);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "window_attn_common.cuh"
 
 // dtype codes: 0 = float32, 1 = bfloat16. Returns the launch's
 // cudaGetLastError(); the kernel runs asynchronously on `stream`.
@@ -214,29 +37,10 @@ extern "C" int window_attn_fwd(const void* qkv, const void* scale,
                                void* out, long long n_windows, int N, int C,
                                int num_heads, int n_win_per_img, int in_dtype,
                                int out_dtype, int threads, void* stream) {
-  if (n_windows <= 0 || N <= 0 || num_heads <= 0 || C % num_heads != 0 ||
-      n_win_per_img <= 0 || threads <= 0 || threads > 1024 ||
-      threads % 32 != 0 || n_windows * num_heads > INT_MAX ||
-      in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (in_dtype * 2 + out_dtype) {
-    case 0:
-      return launch<float, float>(qkv, scale, bias16, mask, out, n_windows,
-                                  N, C, num_heads, n_win_per_img, threads, s);
-    case 1:
-      return launch<float, __nv_bfloat16>(qkv, scale, bias16, mask, out,
-                                          n_windows, N, C, num_heads,
-                                          n_win_per_img, threads, s);
-    case 2:
-      return launch<__nv_bfloat16, float>(qkv, scale, bias16, mask, out,
-                                          n_windows, N, C, num_heads,
-                                          n_win_per_img, threads, s);
-    default:
-      return launch<__nv_bfloat16, __nv_bfloat16>(
-          qkv, scale, bias16, mask, out, n_windows, N, C, num_heads,
-          n_win_per_img, threads, s);
-  }
+  return window_attn_fwd_entry<false>(qkv, scale, bias16, mask, out, nullptr,
+                                      n_windows, N, C, num_heads,
+                                      n_win_per_img, in_dtype, out_dtype,
+                                      threads, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -11,7 +11,9 @@ compute dtype on every call. BatchNorm always computes in f32 and casts back
 to its input's dtype (fr_tpu/models/common.py:61-81).
 
 Initialisation matches fr_tpu: Xavier-normal (untruncated) conv and dense
-weights, zero biases, BN gamma 1 and beta 0.
+weights, zero biases, BN gamma 1 and beta 0; a module with an ``init_std``
+attribute (EffiAlterNet's convs and dense layers) draws its weight from
+fr_tpu's truncated normal of that standard deviation instead.
 
 Randomness in training (dropout, stochastic depth) draws from an explicit
 ``torch.Generator`` that the caller passes down; nothing here touches the
@@ -29,18 +31,22 @@ import torch.nn.functional as F
 
 
 class Conv(nn.Conv2d):
-    """Bias-free conv with torch padding (k-1)//2."""
+    """Conv with torch padding (k-1)//2, bias-free unless asked; ``groups``
+    as torch's (the depthwise convs of EffiAlterNet). A bias is added after
+    the product is rounded to the compute dtype, as flax's Conv does."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
-                 stride: int = 1, compute_dtype: torch.dtype = torch.float32):
+                 stride: int = 1, compute_dtype: torch.dtype = torch.float32,
+                 bias: bool = False, groups: int = 1):
         super().__init__(in_ch, out_ch, kernel, stride=stride,
-                         padding=(kernel - 1) // 2, bias=False)
+                         padding=(kernel - 1) // 2, bias=bias, groups=groups)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
         cd = self.compute_dtype
-        return F.conv2d(x.to(cd), self.weight.to(cd), None, self.stride,
-                        self.padding)
+        y = F.conv2d(x.to(cd), self.weight.to(cd), None, self.stride,
+                     self.padding, 1, self.groups)
+        return y if self.bias is None else y + self.bias.to(cd)[:, None, None]
 
 
 class _FlaxBatchNorm:
@@ -130,16 +136,31 @@ def xavier_std(shape) -> float:
     return math.sqrt(2.0 / ((shape[0] + shape[1]) * receptive))
 
 
+# jax.nn.initializers.truncated_normal draws from N(0, 1) cut at ±2 and
+# divides by this, the standard deviation of that cut normal, so that the
+# result has the standard deviation asked for
+_TRUNC_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, seed: int = 0) -> nn.Module:
     """fr_tpu's initialisation from a seeded CPU generator: Xavier-normal
-    conv and linear weights, zero linear biases. BatchNorm and the attention
-    parameters keep the values their constructors set (gamma 1, beta 0,
-    q/v bias 0, logit_scale ln 10). Call before moving to a device."""
+    conv and linear weights, or fr_tpu's truncated normal (cut at ±2σ)
+    where the module has an ``init_std``; zero conv and linear biases.
+    BatchNorm and the attention parameters keep the values their
+    constructors set (gamma 1, beta 0, q/v bias 0, logit_scale ln 10,
+    temperature 1). Call before moving to a device."""
     gen = torch.Generator().manual_seed(seed)
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            m.weight.normal_(0.0, xavier_std(m.weight.shape), generator=gen)
+            std = getattr(m, "init_std", None)
+            if std is None:
+                m.weight.normal_(0.0, xavier_std(m.weight.shape),
+                                 generator=gen)
+            else:
+                nn.init.trunc_normal_(m.weight, 0.0, 1.0, -2.0, 2.0,
+                                      generator=gen)
+                m.weight.mul_(std / _TRUNC_STD)
             if m.bias is not None:
                 m.bias.zero_()
     return module

@@ -6,16 +6,20 @@ and the continuous-position-bias tables are numpy constants computed with
 the same math as fr_tpu; attention is cosine attention with a per-head
 clamped logit scale and the 2→512→heads CPB MLP with 16·sigmoid bias.
 
-Everything between the qkv and output projections runs in one op,
-``ops.fused_window_attention_packed``: a forward kernel, and under autograd
-a recompute backward kernel. fr_tpu's spatial and entry-fused
-variants are off by default there (SPATIAL_KERNEL_CONFIGS is empty,
-entry_fused=False) and are not ported.
+Everything between the qkv and output projections runs in one op, routed
+as fr_tpu's ``_fused_call`` routes it: ``ops.fused_window_attention_packed``
+when heads·N ≤ 288 (the AlterNet shapes), ``ops.fused_window_attention``
+(the per-head entry) otherwise (the Swin and EffiAlterNet N=49 shapes).
+Under autograd each takes the recompute arm, or the stored-stats arm when
+``attention_stats_inmodel()`` (FR_ATTN_STORED_STATS=1). fr_tpu's spatial
+and entry-fused variants are off by default there (SPATIAL_KERNEL_CONFIGS
+is empty, entry_fused=False) and are not ported.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -23,11 +27,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fr_tpu_torch.ops.fused_window_attn import fused_window_attention_packed
+from fr_tpu_torch.ops.fused_window_attn import (
+    fused_window_attention, fused_window_attention_packed)
 
 # fr_tpu's routing rule between its two attention entries: heads·N ≤ 288
 # goes to the packed entry (every AlterNet shape), wider to the per-head
-# entry (the Swin/EffiAlter N=49 shapes), which is not ported yet.
+# entry (the Swin/EffiAlter N=49 shapes).
 PACKED_LANE_CAP = 288
 
 
@@ -126,11 +131,6 @@ class WindowAttention(nn.Module):
         B_, N, C = x.shape
         h = self.num_heads
         cd = self.compute_dtype
-        if not pick_head_group(h, N):
-            raise NotImplementedError(
-                f"per-head window attention (heads·N = {h * N} > "
-                f"{PACKED_LANE_CAP}) is not ported yet: ROADMAP §1 slice 4 "
-                f"(Swin/EffiAlter, kernel rows 5-8)")
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                           self.v_bias])
         qkv = F.linear(x.to(cd), self.qkv.weight.to(cd)) + bias.to(cd)
@@ -141,10 +141,19 @@ class WindowAttention(nn.Module):
         bias16 = 16.0 * torch.sigmoid(rel.reshape(N, N, h).permute(2, 0, 1))
 
         nW = mask.shape[0] if mask is not None else 1
-        out = fused_window_attention_packed(
-            qkv, scale.reshape(h), bias16.contiguous(), h, nW, mask,
-            out_dtype=cd)
+        entry = (fused_window_attention_packed if pick_head_group(h, N)
+                 else fused_window_attention)
+        out = entry(qkv, scale.reshape(h), bias16.contiguous(), h, nW, mask,
+                    out_dtype=cd, stored_stats=attention_stats_inmodel())
         return F.linear(out, self.proj.weight.to(cd)) + self.proj.bias.to(cd)
+
+
+def attention_stats_inmodel() -> bool:
+    """Whether the model asks the attention entries for the stored-stats
+    arm: FR_ATTN_STORED_STATS=1, fr_tpu's one in-model stats switch
+    (fr_tpu/models/swin_common.py:324-352; off by default there from TPU
+    measurements)."""
+    return os.environ.get("FR_ATTN_STORED_STATS") == "1"
 
 
 class DropPath(nn.Module):

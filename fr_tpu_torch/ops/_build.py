@@ -22,7 +22,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("window_attn_fwd.cu", "window_attn_bwd.cu", "margin_ce.cu")
+SOURCES = ("window_attn_fwd.cu", "window_attn_bwd.cu", "window_attn_stats.cu",
+           "margin_ce.cu")
+HEADERS = ("window_attn_common.cuh",)   # included by the sources; hashed too
 # -Xptxas -v writes each kernel's registers, shared memory and spills to
 # the build log next to the library.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,7 +47,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libfr_tpu_torch_{digest.hexdigest()[:16]}.so"
 
@@ -112,6 +114,10 @@ def load_library() -> ctypes.CDLL:
                             i32, i32, vp],
         "window_attn_bwd": [vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
                             i32, i32, i32, i32, vp],
+        "window_attn_fwd_stats": [vp, vp, vp, vp, vp, vp, i64, i32, i32, i32,
+                                  i32, i32, i32, i32, vp],
+        "window_attn_bwd_stats": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
+                                  i32, i32, i32, vp],
         "margin_ce_stats": [vp, vp, vp, vp, i32, i32, i32, i32, *margin, i32,
                             vp, vp, vp, vp, vp],
         "margin_ce_grad_emb": [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,

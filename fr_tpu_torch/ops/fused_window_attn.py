@@ -1,34 +1,60 @@
-"""Cosine window attention for the AlterNet shapes: the Hopper kernels'
-launch wrappers, their plain PyTorch versions and the autograd Function
-that joins them.
+"""Cosine window attention: the Hopper kernels' launch wrappers, their plain
+PyTorch versions, and the autograd Function behind fr_tpu's two entries.
 
-Counterpart of fr_tpu/ops/fused_window_attn.py::fused_window_attention_packed.
-The forward kernel (csrc/window_attn_fwd.cu) replaces the TPU kernel
-``_pk_fwd_pallas``; its contract is fr_tpu's per-head pure-jnp math
-``_heads_fwd``. Per window and head:
+Counterpart of fr_tpu/ops/fused_window_attn.py. Both of fr_tpu's entries are
+here: ``fused_window_attention_packed`` (the AlterNet shapes, heads·N ≤ 288)
+and ``fused_window_attention`` (the per-head entry of the Swin and
+EffiAlterNet N=49 shapes). Both compute one per-head function, whose
+contract is fr_tpu's pure-jnp math ``_heads_fwd``. Per window and head:
 
     L2-normalise q, k in f32 (eps 1e-12, rsqrt form) → cast to the compute
     dtype → scores q̂·k̂ᵀ accumulated in f32 → ·scale_h + bias16_h
     (+ mask[w mod nW]) → f32 softmax with a per-head max → p cast to the
     compute dtype → p·v accumulated in f32 → heads concatenated
 
-The backward kernel (csrc/window_attn_bwd.cu) replaces the recompute
-backward ``_pk_bwd_pallas`` that the model runs (it passes
-stored_stats=False); its contract is ``_bwd_jnp``. The Function saves qkv,
-scale, bias16 and the mask, never p, and the backward recomputes the
-forward, as fr_tpu's does, so no activation checkpointing is needed. It
-returns dqkv in the compute dtype, dscale (h,) and dbias (h, N, N) in f32
-(sums over all windows); the mask gets no gradient.
+The packed TPU kernel shares one softmax max over all heads of a row and
+returns non-finite output when one head's scores sit ~88 below another's
+(ROADMAP §3); the port does not copy that, so one set of kernels serves
+both entries:
 
-The compute dtype is qkv's dtype (bf16 or f32). The softmax max is taken
-per head, as ``_heads_fwd`` does; the packed TPU kernel shares one max over
-all heads of a row and returns non-finite output when one head's scores sit
-~88 below another's (ROADMAP §3), which the port does not copy.
+    csrc/window_attn_fwd.cu    forward             rows 1 (packed), 5 (per-head)
+    csrc/window_attn_bwd.cu    recompute backward  rows 2, 6; contract _bwd_jnp
+    csrc/window_attn_stats.cu  forward storing p   rows 3, 7; _fwd_body_stats
+                               backward from p     rows 4, 8; _bwd_body_stats
+
+(rows of ROADMAP §2). Under autograd an entry takes one of two arms, chosen
+as fr_tpu chooses: the recompute arm saves qkv, scale, bias16 and the mask
+and its backward recomputes the forward; the stored-stats arm saves the f32
+softmax p, (B·nW, h, N, N), and its backward starts from p. The entry's
+``stored_stats`` argument picks the arm (default True on the packed entry,
+False on the per-head one, as in fr_tpu); FR_ATTN_STORED_STATS=0/1
+overrides it. A call without autograd runs the forward kernel alone. Both
+backwards return dqkv in the compute dtype, dscale (h,) and dbias (h, N, N)
+in f32, summed over all windows; the mask gets no gradient.
+
+The compute dtype is qkv's dtype (bf16 or f32). A CPU tensor takes the
+plain versions; a CUDA tensor launches the kernels or raises.
+
+Kernel launches are counted per entry and per kernel (ROADMAP §2 rows):
+
+    row 1  fused_window_attention_packed.launches
+    row 2  window_attention_backward.launches
+    row 3  fused_window_attention_packed.stats_launches
+    row 4  fused_window_attention_packed.stats_backward_launches
+    row 5  fused_window_attention.launches
+    row 6  fused_window_attention.backward_launches
+    row 7  fused_window_attention.stats_launches
+    row 8  fused_window_attention.stats_backward_launches
+
+Direct calls of the wrappers outside the entries count on the wrappers'
+own ``launches``: window_attention_backward (also the packed entry's row
+2), window_attention_forward_stats and window_attention_backward_stats.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
@@ -38,6 +64,47 @@ _THREADS = 128
 _SMEM_LIMIT = 48 * 1024
 _BWD_THREADS = 256
 _BWD_SMEM_LIMIT = 227 * 1024
+
+
+def _split_heads(qkv: torch.Tensor, num_heads: int):
+    """(B·nW, N, 3C) → q, k, v as (B·nW, h, N, hd), in qkv's dtype."""
+    W, N, C3 = qkv.shape
+    hd = C3 // 3 // num_heads
+    heads = qkv.reshape(W, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    return heads[0], heads[1], heads[2]
+
+
+def _norm(x):
+    """fr_tpu's ``_norm``: (x·r, r, active) with r = rsqrt(max(Σx², eps²))
+    and active = Σx² > eps²."""
+    s2 = torch.sum(x * x, dim=-1, keepdim=True)
+    r = torch.rsqrt(torch.clamp_min(s2, 1e-24))
+    return x * r, r, s2 > 1e-24
+
+
+def _softmax_probs(qkv, scale, bias16, num_heads, mask):
+    """f32 softmax p (B·nW, h, N, N) and s_raw of ``_heads_fwd``."""
+    W, N, _ = qkv.shape
+    cd = qkv.dtype
+    q, k, _ = _split_heads(qkv, num_heads)
+    qnc = _norm(q.float())[0].to(cd).float()
+    knc = _norm(k.float())[0].to(cd).float()
+    s_raw = torch.matmul(qnc, knc.transpose(-1, -2))          # (W, h, N, N)
+    s = s_raw * scale.reshape(1, num_heads, 1, 1) + bias16[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.reshape(W // nW, nW, num_heads, N, N) + mask[None, :, None]
+             ).reshape(W, num_heads, N, N)
+    return torch.softmax(s, dim=-1), s_raw
+
+
+def _attend(p, qkv, num_heads, out_dtype):
+    """round(p)·v accumulated in f32, heads concatenated → out_dtype."""
+    W, N, C3 = qkv.shape
+    _, _, v = _split_heads(qkv, num_heads)
+    out = torch.matmul(p.to(qkv.dtype).float(), v.float())   # (W, h, N, hd)
+    return out.permute(0, 2, 1, 3).reshape(W, N, C3 // 3).to(
+        out_dtype or torch.float32)
 
 
 def window_attention_reference(qkv: torch.Tensor, scale: torch.Tensor,
@@ -52,179 +119,296 @@ def window_attention_reference(qkv: torch.Tensor, scale: torch.Tensor,
     (B·nW, N, C) in out_dtype (default f32). Compute-dtype products with
     f32 accumulation are taken as f32 products of the rounded operands,
     which is what ``preferred_element_type=f32`` computes."""
+    p, _ = _softmax_probs(qkv, scale, bias16, num_heads, mask)
+    return _attend(p, qkv, num_heads, out_dtype)
+
+
+def window_attention_forward_stats_reference(
+        qkv: torch.Tensor, scale: torch.Tensor, bias16: torch.Tensor,
+        num_heads: int, mask: Optional[torch.Tensor] = None,
+        out_dtype: Optional[torch.dtype] = None):
+    """Plain PyTorch twin of fr_tpu's ``_fwd_body_stats``: the forward's
+    output and the unrounded f32 softmax p, (B·nW, h, N, N) (the port's
+    layout: one (window, head) block's p is contiguous)."""
+    p, _ = _softmax_probs(qkv, scale, bias16, num_heads, mask)
+    return _attend(p, qkv, num_heads, out_dtype), p
+
+
+def _grad_products(qkv, scale, p, g, num_heads):
+    """The backward's products once p is known (``_bwd_jnp`` and
+    ``_bwd_body_stats`` alike): dv, ds and the normalised-q/k gradients."""
     W, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // num_heads
     cd = qkv.dtype
-    heads = qkv.reshape(W, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = heads[0].float(), heads[1].float(), heads[2]   # (W, h, N, hd)
-
-    def norm(x):
-        ss = torch.sum(x * x, dim=-1, keepdim=True)
-        return (x * torch.rsqrt(torch.clamp_min(ss, 1e-24))).to(cd).float()
-
-    s = torch.matmul(norm(q), norm(k).transpose(-1, -2))     # (W, h, N, N)
-    s = s * scale.reshape(1, num_heads, 1, 1) + bias16[None]
-    if mask is not None:
-        nW = mask.shape[0]
-        s = (s.reshape(W // nW, nW, num_heads, N, N) + mask[None, :, None]
-             ).reshape(W, num_heads, N, N)
-    p = torch.softmax(s, dim=-1).to(cd).float()
-    out = torch.matmul(p, v.float())                         # (W, h, N, hd)
-    return out.permute(0, 2, 1, 3).reshape(W, N, C).to(
-        out_dtype or torch.float32)
+    q, k, v = _split_heads(qkv, num_heads)
+    qn, qr, qa = _norm(q.float())
+    kn, kr, ka = _norm(k.float())
+    qnc, knc = qn.to(cd).float(), kn.to(cd).float()
+    gc = g.reshape(W, N, num_heads, hd).permute(0, 2, 1, 3).to(cd).float()
+    dp = torch.matmul(gc, v.float().transpose(-1, -2))
+    dv = torch.matmul(p.to(cd).float().transpose(-1, -2), gc)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dsc = (ds * scale.reshape(1, num_heads, 1, 1)).to(cd).float()
+    dqn = torch.matmul(dsc, knc)
+    dkn = torch.matmul(dsc.transpose(-1, -2), qnc)
+    rs_q = torch.sum(dqn * qn, dim=-1, keepdim=True)
+    dq = qr * (dqn - torch.where(qa, qn * rs_q, 0.0))
+    dk = kr * (dkn - torch.where(
+        ka, kn * torch.sum(dkn * kn, dim=-1, keepdim=True), 0.0))
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(W, N, C3)
+    return dqkv.to(cd), ds, rs_q
 
 
 def window_attention_backward_reference(
         qkv: torch.Tensor, scale: torch.Tensor, bias16: torch.Tensor,
         g: torch.Tensor, num_heads: int, mask: Optional[torch.Tensor] = None):
-    """Plain PyTorch twin of fr_tpu's ``_bwd_jnp`` (its ``_norm`` is the
-    norm below), all heads at once.
+    """Plain PyTorch twin of fr_tpu's ``_bwd_jnp``, all heads at once.
 
     g (B·nW, N, C), any float dtype, is rounded to the compute dtype (qkv's)
     before the products, as ``_bwd_jnp`` does. Returns dqkv (B·nW, N, 3C) in
     the compute dtype, dscale (h,) f32 = Σ ds·s_raw and dbias (h, N, N) f32
     = Σ ds, both summed over the windows."""
-    W, N, C3 = qkv.shape
-    C = C3 // 3
-    hd = C // num_heads
-    cd = qkv.dtype
-    heads = qkv.reshape(W, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = heads[0].float(), heads[1].float(), heads[2].float()
-
-    def norm(x):
-        s2 = torch.sum(x * x, dim=-1, keepdim=True)
-        r = torch.rsqrt(torch.clamp_min(s2, 1e-24))
-        return x * r, r, s2 > 1e-24
-
-    qn, qr, qa = norm(q)
-    kn, kr, ka = norm(k)
-    qnc, knc = qn.to(cd).float(), kn.to(cd).float()
-    s_raw = torch.matmul(qnc, knc.transpose(-1, -2))          # (W, h, N, N)
-    s = s_raw * scale.reshape(1, num_heads, 1, 1) + bias16[None]
-    if mask is not None:
-        nW = mask.shape[0]
-        s = (s.reshape(W // nW, nW, num_heads, N, N) + mask[None, :, None]
-             ).reshape(W, num_heads, N, N)
-    p = torch.softmax(s, dim=-1)
-    gc = g.reshape(W, N, num_heads, hd).permute(0, 2, 1, 3).to(cd).float()
-    dp = torch.matmul(gc, v.transpose(-1, -2))
-    dv = torch.matmul(p.to(cd).float().transpose(-1, -2), gc)
-    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
-    dbias = torch.sum(ds, dim=0)
-    dscale = torch.sum(ds * s_raw, dim=(0, 2, 3))
-    dsc = (ds * scale.reshape(1, num_heads, 1, 1)).to(cd).float()
-    dqn = torch.matmul(dsc, knc)
-    dkn = torch.matmul(dsc.transpose(-1, -2), qnc)
-    dq = qr * (dqn - torch.where(
-        qa, qn * torch.sum(dqn * qn, dim=-1, keepdim=True), 0.0))
-    dk = kr * (dkn - torch.where(
-        ka, kn * torch.sum(dkn * kn, dim=-1, keepdim=True), 0.0))
-    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(W, N, C3)
-    return dqkv.to(cd), dscale, dbias
+    p, s_raw = _softmax_probs(qkv, scale, bias16, num_heads, mask)
+    dqkv, ds, _ = _grad_products(qkv, scale, p, g, num_heads)
+    return dqkv, torch.sum(ds * s_raw, dim=(0, 2, 3)), torch.sum(ds, dim=0)
 
 
-def _attention_forward(qkv, scale, bias16, num_heads, n_win_per_img, mask,
-                       out_dtype):
-    """The forward on qkv's device: the plain version on the CPU, the kernel
-    on CUDA (counted on fused_window_attention_packed.launches)."""
-    if qkv.device.type == "cpu":
-        return window_attention_reference(qkv, scale, bias16, num_heads,
-                                          mask, out_dtype)
-    if qkv.device.type != "cuda":
+def window_attention_backward_stats_reference(
+        qkv: torch.Tensor, scale: torch.Tensor, p: torch.Tensor,
+        g: torch.Tensor, num_heads: int):
+    """Plain PyTorch twin of fr_tpu's ``_bwd_body_stats``: the exact VJP from
+    the stored f32 p (B·nW, h, N, N), with no score recompute; bias16 and
+    the mask are not read. dscale comes from fr_tpu's identity
+    Σ ds·s_raw = Σ (dq̂·q̂)/scale_h (fused_window_attn.py:595-602)."""
+    dqkv, ds, rs_q = _grad_products(qkv, scale, p, g, num_heads)
+    return dqkv, torch.sum(rs_q, dim=(0, 2, 3)) / scale, torch.sum(ds, dim=0)
+
+
+def _device(qkv: torch.Tensor) -> str:
+    if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no window-attention kernel for device "
                          f"{qkv.device}")
+    return qkv.device.type
+
+
+def _bump(counter) -> None:
+    """Adds one launch to (function, attribute name)."""
+    fn, attr = counter
+    setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+def _forward(qkv, scale, bias16, num_heads, n_win_per_img, mask, out_dtype,
+             counter):
+    if _device(qkv) == "cpu":
+        return window_attention_reference(qkv, scale, bias16, num_heads,
+                                          mask, out_dtype)
     out = _launch(qkv, scale, bias16, num_heads, n_win_per_img, mask,
                   out_dtype)
-    fused_window_attention_packed.launches += 1
+    _bump(counter)
     return out
+
+
+def _backward(qkv, scale, bias16, g, num_heads, n_win_per_img, mask,
+              counter):
+    if _device(qkv) == "cpu":
+        return window_attention_backward_reference(qkv, scale, bias16, g,
+                                                   num_heads, mask)
+    grads = _launch_bwd(qkv, scale, bias16, g, num_heads, n_win_per_img,
+                        mask)
+    _bump(counter)
+    return grads
+
+
+def _forward_stats(qkv, scale, bias16, num_heads, n_win_per_img, mask,
+                   out_dtype, counter):
+    if _device(qkv) == "cpu":
+        return window_attention_forward_stats_reference(
+            qkv, scale, bias16, num_heads, mask, out_dtype)
+    res = _launch_fwd_stats(qkv, scale, bias16, num_heads, n_win_per_img,
+                            mask, out_dtype)
+    _bump(counter)
+    return res
+
+
+def _backward_stats(qkv, scale, p, g, num_heads, counter):
+    if _device(qkv) == "cpu":
+        return window_attention_backward_stats_reference(qkv, scale, p, g,
+                                                         num_heads)
+    grads = _launch_bwd_stats(qkv, scale, p, g, num_heads)
+    _bump(counter)
+    return grads
 
 
 def window_attention_backward(qkv: torch.Tensor, scale: torch.Tensor,
                               bias16: torch.Tensor, g: torch.Tensor,
                               num_heads: int, n_win_per_img: int,
                               mask: Optional[torch.Tensor] = None):
-    """(dqkv, dscale, dbias) of fused_window_attention_packed for the output
-    cotangent g. A CPU tensor takes the plain version; a CUDA tensor
-    launches the Hopper backward kernel, or raises. ``launches`` counts
-    kernel launches."""
-    if qkv.device.type == "cpu":
-        return window_attention_backward_reference(qkv, scale, bias16, g,
-                                                   num_heads, mask)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no window-attention kernel for device "
-                         f"{qkv.device}")
-    grads = _launch_bwd(qkv, scale, bias16, g, num_heads, n_win_per_img,
-                        mask)
-    window_attention_backward.launches += 1
-    return grads
+    """(dqkv, dscale, dbias) of fused_window_attention_packed's recompute
+    arm for the output cotangent g. A CPU tensor takes the plain version; a
+    CUDA tensor launches the Hopper backward kernel, or raises.
+    ``launches`` counts kernel launches."""
+    return _backward(qkv, scale, bias16, g, num_heads, n_win_per_img, mask,
+                     (window_attention_backward, "launches"))
 
 
 window_attention_backward.launches = 0
 
 
-class _PackedWindowAttention(torch.autograd.Function):
-    """fr_tpu's custom_vjp of fused_window_attention_packed with the
-    recompute backward: saves the inputs, not p."""
+def window_attention_forward_stats(qkv: torch.Tensor, scale: torch.Tensor,
+                                   bias16: torch.Tensor, num_heads: int,
+                                   n_win_per_img: int,
+                                   mask: Optional[torch.Tensor] = None,
+                                   out_dtype: Optional[torch.dtype] = None):
+    """(out, p) of the stored-stats forward: the kernel of
+    csrc/window_attn_stats.cu on a CUDA tensor, the plain version on a CPU
+    tensor. ``launches`` counts kernel launches."""
+    return _forward_stats(qkv, scale, bias16, num_heads, n_win_per_img,
+                          mask, out_dtype or torch.float32,
+                          (window_attention_forward_stats, "launches"))
+
+
+window_attention_forward_stats.launches = 0
+
+
+def window_attention_backward_stats(qkv: torch.Tensor, scale: torch.Tensor,
+                                    p: torch.Tensor, g: torch.Tensor,
+                                    num_heads: int):
+    """(dqkv, dscale, dbias) from the stored p: the kernel of
+    csrc/window_attn_stats.cu on a CUDA tensor, the plain version on a CPU
+    tensor. ``launches`` counts kernel launches."""
+    return _backward_stats(qkv, scale, p, g, num_heads,
+                           (window_attention_backward_stats, "launches"))
+
+
+window_attention_backward_stats.launches = 0
+
+
+def stored_stats_arm(stored_stats: bool) -> bool:
+    """fr_tpu's one stats switch (``_fwd_rule`` :1949-1953, ``_pk_fwd_rule``
+    :1622-1626): FR_ATTN_STORED_STATS in {"0", "1"} overrides the entry's
+    stored_stats argument."""
+    env = os.environ.get("FR_ATTN_STORED_STATS")
+    if env in ("0", "1"):
+        return env == "1"
+    return bool(stored_stats)
+
+
+class _WindowAttention(torch.autograd.Function):
+    """fr_tpu's custom_vjp of both entries. ``entry`` is the entry function
+    whose counters the launches go to (its forward and recompute-backward
+    counters; the packed entry's recompute backward counts on
+    window_attention_backward). The recompute arm saves the inputs, the
+    stored-stats arm saves p instead of bias16 and the mask."""
 
     @staticmethod
     def forward(ctx, qkv, scale, bias16, mask, num_heads, n_win_per_img,
-                out_dtype):
-        ctx.save_for_backward(qkv, scale, bias16, mask)
+                out_dtype, entry, stats):
         ctx.num_heads = num_heads
         ctx.n_win_per_img = n_win_per_img
-        return _attention_forward(qkv, scale, bias16, num_heads,
-                                  n_win_per_img, mask, out_dtype)
+        ctx.entry = entry
+        ctx.stats = stats
+        if stats:
+            out, p = _forward_stats(qkv, scale, bias16, num_heads,
+                                    n_win_per_img, mask, out_dtype,
+                                    (entry, "stats_launches"))
+            ctx.save_for_backward(qkv, scale, p)
+            return out
+        ctx.save_for_backward(qkv, scale, bias16, mask)
+        return _forward(qkv, scale, bias16, num_heads, n_win_per_img, mask,
+                        out_dtype, (entry, "launches"))
 
     @staticmethod
     def backward(ctx, g):
-        qkv, scale, bias16, mask = ctx.saved_tensors
-        dqkv, dscale, dbias = window_attention_backward(
-            qkv, scale, bias16, g, ctx.num_heads, ctx.n_win_per_img, mask)
-        return dqkv, dscale, dbias, None, None, None, None
+        if ctx.stats:
+            qkv, scale, p = ctx.saved_tensors
+            grads = _backward_stats(qkv, scale, p, g, ctx.num_heads,
+                                    (ctx.entry, "stats_backward_launches"))
+        else:
+            qkv, scale, bias16, mask = ctx.saved_tensors
+            counter = ((window_attention_backward, "launches")
+                       if ctx.entry is fused_window_attention_packed
+                       else (ctx.entry, "backward_launches"))
+            grads = _backward(qkv, scale, bias16, g, ctx.num_heads,
+                              ctx.n_win_per_img, mask, counter)
+        return (*grads, None, None, None, None, None, None)
 
 
-def fused_window_attention_packed(qkv: torch.Tensor, scale: torch.Tensor,
-                                  bias16: torch.Tensor, num_heads: int,
-                                  n_win_per_img: int,
-                                  mask: Optional[torch.Tensor] = None,
-                                  out_dtype: Optional[torch.dtype] = None
-                                  ) -> torch.Tensor:
-    """fr_tpu's packed-entry contract: qkv (B·nW, N, 3C) compute-dtype →
-    (B·nW, N, C) out_dtype (default f32); scale (h,), bias16 (h, N, N) and
-    mask (n_win_per_img, N, N) f32, the mask indexed by window mod nW.
-    Differentiable in qkv, scale and bias16 (window_attention_backward).
-
-    A CPU tensor takes the plain version. A CUDA tensor launches the Hopper
-    kernel, or raises; there is no fallback. ``launches`` counts forward
-    kernel launches. fr_tpu's TPU tiling arguments (block_rows, interpret,
-    head_group, stored_stats) have no counterpart here."""
+def _entry(entry, qkv, scale, bias16, num_heads, n_win_per_img, mask,
+           out_dtype, stored_stats):
     out_dtype = out_dtype or torch.float32
     if mask is not None and mask.shape[0] != n_win_per_img:
         raise ValueError(f"mask has {mask.shape[0]} windows, "
                          f"n_win_per_img is {n_win_per_img}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (qkv, scale, bias16)):
-        return _PackedWindowAttention.apply(qkv, scale, bias16, mask,
-                                            num_heads, n_win_per_img,
-                                            out_dtype)
-    return _attention_forward(qkv, scale, bias16, num_heads, n_win_per_img,
-                              mask, out_dtype)
+        return _WindowAttention.apply(qkv, scale, bias16, mask, num_heads,
+                                      n_win_per_img, out_dtype, entry,
+                                      stored_stats_arm(stored_stats))
+    return _forward(qkv, scale, bias16, num_heads, n_win_per_img, mask,
+                    out_dtype, (entry, "launches"))
+
+
+def fused_window_attention_packed(qkv: torch.Tensor, scale: torch.Tensor,
+                                  bias16: torch.Tensor, num_heads: int,
+                                  n_win_per_img: int,
+                                  mask: Optional[torch.Tensor] = None,
+                                  out_dtype: Optional[torch.dtype] = None,
+                                  stored_stats: bool = True
+                                  ) -> torch.Tensor:
+    """fr_tpu's packed-entry contract: qkv (B·nW, N, 3C) compute-dtype →
+    (B·nW, N, C) out_dtype (default f32); scale (h,), bias16 (h, N, N) and
+    mask (n_win_per_img, N, N) f32, the mask indexed by window mod nW.
+    Differentiable in qkv, scale and bias16.
+
+    stored_stats (default True, as fr_tpu's op; the model passes its own
+    choice) picks the stored-stats arm under autograd; FR_ATTN_STORED_STATS
+    overrides it. A CPU tensor takes the plain versions. A CUDA tensor
+    launches the Hopper kernels, or raises; there is no fallback. fr_tpu's
+    TPU tiling arguments (block_rows, interpret, head_group) have no
+    counterpart here."""
+    return _entry(fused_window_attention_packed, qkv, scale, bias16,
+                  num_heads, n_win_per_img, mask, out_dtype, stored_stats)
 
 
 fused_window_attention_packed.launches = 0
+fused_window_attention_packed.stats_launches = 0
+fused_window_attention_packed.stats_backward_launches = 0
+
+
+def fused_window_attention(qkv: torch.Tensor, scale: torch.Tensor,
+                           bias16: torch.Tensor, num_heads: int,
+                           n_win_per_img: int,
+                           mask: Optional[torch.Tensor] = None,
+                           out_dtype: Optional[torch.dtype] = None,
+                           stored_stats: bool = False) -> torch.Tensor:
+    """fr_tpu's per-head entry (fused_window_attn.py:1784), the one its
+    models take when heads·N > 288: the same contract as the packed entry,
+    stored_stats default False as in fr_tpu. The same kernels serve it; its
+    launches count on its own attributes (rows 5–8). fr_tpu's block_rows
+    and FR_ATTN_BATCHED are TPU tiling and have no counterpart here."""
+    return _entry(fused_window_attention, qkv, scale, bias16, num_heads,
+                  n_win_per_img, mask, out_dtype, stored_stats)
+
+
+fused_window_attention.launches = 0
+fused_window_attention.backward_launches = 0
+fused_window_attention.stats_launches = 0
+fused_window_attention.stats_backward_launches = 0
 
 
 def _smem_bytes(N: int, hd: int) -> int:
-    """Dynamic shared memory of one (window, head) block: q̂ and k̂ with a
-    padded row (N, hd+1), v (N, hd), scores (N, N+1), row norms (2N)."""
+    """Dynamic shared memory of one forward (window, head) block: q̂ and k̂
+    with a padded row (N, hd+1), v (N, hd), scores (N, N+1), row norms
+    (2N). The stored-stats forward uses the same."""
     return 4 * (2 * N * (hd + 1) + N * hd + N * (N + 1) + 2 * N)
 
 
 def _checked_operands(qkv, scale, bias16, num_heads, n_win_per_img, mask,
                       smem_bytes, smem_limit):
-    """Validates what both kernels take; returns (B·nW, N, C) and the
-    operands made contiguous."""
+    """Validates what the kernels take; returns (B·nW, N, C) and the
+    operands made contiguous. bias16 None skips its check (the stored-stats
+    backward does not read it)."""
     if qkv.dim() != 3 or qkv.shape[2] % 3:
         raise ValueError(f"qkv must be (B·nW, N, 3C), got {tuple(qkv.shape)}")
     B_, N, C3 = qkv.shape
@@ -242,8 +426,9 @@ def _checked_operands(qkv, scale, bias16, num_heads, n_win_per_img, mask,
         raise ValueError(f"N={N}, head dim {hd} needs {smem_bytes(N, hd)} B "
                          f"of shared memory; the kernel takes ≤ {smem_limit}")
     dev = qkv.device
-    expect = {"scale": (scale, (num_heads,)),
-              "bias16": (bias16, (num_heads, N, N))}
+    expect = {"scale": (scale, (num_heads,))}
+    if bias16 is not None:
+        expect["bias16"] = (bias16, (num_heads, N, N))
     if mask is not None:
         expect["mask"] = (mask, (n_win_per_img, N, N))
     for name, (t, shape) in expect.items():
@@ -251,12 +436,21 @@ def _checked_operands(qkv, scale, bias16, num_heads, n_win_per_img, mask,
                 or tuple(t.shape) != shape):
             raise ValueError(f"{name} must be float32 {shape} on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+    def contiguous(t):
+        return t.contiguous() if t is not None else None
     return ((B_, N, C), qkv.contiguous(), scale.contiguous(),
-            bias16.contiguous(), mask.contiguous() if mask is not None
-            else None)
+            contiguous(bias16), contiguous(mask))
 
 
-def _launch(qkv, scale, bias16, num_heads, n_win_per_img, mask, out_dtype):
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _launch(qkv, scale, bias16, num_heads, n_win_per_img, mask, out_dtype,
+            p_out=None):
+    """The forward kernel, or with ``p_out`` (B·nW, h, N, N) f32 the
+    stored-stats forward that also writes p there."""
     from fr_tpu_torch.ops._build import check_launch, load_library
 
     if out_dtype not in _DTYPE_CODE:
@@ -269,23 +463,50 @@ def _launch(qkv, scale, bias16, num_heads, n_win_per_img, mask, out_dtype):
     if B_ == 0:
         return out
     lib = load_library()
+    args = [qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
+            mask.data_ptr() if mask is not None else None, out.data_ptr()]
+    name = "window_attn_fwd"
+    if p_out is not None:
+        args.append(p_out.data_ptr())
+        name = "window_attn_fwd_stats"
     with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.window_attn_fwd(
-            qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
-            mask.data_ptr() if mask is not None else None, out.data_ptr(),
-            B_, N, C, num_heads, n_win_per_img,
+        err = getattr(lib, name)(
+            *args, B_, N, C, num_heads, n_win_per_img,
             _DTYPE_CODE[qkv.dtype], _DTYPE_CODE[out_dtype], _THREADS,
-            ctypes.c_void_p(stream))
-    check_launch(lib, err, "window_attn_fwd")
+            _stream(qkv.device))
+    check_launch(lib, err, name)
     return out
 
 
+def _launch_fwd_stats(qkv, scale, bias16, num_heads, n_win_per_img, mask,
+                      out_dtype):
+    B_, N, _ = qkv.shape
+    p = torch.empty((B_, num_heads, N, N), dtype=torch.float32,
+                    device=qkv.device)
+    return _launch(qkv, scale, bias16, num_heads, n_win_per_img, mask,
+                   out_dtype, p_out=p), p
+
+
 def _bwd_smem_bytes(N: int, hd: int) -> int:
-    """Dynamic shared memory of one backward (window, head) block: q̂, k̂,
-    dq̂, dk̂, v, g (N, hd+1); s_raw, p, ds (N, N+1); 6N row values and 32
-    per-warp sums."""
+    """Dynamic shared memory of one recompute-backward (window, head)
+    block: q̂, k̂, dq̂, dk̂, v, g (N, hd+1); s_raw, p, ds (N, N+1); 6N row
+    values and 32 per-warp sums."""
     return 4 * (6 * N * (hd + 1) + 3 * N * (N + 1) + 6 * N + 32)
+
+
+def _bwd_stats_smem_bytes(N: int, hd: int) -> int:
+    """The stored-stats backward's block: q̂, k̂, dq̂, dk̂, v, g (N, hd+1);
+    p and round(p)/dp/ds (N, N+1); 6N row values."""
+    return 4 * (6 * N * (hd + 1) + 2 * N * (N + 1) + 6 * N)
+
+
+def _checked_cotangent(g, qkv, B_, N, C):
+    if tuple(g.shape) != (B_, N, C) or g.device != qkv.device:
+        raise ValueError(f"g must be {(B_, N, C)} on {qkv.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    # _bwd_jnp and _bwd_body_stats round g to the compute dtype before
+    # every product
+    return g.to(qkv.dtype).contiguous()
 
 
 def _launch_bwd(qkv, scale, bias16, g, num_heads, n_win_per_img, mask):
@@ -294,12 +515,8 @@ def _launch_bwd(qkv, scale, bias16, g, num_heads, n_win_per_img, mask):
     (B_, N, C), qkv, scale, bias16, mask = _checked_operands(
         qkv, scale, bias16, num_heads, n_win_per_img, mask, _bwd_smem_bytes,
         _BWD_SMEM_LIMIT)
+    g = _checked_cotangent(g, qkv, B_, N, C)
     dev = qkv.device
-    if tuple(g.shape) != (B_, N, C) or g.device != dev:
-        raise ValueError(f"g must be {(B_, N, C)} on {dev}, got "
-                         f"{tuple(g.shape)} on {g.device}")
-    # _bwd_jnp rounds g to the compute dtype before every product
-    g = g.to(qkv.dtype).contiguous()
     cols = N * N + 1
     dqkv = torch.empty_like(qkv)
     partial = torch.empty((B_ * num_heads, cols), dtype=torch.float32,
@@ -307,13 +524,43 @@ def _launch_bwd(qkv, scale, bias16, g, num_heads, n_win_per_img, mask):
     sums = torch.empty((num_heads, cols), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.window_attn_bwd(
             qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
             mask.data_ptr() if mask is not None else None, g.data_ptr(),
             dqkv.data_ptr(), partial.data_ptr(), sums.data_ptr(),
             B_, N, C, num_heads, n_win_per_img, _DTYPE_CODE[qkv.dtype],
-            _BWD_THREADS, ctypes.c_void_p(stream))
+            _BWD_THREADS, _stream(dev))
     check_launch(lib, err, "window_attn_bwd")
+    dbias = sums[:, :N * N].reshape(num_heads, N, N).contiguous()
+    return dqkv, sums[:, N * N].contiguous(), dbias
+
+
+def _launch_bwd_stats(qkv, scale, p, g, num_heads):
+    from fr_tpu_torch.ops._build import check_launch, load_library
+
+    (B_, N, C), qkv, scale, _, _ = _checked_operands(
+        qkv, scale, None, num_heads, 1, None, _bwd_stats_smem_bytes,
+        _BWD_SMEM_LIMIT)
+    g = _checked_cotangent(g, qkv, B_, N, C)
+    dev = qkv.device
+    if (tuple(p.shape) != (B_, num_heads, N, N) or p.dtype != torch.float32
+            or p.device != dev):
+        raise ValueError(f"p must be float32 {(B_, num_heads, N, N)} on "
+                         f"{dev}, got {p.dtype} {tuple(p.shape)} on "
+                         f"{p.device}")
+    p = p.contiguous()
+    cols = N * N + 1
+    dqkv = torch.empty_like(qkv)
+    partial = torch.empty((B_ * num_heads, cols), dtype=torch.float32,
+                          device=dev)
+    sums = torch.empty((num_heads, cols), dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = lib.window_attn_bwd_stats(
+            qkv.data_ptr(), scale.data_ptr(), p.data_ptr(), g.data_ptr(),
+            dqkv.data_ptr(), partial.data_ptr(), sums.data_ptr(),
+            B_, N, C, num_heads, _DTYPE_CODE[qkv.dtype], _BWD_THREADS,
+            _stream(dev))
+    check_launch(lib, err, "window_attn_bwd_stats")
     dbias = sums[:, :N * N].reshape(num_heads, N, N).contiguous()
     return dqkv, sums[:, N * N].contiguous(), dbias

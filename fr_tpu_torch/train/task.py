@@ -16,8 +16,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from fr_tpu.configs.base import Config
-from fr_tpu.utils.logger import print_log
+from fr_tpu_torch.configs.base import Config
+from fr_tpu_torch.utils.logger import print_log
 from fr_tpu_torch.data.augment import augment_cfg_from_conf
 from fr_tpu_torch.eval.verification import (pair_score, performance_acc,
                                             performance_roc)

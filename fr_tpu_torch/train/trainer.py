@@ -5,7 +5,7 @@ The training loop: epochs of the loader's batches through the task's
 training step, validation every ``valid_freq`` epochs, the epoch report,
 and an encoder snapshot every ``save_epoch`` epochs in fr_tpu's ``.npz``
 layout. Not ported yet: the resumable full-state checkpoint (``resume``,
-ROADMAP §1 slice 3), the profiler trace (``profile_steps``, ROADMAP §1,
+ROADMAP §1 slice 5), the profiler trace (``profile_steps``, ROADMAP §1,
 tools and the port's bench) and TensorBoard scalars.
 """
 
@@ -15,7 +15,7 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
-from fr_tpu.utils.logger import print_log
+from fr_tpu_torch.utils.logger import print_log
 
 
 class Trainer:
@@ -32,7 +32,7 @@ class Trainer:
         if resume:
             raise NotImplementedError(
                 "resuming from a full training state is not ported yet: "
-                "ROADMAP §1 slice 3 (checkpoints with exact resume)")
+                "ROADMAP §1 slice 5 (checkpoints with exact resume)")
         if profile_steps:
             raise NotImplementedError(
                 "--profile is not ported yet: ROADMAP §1, tools and the "

@@ -1,5 +1,6 @@
 """Seeded full-width weights, images and training runs: how a card without
-jax is held to fr_tpu at the full AlterNet50 width.
+jax is held to fr_tpu at the full width of AlterNet50, Swin50 and
+EffiAlter_m.
 
 ``seeded_state_dict`` draws every reference-named state-dict key of a port
 encoder from a numpy seed, in state-dict order. fr_tpu takes the same dict
@@ -9,10 +10,16 @@ fr_tpu's f32 embeddings of ``golden_images(seed)``; tests/test_torch_alternet.py
 regenerates it with jax and checks the port against it on the CPU, and
 chip_smoke.py checks the card against it.
 
+tests/data/swin50_golden.npz and effialter_m_golden.npz do the same at 112
+px (``golden_encoder``; tests/test_torch_swin.py and
+tests/test_torch_effialternet.py regenerate them).
+
 tests/data/alternet50_train_golden.npz keeps fr_tpu's two SGD steps of the
 seeded AlterNet50 on ``train_golden_batches(seed)``: losses, gradient norms
 and the norm of each tensor's update (``run_train_golden`` is the port's
 side; tests/test_torch_train_golden.py regenerates the file with jax).
+tests/data/swin50_train_golden.npz is the same for Swin50 at 112 px, head
+dropout off (tests/test_torch_swin_train.py regenerates it).
 """
 
 from __future__ import annotations
@@ -23,12 +30,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from fr_tpu_torch.configs.base import default_img_size
 from fr_tpu_torch.models.common import xavier_std
 
-# the training golden: full-width AlterNet50, f32, 4 images of 2 synthetic
-# identities per step, 1,000 classes, every class active, SGD, drop rates 0
-TRAIN_GOLDEN = dict(img_size=192, emd_size=512, n_classes=1000, batch=4,
-                    steps=2, lr=1e-4)
+# the training goldens: full-width AlterNet50 (192 px) or Swin50 (112 px),
+# f32, 4 images of 2 synthetic identities per step, 1,000 classes, every
+# class active, SGD, drop rates 0
+TRAIN_GOLDEN = dict(emd_size=512, n_classes=1000, batch=4, steps=2, lr=1e-4)
 
 # buffers that are functions of the architecture, kept as the model made them
 _FIXED = ("num_batches_tracked", "relative_coords_table",
@@ -54,6 +62,8 @@ def seeded_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
             arr = rng.uniform(lo, hi, shape)
         elif leaf == "logit_scale":
             arr = np.log(rng.uniform(5.0, 20.0, shape))
+        elif leaf == "temperature":
+            arr = rng.uniform(0.5, 1.5, shape)
         elif leaf in ("bias", "q_bias", "v_bias"):
             arr = rng.uniform(-0.1, 0.1, shape)
         elif leaf == "weight":
@@ -70,12 +80,36 @@ def golden_images(seed: int, n: int = 4, img_size: int = 192) -> np.ndarray:
     return rng.standard_normal((n, img_size, img_size, 3)).astype(np.float32)
 
 
-def train_golden_conf():
+def golden_encoder(network: str, dtype: torch.dtype = torch.float32,
+                   train: bool = False) -> nn.Module:
+    """The full-width port encoder of a golden: AlterNet50 at 192 px,
+    Swin50 or EffiAlter_m at 112 px, emd 512; ``train`` turns the drop
+    rates to 0 (AlterNet's DropPath and head dropout, Swin's head
+    dropout)."""
+    from fr_tpu_torch.models.alternet import ALTERNET_PLANS, AlterNet
+    from fr_tpu_torch.models.effialternet import EFFIALTER_CFGS, EffNetV2
+    from fr_tpu_torch.models.swinv2 import SWIN_PLANS, Swin
+
+    size = default_img_size(network)
+    if network == "AlterNet50":
+        drop = dict(drop_path_rate=0.0, head_drop=0.0) if train else {}
+        return AlterNet(*ALTERNET_PLANS[network], img_size=size,
+                        emd_size=512, compute_dtype=dtype, **drop)
+    if network == "Swin50":
+        return Swin(*SWIN_PLANS[network], emd_size=512,
+                    head_drop=0.0 if train else 0.5, compute_dtype=dtype)
+    if network == "EffiAlter_m":
+        return EffNetV2(EFFIALTER_CFGS[network], img_size=size, emd_size=512,
+                        compute_dtype=dtype)
+    raise ValueError(f"no golden for {network}")
+
+
+def train_golden_conf(network: str = "AlterNet50"):
     """The training golden's configuration (SGD, ArcFace s=30 m=0.35, f32,
     sample_rate 1.0)."""
-    from fr_tpu.configs.base import Config
+    from fr_tpu_torch.configs.base import Config
 
-    return Config(network="AlterNet50", img_size=TRAIN_GOLDEN["img_size"],
+    return Config(network=network, img_size=default_img_size(network),
                   emd_size=TRAIN_GOLDEN["emd_size"],
                   n_classes=TRAIN_GOLDEN["n_classes"], metric="ArcFace",
                   loss_s=30.0, loss_m=0.35, optimizer_name="SGD",
@@ -83,11 +117,12 @@ def train_golden_conf():
                   betas=(0.9, 0.999), mixed_precision=False, sample_rate=1.0)
 
 
-def train_golden_batches(seed: int) -> List[Tuple[np.ndarray, np.ndarray]]:
-    """(images (4, 192, 192, 3) f32, labels (4,) int32) per step: two
-    synthetic identities, template + noise."""
+def train_golden_batches(seed: int, img_size: int = 192
+                         ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """(images (4, img_size, img_size, 3) f32, labels (4,) int32) per step:
+    two synthetic identities, template + noise."""
     rng = np.random.default_rng(seed + 2)
-    size, n = TRAIN_GOLDEN["img_size"], TRAIN_GOLDEN["batch"]
+    size, n = img_size, TRAIN_GOLDEN["batch"]
     templates = rng.standard_normal((2, size, size, 3))
     classes = rng.choice(TRAIN_GOLDEN["n_classes"], 2, replace=False)
     out = []
@@ -108,19 +143,17 @@ def train_golden_head(seed: int) -> np.ndarray:
             np.float32)
 
 
-def run_train_golden(seed: int, device) -> Dict[str, np.ndarray]:
-    """The port's side of the training golden on ``device``: losses,
+def run_train_golden(seed: int, device, network: str = "AlterNet50"
+                     ) -> Dict[str, np.ndarray]:
+    """The port's side of a training golden on ``device``: losses,
     grad_norms, and update_names / update_norms (‖after − before‖ of every
     encoder parameter by its state-dict name, then "head")."""
     from fr_tpu_torch.heads.partial_fc import PFCConfig, PFCState
-    from fr_tpu_torch.models.alternet import ALTERNET_PLANS, AlterNet
     from fr_tpu_torch.train.state import TrainState, init_encoder_slots
     from fr_tpu_torch.train.step import make_train_step
 
-    conf = train_golden_conf()
-    model = AlterNet(*ALTERNET_PLANS["AlterNet50"],
-                     img_size=conf.img_size, emd_size=conf.emd_size,
-                     drop_path_rate=0.0, head_drop=0.0)
+    conf = train_golden_conf(network)
+    model = golden_encoder(network, train=True)
     model.load_state_dict(seeded_state_dict(model, seed), strict=True)
     model.to(device)
     w0 = torch.from_numpy(train_golden_head(seed)).to(device)
@@ -133,7 +166,7 @@ def run_train_golden(seed: int, device) -> Dict[str, np.ndarray]:
     step = make_train_step(conf, cfg, device)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     losses, norms = [], []
-    for images, labels in train_golden_batches(seed):
+    for images, labels in train_golden_batches(seed, conf.img_size):
         m = step(state, images, labels, TRAIN_GOLDEN["lr"])
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())

@@ -31,7 +31,9 @@ import numpy as np
 import torch
 
 from fr_tpu_torch.models.alternet import ALTERNET_PLANS, alt_sequence
+from fr_tpu_torch.models.effialternet import EFFIALTER_CFGS, stage_plan
 from fr_tpu_torch.models.resnet import RESNET_LAYERS
+from fr_tpu_torch.models.swinv2 import SWIN_PLANS
 from fr_tpu_torch.models.swin_common import (relative_coords_table,
                                              relative_position_index,
                                              shifted_window_mask)
@@ -59,9 +61,13 @@ class _Table:
         self.entries: List[_Entry] = []
         self.fixed: StateDict = {}
 
-    def conv(self, name: str, path: Tuple[str, ...]) -> None:
+    def conv(self, name: str, path: Tuple[str, ...],
+             bias: bool = False) -> None:
         self.entries.append(_Entry(f"{name}.weight", "params",
                                    path + ("Conv_0", "kernel"), "conv"))
+        if bias:
+            self.entries.append(_Entry(f"{name}.bias", "params",
+                                       path + ("Conv_0", "bias"), "vec"))
 
     def linear(self, name: str, path: Tuple[str, ...], bias: bool) -> None:
         self.entries.append(_Entry(f"{name}.weight", "params",
@@ -94,8 +100,10 @@ class _Table:
             self.conv(f"{tb}.downsample.0", path + ("Conv_2",))
             self.bn(f"{tb}.downsample.1", path + ("BatchNorm_2",))
 
-    def swin_block(self, tb: str, path: Tuple[str, ...], window: int,
-                   res: int, shift: int) -> None:
+    def attention(self, tb: str, path: Tuple[str, ...], window: int,
+                  res: int, shift: int) -> None:
+        """A block's WindowAttention_0, its norm2 (BatchNorm_0) and, when
+        shifted, its attn_mask."""
         a = path + ("WindowAttention_0",)
         pre = f"{tb}.attn"
         self.entries.append(_Entry(f"{pre}.qkv.weight", "params",
@@ -113,6 +121,37 @@ class _Table:
         if shift > 0:
             self.fixed[f"{tb}.attn_mask"] = torch.from_numpy(
                 shifted_window_mask(res, res, window, shift))
+
+    def swin_block(self, tb: str, path: Tuple[str, ...]) -> None:
+        """Swin's block: attention, then the conv-MLP and norm3."""
+        self.attention(tb, path, 7, 0, 0)
+        self.conv(f"{tb}.mlp.fc1", path + ("Conv_0",), bias=True)
+        self.conv(f"{tb}.mlp.fc2", path + ("Conv_1",), bias=True)
+        self.bn(f"{tb}.norm3", path + ("BatchNorm_1",))
+
+    def fan_block(self, tb: str, path: Tuple[str, ...], res: int,
+                  shift: int) -> None:
+        """EffiAlterNet's block: attention, then ChannelProcessing and
+        norm3."""
+        self.attention(tb, path, 7, res, shift)
+        cp = path + ("ChannelProcessing_0",)
+        self.linear(f"{tb}.chnnel_processing.qv", cp + ("Dense_0",),
+                    bias=True)
+        self.vec(f"{tb}.chnnel_processing.temperature", cp + ("temperature",))
+        self.bn(f"{tb}.norm3", path + ("BatchNorm_1",))
+
+    def mbconv(self, tb: str, path: Tuple[str, ...], use_se: bool) -> None:
+        """EffiAlterNet's MBConv at the reference's conv.{i} indices."""
+        self.conv(f"{tb}.conv.0", path + ("EConv_0",))
+        self.bn(f"{tb}.conv.1", path + ("BatchNorm_0",))
+        self.conv(f"{tb}.conv.3", path + ("EConv_1",))
+        self.bn(f"{tb}.conv.4", path + ("BatchNorm_1",))
+        if use_se:
+            se = path + ("SELayer_0",)
+            self.linear(f"{tb}.conv.6.fc.0", se + ("Dense_0",), bias=True)
+            self.linear(f"{tb}.conv.6.fc.2", se + ("Dense_1",), bias=True)
+            self.conv(f"{tb}.conv.7", path + ("EConv_2",))
+            self.bn(f"{tb}.conv.8", path + ("BatchNorm_2",))
 
     def head(self) -> None:
         self.bn("bn2", ("BatchNorm_1",))
@@ -158,23 +197,81 @@ def _alternet_table(num_blocks: Sequence[int], num_blocks2: Sequence[int],
                 k += 1
                 continue
             for shift in (0, win // 2):
-                t.swin_block(f"layer{stage}.{k}",
-                             (f"AlterSwinBlock_{swin_i}",), win, res, shift)
+                t.attention(f"layer{stage}.{k}",
+                            (f"AlterSwinBlock_{swin_i}",), win, res, shift)
                 swin_i += 1
                 k += 1
     t.head()
     return t
 
 
+def _swin_table(num_blocks: Sequence[int]) -> _Table:
+    """flax numbers the stem conv Conv_0 and each stage's k2/s2 conv
+    Conv_1.. (top level), blocks SwinBlock_i; the reference puts the
+    downsampling conv at layer{s}.0."""
+    t = _Table()
+    t.conv("conv1", ("Conv_0",))
+    t.bn("bn1", ("BatchNorm_0",))
+    conv_i = 1
+    block_i = 0
+    for stage, (blocks, stride) in enumerate(zip(num_blocks, (1, 2, 2, 2)),
+                                             start=1):
+        k = 0
+        if stride > 1:
+            t.conv(f"layer{stage}.0", (f"Conv_{conv_i}",))
+            conv_i += 1
+            k = 1
+        for _ in range(blocks):
+            t.swin_block(f"layer{stage}.{k}", (f"SwinBlock_{block_i}",))
+            block_i += 1
+            k += 1
+    t.head()
+    return t
+
+
+def _effialter_table(cfgs, img_size: int = 112) -> _Table:
+    """features.0 is the stem (EConv_0, BatchNorm_0); then MBConv_i and
+    FANSwinBlock_j in construction order, walked with fr_tpu's resolution
+    bookkeeping; the head is Dense_0 (kernel and bias at the top) and
+    BatchNorm_1."""
+    t = _Table()
+    t.conv("features.0.0", ("EConv_0",))
+    t.bn("features.0.1", ("BatchNorm_0",))
+    k = 1
+    mb_i = fan_i = 0
+    for cfg, res, seq in stage_plan(cfgs, img_size):
+        use_se = bool(cfg[4])
+        for is_alt in [False] + seq:
+            if not is_alt:
+                t.mbconv(f"features.{k}", (f"MBConv_{mb_i}",), use_se)
+                mb_i += 1
+                k += 1
+                continue
+            for shift in ((0, 3) if res > 7 else (0,)):
+                t.fan_block(f"features.{k}", (f"FANSwinBlock_{fan_i}",),
+                            res, shift)
+                fan_i += 1
+                k += 1
+    t.linear("fc", ("Dense_0",), bias=True)
+    t.bn("bn", ("BatchNorm_1",))
+    return t
+
+
 def _table(network: str, img_size: Optional[int] = None,
            plan: Optional[Tuple] = None) -> _Table:
-    """``plan`` overrides the named network's stage plan: ResNet layers, or
-    AlterNet (num_blocks, num_blocks2)."""
-    if "ResNet" in network:
-        return _resnet_table(plan or RESNET_LAYERS[network])
+    """``plan`` overrides the named network's stage plan: ResNet layers,
+    AlterNet (num_blocks, num_blocks2), Swin num_blocks or EffiAlterNet
+    cfgs. Dispatch in fr_tpu's order."""
+    if "EffiAlter" in network:
+        return _effialter_table(plan or EFFIALTER_CFGS[network],
+                                img_size or 112)
     if "AlterNet" in network and "V1" not in network and "Sep" not in network:
         num_blocks, num_blocks2 = plan or ALTERNET_PLANS[network][:2]
         return _alternet_table(num_blocks, num_blocks2, img_size or 192)
+    if "Swin" in network:
+        return _swin_table(plan or SWIN_PLANS[network][0])
+    if "ResNet" in network:
+        return _resnet_table(plan or RESNET_LAYERS[network])
     raise NotImplementedError(
         f"weight import for {network} is not ported yet (ROADMAP §1)")
 
@@ -249,7 +346,8 @@ def _flatten(tree: Mapping, prefix: str) -> Dict[str, np.ndarray]:
 
 
 def load_encoder_npz(path: str, network: str,
-                     img_size: Optional[int] = None) -> StateDict:
+                     img_size: Optional[int] = None,
+                     plan: Optional[Tuple] = None) -> StateDict:
     """Read an fr_tpu encoder snapshot (flattened ``params.*`` and
     ``batch_stats.*`` arrays) with numpy alone."""
     with np.load(path, allow_pickle=False) as data:
@@ -258,15 +356,16 @@ def load_encoder_npz(path: str, network: str,
         stats = {k[len("batch_stats."):]: data[k] for k in data.files
                  if k.startswith("batch_stats.")}
     return encoder_state_dict_from_jax(_unflatten(params), _unflatten(stats),
-                                       network, img_size)
+                                       network, img_size, plan)
 
 
 def export_encoder_npz(path: str, encoder: torch.nn.Module, epoch: int,
-                       network: str, img_size: Optional[int] = None) -> None:
+                       network: str, img_size: Optional[int] = None,
+                       plan: Optional[Tuple] = None) -> None:
     """Write the ``{epoch}_epoch_encoder.npz`` snapshot in fr_tpu's layout
     (fr_tpu/ckpt/checkpoint.py export_encoder)."""
     params, stats = encoder_trees_from_state_dict(encoder.state_dict(),
-                                                  network, img_size)
+                                                  network, img_size, plan)
     flat = _flatten(params, "params")
     flat.update(_flatten(stats, "batch_stats"))
     np.savez(path, __epoch__=epoch, __name__=network, **flat)

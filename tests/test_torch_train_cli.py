@@ -76,7 +76,7 @@ def test_library_training_step(use_fused):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--resume"], "slice 3"),
+    (["--resume"], "slice 5 \\(checkpoints with exact resume\\)"),
     (["--profile", "2"], "ROADMAP"),
     (["--sample_block", "2"], "slice 5"),
     (["--mesh_data", "2"], "multi-GPU"),

@@ -10,7 +10,7 @@ Without a CUDA device every test skips with its reason."""
 import pytest
 import torch
 
-from fr_tpu.configs.base import Config
+from fr_tpu_torch.configs.base import Config
 from fr_tpu_torch.heads.partial_fc import PFCConfig
 from fr_tpu_torch.models.alternet import AlterNet
 from fr_tpu_torch.models.common import BatchNorm2d, dropout, init_weights

@@ -114,7 +114,7 @@ def test_backward_matches_interpreted_pk_bwd_pallas(shape, masked, dtype):
     tb = torch.from_numpy(bias16).requires_grad_(True)
     out = fused_window_attention_packed(
         tq, ts, tb, heads, nW, None if mask is None else
-        torch.from_numpy(mask), out_dtype=tdt)
+        torch.from_numpy(mask), out_dtype=tdt, stored_stats=False)
     out.backward(torch.from_numpy(g).to(tdt))
     _assert_grads([tq.grad.float().numpy(), ts.grad.numpy(),
                    tb.grad.numpy()],
@@ -122,8 +122,9 @@ def test_backward_matches_interpreted_pk_bwd_pallas(shape, masked, dtype):
 
 
 def test_function_gradients_equal_autograd_of_the_plain_forward():
-    """f32: the hand-written backward behind the autograd Function equals
-    torch autograd through the plain forward, scale and bias included."""
+    """f32: the hand-written recompute backward behind the autograd
+    Function equals torch autograd through the plain forward, scale and
+    bias included."""
     qkv, scale, bias16, g, mask, nW = _inputs(36, 4, 12, 6, True, seed=11)
     grads = []
     for fn in ("function", "autograd"):
@@ -131,7 +132,8 @@ def test_function_gradients_equal_autograd_of_the_plain_forward():
         ts = torch.from_numpy(scale).requires_grad_(True)
         tb = torch.from_numpy(bias16).requires_grad_(True)
         tm = torch.from_numpy(mask)
-        out = (fused_window_attention_packed(tq, ts, tb, 4, nW, tm)
+        out = (fused_window_attention_packed(tq, ts, tb, 4, nW, tm,
+                                             stored_stats=False)
                if fn == "function"
                else window_attention_reference(tq, ts, tb, 4, tm))
         out.backward(torch.from_numpy(g))
