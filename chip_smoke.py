@@ -12,7 +12,9 @@ Phases; any failure exits non-zero and prints no result:
     function): the window-attention forward and backward at the AlterNet50
     shapes (192 px, 128 images), masked and unmasked, bf16 and f32; the
     three margin-softmax CE kernels at the ms1m_arcface_122 head (128 rows,
-    emd 512, 26,007 sampled columns), ArcFace and CosFace, bf16 and f32;
+    emd 512, 26,007 sampled columns), ArcFace and CosFace, bf16 and f32,
+    and at the webface42m head (205,952 columns, the labels and the column
+    mask made as its step makes them);
     [kernel_perhead] the same forward and backward kernels at the Swin50
     and EffiAlter_m N=49 shapes (112 px, 128 images; head dims 32 and 38)
     and a shift-masked one; [kernel_stats] the stored-stats forward and
@@ -52,12 +54,42 @@ Phases; any failure exits non-zero and prints no result:
     variable is restored);
 10. [swin50_train_golden] two SGD steps of full-width Swin50 in f32 against
     tests/data/swin50_train_golden.npz;
-11. [profile] torch.profiler over 5 training steps of Swin50 and of
-    EffiAlter_m (bf16, b=128, the full ms1m head at sample_rate 0.3): wall
-    per step, device busy, idle share, launches per step, time by family.
+11. [kernel_sparse_rows] the grouped gather, SGD and AdamW kernels against
+    their plain versions on the WebFace42M table (2,059,968 × 512 f32,
+    3,218 groups of 64 from a seed, the first and the last group forced in)
+    and at a small shape (block 4, D 128): gather bit-exact, updates to
+    rtol 1e-5 / atol 1e-6 (fused multiply-adds), unsampled rows bitwise
+    unchanged, the same bits on two runs, on inputs that make every term
+    of both rules larger than the tolerance; times, byte bounds, and
+    torch.index_select as the gather's library call;
+12. [resnet100] the serving CLI of webface42m at full width (IR-ResNet100,
+    112 px, emd 512, bf16), the embedding golden
+    (tests/data/resnet100_golden.npz) and the embed throughput;
+13. [webface42m] FaceRecognitionTask.training_step of the webface42m config
+    (ResNet100, 2,059,906 classes, sample_rate 0.1, sample_block 64, b=128,
+    bf16, SGD, random images and labels), use_fused off then on from one
+    seed: finite losses, the first three within 2e-2 relative, one gather
+    and one grouped SGD update per step, every label's group among the
+    drawn groups and only drawn rows changed, ms per step, images/s, peak
+    memory; three steps with AdamW; then sample_block 1 (per-row sampling
+    of the same head) timed beside it;
+14. [resnet100_train_golden] two SGD steps of ResNet100 under a
+    block-sampled head in f32 against tests/data/resnet100_train_golden.npz,
+    the stored groups fed through sample_gidx;
+15. [resume] the training CLI (ResNet100 at full width, bf16, sample_block
+    4, sample_rate 0.5) for 7 epochs in one run, then the same command with
+    --resume from that run's epoch-5 save: the final encoder and head are
+    bitwise equal;
+16. [profile] torch.profiler over 5 training steps of Swin50 and of
+    EffiAlter_m (bf16, b=128, the full ms1m head at sample_rate 0.3) and of
+    the webface42m step of phase 13 at sample_block 64 and 1: wall per
+    step, device busy, idle share, launches per step, time by family, and
+    the head's device time inside the step (the kernels launched in
+    train/step.py's pfc_head:* ranges).
 
 Every kernel's launches in the JSON line are counted on its main path
-(phases 4, 6, 7, 8 and 9), each run with the counts set to 0 just before it.
+(phases 4, 6, 7, 8, 9 and 13), each run with the counts set to 0 just before
+it.
 
 The last three lines are the kernel JSON line, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -85,6 +117,7 @@ BF16_TOL = 3.2e-2   # two bf16 ulps at |x| < 4: p and the output round to bf16
 CE_STATS_RTOL = 1e-4
 CE_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 CE_SHAPE = (128, 512, 26007)   # ms1m_arcface_122: b, emd, int(0.3·86,690)
+CE_WEBFACE_SHAPE = (128, 512, 205952)   # webface42m at sample_block 64
 # AlterNet50 at 192 px, 128 images: (stage, B·nW, N, heads, resolution,
 # window, launches per encoder call unmasked, masked)
 SHAPES = [("stage2", 2048, 36, 4, 24, 6, 1, 1),
@@ -115,6 +148,23 @@ NET_LAUNCHES = {"AlterNet50": 12, "Swin50": 14, "EffiAlter_m": 4}
 # epochs and 5 of cosine decay (at 6, EffiAlter_m's last epoch sat only 0.05
 # below its first, after the warm-up's rise)
 NET_EPOCHS = 10
+R100_GOLDEN = ROOT / "tests" / "data" / "resnet100_golden.npz"
+R100_TRAIN_GOLDEN = ROOT / "tests" / "data" / "resnet100_train_golden.npz"
+# webface42m: 2,059,906 classes in groups of 64 at sample_rate 0.1. fr_tpu's
+# load_config resets the config's own sample_rate to 1.0 unless it is passed
+# (ROADMAP §3), so it is passed.
+WEBFACE_ARGS = ["--config", "webface42m", "--network", "ResNet100",
+                "--sample_rate", "0.1", "--synthetic", "--device", "cuda"]
+WEBFACE_BLOCK = 64
+# updates against their plain versions: nvcc contracts mom·buf + g and the
+# AdamW sums into fused multiply-adds, the plain version rounds each product
+ROWS_RTOL, ROWS_ATOL = 1e-5, 1e-6
+# tables read and written per sampled row: (in, out)
+ROWS_TRAFFIC = {"grouped_gather": (1, 1), "grouped_update_sgd": (3, 2),
+                "grouped_update_adamw": (4, 3)}
+ROWS_FLOPS = {"grouped_gather": 0, "grouped_update_sgd": 6,
+              "grouped_update_adamw": 16}   # per element
+RESUME_EPOCHS = 7
 
 
 def check(cond: bool, msg: str) -> None:
@@ -282,10 +332,38 @@ def phase_kernel_bwd():
     return worst, times
 
 
+def _webface_ce_columns(gen):
+    """The target columns and the column mask of one webface42m step at
+    sample_block 64, made as the step makes them: 128 labels over all
+    2,059,906 classes (one in the partly padded last group, so that the
+    mask has False columns), the groups drawn for them, the labels' columns
+    among the expanded index, and col_valid = idx < num_classes."""
+    import torch
+    from fr_tpu_torch.heads.partial_fc import (PFCConfig, label_columns,
+                                               sample_groups,
+                                               shard_group_masks)
+    from fr_tpu_torch.ops.sparse_rows import expand_group_index
+
+    cfg = PFCConfig(2059906, 512, sample_rate=0.1, sample_block=WEBFACE_BLOCK)
+    labels = torch.randint(0, cfg.num_classes, (CE_WEBFACE_SHAPE[0],),
+                           device="cuda", generator=gen)
+    labels[0] = cfg.num_classes - 1
+    gidx = sample_groups(cfg, gen, *shard_group_masks(cfg, labels,
+                                                      labels >= 0))
+    idx = expand_group_index(gidx, cfg.sample_block)
+    cols, cv = label_columns(cfg, labels, idx), idx < cfg.num_classes
+    check(idx.shape[0] == CE_WEBFACE_SHAPE[2] and bool((cols >= 0).all())
+          and int((~cv).sum()) == cfg.num_classes_padded - cfg.num_classes,
+          "[margin_ce] the webface42m columns")
+    return cols, cv
+
+
 def phase_margin_ce():
     """The three margin-CE kernels vs their plain versions at the
-    ms1m_arcface_122 head; returns ({kernel: max abs error}, {kernel: (ms,
-    plain ms)} in bf16 ArcFace)."""
+    ms1m_arcface_122 head, at the webface42m head (205,952 columns, the
+    step's own labels and column mask) and at one small odd shape; returns
+    ({kernel: max abs error}, {kernel: (ms, plain ms)} in bf16 ArcFace at
+    the ms1m head)."""
     import torch
     from fr_tpu_torch.heads.partial_fc import PFCConfig
     from fr_tpu_torch.ops import fused_pfc as F
@@ -298,13 +376,19 @@ def phase_margin_ce():
             ("ArcFace", CE_SHAPE, torch.bfloat16),
             ("ArcFace", CE_SHAPE, torch.float32),
             ("CosFace", CE_SHAPE, torch.bfloat16),
+            ("ArcFace", CE_WEBFACE_SHAPE, torch.bfloat16),
+            ("ArcFace", CE_WEBFACE_SHAPE, torch.float32),
             ("ArcFace", (10, 40, 131), torch.float32)):
         def unit(*shape):
             x = torch.randn(*shape, device="cuda", generator=gen)
             return (x / x.norm(dim=1, keepdim=True)).to(dt)
         emb, w = unit(n, d), unit(k, d)
-        labels = torch.randint(-1, k - 3, (n,), device="cuda", generator=gen)
-        cv = torch.arange(k, device="cuda") < k - 3
+        if (n, d, k) == CE_WEBFACE_SHAPE:
+            labels, cv = _webface_ce_columns(gen)
+        else:
+            labels = torch.randint(-1, k - 3, (n,), device="cuda",
+                                   generator=gen)
+            cv = torch.arange(k, device="cuda") < k - 3
         g = torch.rand(n, device="cuda", generator=gen) + 0.5
         cfg = PFCConfig(num_classes=k, embedding_size=d, margin=margin,
                         s=30.0, m=0.35,
@@ -325,21 +409,23 @@ def phase_margin_ce():
         rge, rgw = F.margin_ce_backward_reference(*args, m, dd, g, cfg)
         torch.cuda.synchronize()
         tol = CE_GRAD_RTOL[str(dt).split(".")[-1]]
-        errs = {"margin_ce_stats": stats_err}
+        errs, rels = {"margin_ce_stats": stats_err}, {}
         for name, a, b in (("margin_ce_grad_emb", ge, rge),
                            ("margin_ce_grad_w", gw, rgw)):
             check(bool(torch.isfinite(a).all()), f"{name} is not finite")
             rel = ((a - b).norm() / b.norm()).item()
             check(rel <= tol, f"{margin} {dt} {name}: norm-wise {rel} > {tol}")
-            errs[name] = (a - b).abs().max().item()
+            errs[name], rels[name] = (a - b).abs().max().item(), rel
         for name, err in errs.items():
             worst[name] = max(worst[name], err)
         tag = f"{margin} ({n},{d},{k}) {str(dt).split('.')[-1]}"
         print(f"[margin_ce] {tag:32s} loss err {stats_err:.2e}, grad_emb "
               f"{errs['margin_ce_grad_emb']:.2e}, grad_w "
-              f"{errs['margin_ce_grad_w']:.2e} (max abs)")
-        if (n, d, k) == CE_SHAPE and dt == torch.bfloat16 \
-                and margin == "ArcFace":
+              f"{errs['margin_ce_grad_w']:.2e} (max abs; norm-wise "
+              f"{rels['margin_ce_grad_emb']:.1e}, "
+              f"{rels['margin_ce_grad_w']:.1e} against {tol:g})")
+        if (n, d, k) in (CE_SHAPE, CE_WEBFACE_SHAPE) \
+                and dt == torch.bfloat16 and margin == "ArcFace":
             def plain_emb():
                 c = F.margin_ce_coeff_reference(*args, m, dd, g, cfg)
                 return c.to(dt).float() @ w.float()
@@ -356,9 +442,13 @@ def phase_margin_ce():
                 "margin_ce_grad_w": (lambda: F.margin_ce_grad_w(
                     *args, m, dd, g, cfg), plain_w)}
             for name, (kern, plain) in pairs.items():
-                times[name] = (time_ms(kern), time_ms(plain))
-                print(f"[margin_ce] {name:20s} kernel {times[name][0]:.4f} "
-                      f"ms  plain {times[name][1]:.4f} ms")
+                ms = (time_ms(kern), time_ms(plain))
+                if (n, d, k) == CE_SHAPE:   # the kernels line's shape
+                    times[name] = ms
+                print(f"[margin_ce] {name:20s} K={k:,} kernel {ms[0]:.4f} "
+                      f"ms  plain {ms[1]:.4f} ms")
+        del emb, w, stats, ref, ge, gw, rge, rgw
+        torch.cuda.empty_cache()
     return worst, times
 
 
@@ -1167,19 +1257,490 @@ def phase_swin50_train_golden():
     check(upd <= 5e-2, "Swin50 training golden: update norms beyond 5e-2")
 
 
-def phase_profile(network, warmup: int = 3, steps: int = 5):
+
+# ---------------------------------------------------------------------------
+# Slice 5: the grouped sparse-row kernels (rows 12-14), ResNet100, the
+# webface42m training step, checkpoints with exact resume.
+# ---------------------------------------------------------------------------
+
+def _rows_bound(name, ng, block, d):
+    """The least time of one call: the sampled rows of every table read and
+    written once plus the ids, over 3.35 TB/s; or its f32 flops over 67
+    TFLOP/s, whichever is larger."""
+    n_in, n_out = ROWS_TRAFFIC[name]
+    nbytes = (n_in + n_out) * ng * block * d * 4 + ng * 8
+    t_bytes = nbytes / 3.35e12
+    t_ops = ROWS_FLOPS[name] * ng * block * d / 67e12
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def phase_kernel_sparse_rows():
+    """Rows 12-14 against their plain versions; returns ({kernel: max abs
+    error}, {kernel: (ms, plain ms, library ms or None)}, {kernel: bound})
+    with the times and bounds at the webface42m table."""
+    import torch
+    from fr_tpu_torch.configs.base import Config
+    from fr_tpu_torch.heads.partial_fc import PFCConfig
+    from fr_tpu_torch.ops import sparse_rows as R
+
+    cfg = PFCConfig(2059906, 512, sample_rate=0.1, sample_block=WEBFACE_BLOCK)
+    check((cfg.num_classes_padded, cfg.num_sample, cfg.num_sample_groups)
+          == (2059968, 205952, 3218), "PFCConfig at webface42m")
+    # N(0, 1) tables and gradients, a weight decay of 5e-2 and step count 3:
+    # every term of both rules (wd·w, mom·buf, (1-β2)·g², lr·wd·w, the bias
+    # corrections) then moves the result by far more than the tolerance, so
+    # a kernel that drops or mis-scales one of them fails
+    conf = Config(wd=5e-2, mom=0.9, betas=(0.9, 0.999), eps=1e-8)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    worst = dict.fromkeys(ROWS_TRAFFIC, 0.0)
+    times, bounds = {}, {}
+    cases = (("small", 1000, 128, 4, 25),
+             ("webface42m", cfg.num_classes_padded, 512, WEBFACE_BLOCK,
+              cfg.num_sample_groups))
+    for tag, c, d, block, ng in cases:
+        total = c // block
+        inner = torch.randperm(total - 2, generator=gen,
+                               device="cuda")[:ng - 2] + 1
+        gidx = torch.sort(torch.cat([inner, torch.tensor(
+            [0, total - 1], device="cuda")])).values
+        idx = R.expand_group_index(gidx, block)
+        touched = torch.zeros(c, dtype=torch.bool, device="cuda")
+        touched[idx] = True
+        rand = lambda *shape: torch.randn(*shape, device="cuda",  # noqa: E731
+                                          generator=gen)
+        w, a, b = rand(c, d), rand(c, d), rand(c, d).abs_()
+        grad = rand(ng * block, d)
+        timed = tag == "webface42m"
+
+        out = R.grouped_gather(w, gidx, block)
+        torch.cuda.synchronize()
+        check(torch.equal(out, R.grouped_gather_reference(w, gidx, block))
+              and torch.equal(out[-block:], w[-block:]),
+              f"[kernel_sparse_rows] {tag}: the gather is not bit-exact")
+        del out
+        if timed:
+            times["grouped_gather"] = (
+                time_ms(lambda: R.grouped_gather(w, gidx, block)),
+                time_ms(lambda: R.grouped_gather_reference(w, gidx, block)),
+                time_ms(lambda: torch.index_select(w, 0, idx)))
+
+        for optimizer, name, start in (
+                ("SGD", "grouped_update_sgd", {"weight": w, "momentum": a}),
+                ("AdamW", "grouped_update_adamw",
+                 {"weight": w, "exp_avg": a, "exp_avg_sq": b})):
+            def run(kernel):
+                t = {k: v.clone() for k, v in start.items()}
+                slots = {k: v for k, v in t.items() if k != "weight"}
+                if kernel:
+                    R.grouped_update(optimizer, conf, t["weight"], slots,
+                                     gidx, grad, 0.05, 3, block)
+                elif optimizer == "SGD":
+                    R.grouped_update_sgd_reference(
+                        t["weight"], slots, gidx, grad, 0.05, conf.wd,
+                        conf.mom, block)
+                else:
+                    R.grouped_update_adamw_reference(
+                        t["weight"], slots, gidx, grad, 0.05, conf.wd,
+                        *conf.betas, conf.eps, 3, block)
+                torch.cuda.synchronize()
+                return t
+
+            ours, again = run(True), run(True)
+            check(all(torch.equal(ours[k], again[k]) for k in ours),
+                  f"[kernel_sparse_rows] {tag} {optimizer}: two runs differ")
+            del again
+            for k, t in ours.items():
+                changed = (t != start[k]).any(dim=1)
+                check(not bool((changed & ~touched).any()),
+                      f"[kernel_sparse_rows] {tag} {optimizer}: an unsampled "
+                      f"row of {k} changed")
+                check(bool(changed[idx].all()), f"[kernel_sparse_rows] {tag} "
+                      f"{optimizer}: a sampled row of {k} did not change")
+            ref = run(False)
+            for k in ours:
+                x, y = ours[k].index_select(0, idx), ref[k].index_select(0,
+                                                                         idx)
+                err = (x - y).abs()
+                check(bool((err <= ROWS_ATOL + ROWS_RTOL * y.abs()).all()),
+                      f"[kernel_sparse_rows] {tag} {optimizer} {k}: max abs "
+                      f"error {err.max().item():.3e}")
+                worst[name] = max(worst[name], err.max().item())
+            if timed:
+                slots = {k: v for k, v in ours.items() if k != "weight"}
+                rslots = {k: v for k, v in ref.items() if k != "weight"}
+                plain = (R.grouped_update_sgd_reference if optimizer == "SGD"
+                         else R.grouped_update_adamw_reference)
+                extra = ((conf.wd, conf.mom) if optimizer == "SGD"
+                         else (conf.wd, *conf.betas, conf.eps, 3))
+                times[name] = (
+                    time_ms(lambda: R.grouped_update(
+                        optimizer, conf, ours["weight"], slots, gidx, grad,
+                        0.05, 3, block)),
+                    time_ms(lambda: plain(ref["weight"], rslots, gidx, grad,
+                                          0.05, *extra, block)), None)
+            del ours, ref
+        print(f"[kernel_sparse_rows] {tag:10s} table ({c:,}, {d}) f32, {ng:,} "
+              f"groups of {block} (first and last in): gather bit-exact; "
+              f"max abs err SGD {worst['grouped_update_sgd']:.2e}, AdamW "
+              f"{worst['grouped_update_adamw']:.2e} (rtol {ROWS_RTOL:g}, atol "
+              f"{ROWS_ATOL:g}); unsampled rows bitwise unchanged; two runs "
+              f"equal")
+        if timed:
+            for name, (ms, plain_ms, lib) in times.items():
+                bound_ms, by, nbytes = _rows_bound(name, ng, block, d)
+                bounds[name] = (bound_ms, by)
+                print(f"[kernel_sparse_rows] {name:22s} kernel {ms:.4f} ms "
+                      f"({nbytes / ms / 1e6:,.0f} GB/s)  plain {plain_ms:.4f} "
+                      f"ms  bound {bound_ms:.4f} ms ({nbytes / 1e6:,.1f} MB, "
+                      f"{by})" + (f"  index_select {lib:.4f} ms"
+                                  if lib is not None else ""))
+        del w, a, b, grad
+    torch.cuda.empty_cache()
+    return worst, times, bounds
+
+
+def phase_resnet100():
+    """[resnet100] the serving CLI of webface42m at full width, the
+    embedding golden in f32 and bf16, the embed throughput."""
+    import numpy as np
+    import torch
+    from fr_tpu_torch.cli.main import main as cli_main
+    from fr_tpu_torch.configs.base import Config
+    from fr_tpu_torch.models.resnet import ResNet
+    from fr_tpu_torch.train.step import make_embed_step
+    from fr_tpu_torch.utils.golden import (golden_encoder, golden_images,
+                                           seeded_state_dict)
+
+    calls = _EncoderCalls(ResNet)
+    captured = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+            msg = cli_main(WEBFACE_ARGS + ["--mode", "test", "--test_b", "64",
+                                           "--save_root", tmp])
+    finally:
+        calls.close()
+    check(calls.counts["eval"] >= 1, "[resnet100] no encoder call")
+    check('[Test with "synthetic"]' in captured.getvalue()
+          and "- EER" in captured.getvalue(),
+          "[resnet100] the ROC report was not printed")
+    emb = np.concatenate(msg["synthetic"].embeddings)
+    check(emb.shape == (512, 512) and bool(np.isfinite(emb).all()),
+          f"[resnet100] embeddings {emb.shape} not finite")
+    norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1.0).max())
+    check(norm_err <= 1e-4, "[resnet100] embeddings are not unit-norm")
+    print(f"[resnet100] serving: {calls.counts['eval']} encoder calls, "
+          f"embeddings {emb.shape} finite, max | |e| - 1 | {norm_err:.2e}; "
+          f"mean {msg['synthetic'].infer_time:.2f} ms per call of 128 "
+          f"images, host to host")
+
+    golden = np.load(R100_GOLDEN)
+    seed, ref = int(golden["seed"]), golden["embeddings"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype in (torch.float32, torch.bfloat16):
+        model = golden_encoder("ResNet100", dtype)
+        model.load_state_dict(seeded_state_dict(model, seed), strict=True)
+        embed = make_embed_step(Config(img_size=112), model.cuda(), "cuda")
+        out = embed(golden_images(seed, img_size=112)).cpu().numpy()
+        if dtype == torch.float32:
+            err = float(np.abs(out - ref).max())
+            print(f"[resnet100] golden f32 (TF32 off) max_abs_err {err:.3e} "
+                  f"(tol 1e-3)")
+            check(err <= 1e-3, f"[resnet100] f32 golden error {err}")
+        else:
+            cos = np.sum(out * ref, axis=1) / (
+                np.linalg.norm(out, axis=1) * np.linalg.norm(ref, axis=1))
+            print(f"[resnet100] golden bf16 min per-row cosine "
+                  f"{cos.min():.5f} (tol 0.99)")
+            check(cos.min() >= 0.99, f"[resnet100] bf16 cosine {cos.min()}")
+        del model, embed
+    phase_throughput("ResNet100")
+
+
+def _webface_conf(sample_block=WEBFACE_BLOCK, optimizer=None):
+    from fr_tpu_torch.cli.main import build_conf, parse_args
+
+    extra = ["--optimizer", optimizer] if optimizer else []
+    conf = build_conf(parse_args(WEBFACE_ARGS + [
+        "--mode", "train", "--sample_block", str(sample_block)] + extra))
+    check(conf.n_classes == 2059906 and conf.sample_rate == 0.1
+          and conf.network == "ResNet100" and conf.b == 128,
+          f"webface42m config: {conf.n_classes} classes at "
+          f"{conf.sample_rate}")
+    return conf
+
+
+def _webface_batches(conf, n, seed=11):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randint(0, 256, (n, conf.b, conf.img_size, conf.img_size,
+                                    3), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+    labels = torch.randint(0, conf.n_classes, (n, conf.b), device="cuda",
+                           generator=gen)
+    return images, labels
+
+
+def phase_webface42m(steps: int = 3, timed: int = 8):
+    """[webface42m] the training step at the full head. Returns the
+    launches of (grouped_gather, grouped_update_sgd, grouped_update_adamw)
+    and of the three margin-CE kernels over the phase."""
+    import torch
+    from fr_tpu_torch.heads.partial_fc import (sample_groups,
+                                               shard_group_masks)
+    from fr_tpu_torch.ops import fused_pfc as F
+    from fr_tpu_torch.ops import sparse_rows as R
+    from fr_tpu_torch.train.task import FaceRecognitionTask
+
+    rows = (R.grouped_gather, R.grouped_update_sgd, R.grouped_update_adamw)
+    ce = (F.margin_ce_stats, F.margin_ce_grad_emb, F.margin_ce_grad_w)
+    for k in rows + ce:
+        k.launches = 0
+    conf = _webface_conf()
+    n = steps + timed
+    images, labels = _webface_batches(conf, n)
+
+    def run(conf, tag, n_steps, n_timed, expect):
+        """n_steps checked steps, then n_timed on the host clock; expect:
+        launches per step of the three grouped kernels. Returns (losses, ms
+        per step)."""
+        torch.cuda.reset_peak_memory_stats()
+        before = [k.launches for k in rows]
+        task = FaceRecognitionTask(conf, stage="train", device="cuda", seed=0)
+        cfg = task.pfc_cfg
+        if cfg.sample_block > 1 and expect[1]:
+            # the groups step 1 will draw: the same masks and a copy of the
+            # state's sampling generator
+            gen = torch.Generator(device="cuda")
+            gen.set_state(task.state.generators["sample"].get_state())
+            lab = labels[0]
+            gidx = sample_groups(cfg, gen, *shard_group_masks(
+                cfg, lab, (lab >= 0) & (lab < cfg.num_local)))
+            check(gidx.shape == (cfg.num_sample_groups,)
+                  and bool((gidx[1:] > gidx[:-1]).all()),
+                  f"[webface42m] {tag}: the drawn groups are not sorted "
+                  f"unique")
+            check(bool(torch.isin(lab // cfg.sample_block, gidx).all()),
+                  f"[webface42m] {tag}: a label's group was not drawn")
+            w0 = task.state.pfc.weight.clone()
+        losses = [task.training_step((images[0], labels[0]))["loss"].item()]
+        if cfg.sample_block > 1 and expect[1]:
+            # the momentum starts at zero, and g + wd·w leaves no drawn row
+            # at zero (the warm-up's first lr is too small to move every
+            # weight by an ulp, so the weight shows only what stayed)
+            def groups(rows_changed):
+                return rows_changed.reshape(-1, cfg.sample_block)
+
+            moved = groups((task.state.pfc.slots["momentum"] != 0).any(dim=1))
+            drawn = torch.zeros(moved.shape[0], dtype=torch.bool,
+                                device="cuda")
+            drawn[gidx] = True
+            check(bool((moved.all(dim=1) == drawn).all())
+                  and not bool(moved[~drawn].any()),
+                  f"[webface42m] {tag}: the rows the update wrote are not "
+                  f"the drawn groups' rows")
+            stayed = groups((task.state.pfc.weight != w0).any(dim=1))
+            check(not bool(stayed[~drawn].any()),
+                  f"[webface42m] {tag}: a weight row outside the drawn "
+                  f"groups changed")
+            del w0, moved, stayed
+        losses += [task.training_step((images[i], labels[i]))["loss"].item()
+                   for i in range(1, n_steps)]
+        counts = [k.launches - b for k, b in zip(rows, before)]
+        check(counts == [e * n_steps for e in expect],
+              f"[webface42m] {tag}: grouped-kernel launches {counts} over "
+              f"{n_steps} steps")
+        check(all(x == x and abs(x) != float("inf") for x in losses),
+              f"[webface42m] {tag}: losses {losses}")
+        ms = None
+        if n_timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n_steps, n_steps + n_timed):
+                out = task.training_step((images[i], labels[i]))
+            out["loss"].item()
+            ms = (time.perf_counter() - t0) * 1e3 / n_timed
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[webface42m] {tag}: head {cfg.num_classes_padded:,} x "
+              f"{cfg.embedding_size}, {cfg.num_sample:,} columns sampled "
+              f"({cfg.num_sample_groups:,} groups of {cfg.sample_block}), "
+              f"b={conf.b}: losses {[round(x, 4) for x in losses]}" + (
+                  f"; {ms:.2f} ms per step, {conf.b * 1e3 / ms:.1f} imgs/s "
+                  f"(host clock over {n_timed} steps)" if ms else "")
+              + f"; peak memory {peak:.2f} GB; grouped launches {counts}")
+        del task
+        torch.cuda.empty_cache()
+        return losses, ms
+
+    results = {}
+    for fused in (False, True):
+        conf.use_fused = fused
+        before = [k.launches for k in ce]
+        results[fused] = run(conf, f"SGD use_fused={fused}", steps, timed,
+                             (1, 1, 0))
+        counts = [k.launches - b for k, b in zip(ce, before)]
+        check(counts == ([n] * 3 if fused else [0, 0, 0]),
+              f"[webface42m] margin-CE launches {counts} over {n} steps with "
+              f"use_fused={fused}")
+    for a, b in zip(results[False][0], results[True][0]):
+        check(abs(a - b) <= 2e-2 * abs(a),
+              f"[webface42m] fused loss {b} vs plain {a}: beyond 2e-2 "
+              f"relative")
+    run(_webface_conf(optimizer="AdamW"), "AdamW use_fused=False", steps, 0,
+        (1, 0, 1))
+    _, ms_row = run(_webface_conf(sample_block=1), "SGD sample_block=1 "
+                    "(per-row sampling)", steps, timed, (0, 0, 0))
+    _, ms_block = results[False]
+    print(f"[webface42m] sample_block {WEBFACE_BLOCK} against 1, use_fused "
+          f"off: {ms_block:.2f} vs {ms_row:.2f} ms per step on the host "
+          f"clock ({ms_row / ms_block:.2f}x); the device's side of it is in "
+          f"[profile]")
+    return [k.launches for k in rows], [k.launches for k in ce]
+
+
+def phase_resnet100_train_golden():
+    import numpy as np
+    import torch
+    from fr_tpu_torch.ops import sparse_rows as R
+    from fr_tpu_torch.utils.golden import run_train_golden
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    golden = np.load(R100_TRAIN_GOLDEN)
+    before = (R.grouped_gather.launches, R.grouped_update_sgd.launches)
+    ours = run_train_golden(int(golden["seed"]), "cuda", "ResNet100",
+                            golden["gidx"])
+    check((R.grouped_gather.launches - before[0],
+           R.grouped_update_sgd.launches - before[1]) == (2, 2),
+          "the ResNet100 golden run missed the grouped kernels")
+    check(list(ours["update_names"]) == list(golden["update_names"]),
+          "the golden's tensors differ from the model's")
+    rel = {k: float(np.max(np.abs(ours[k] - golden[k]) / np.abs(golden[k])))
+           for k in ("losses", "grad_norms", "update_norms")}
+    print(f"[resnet100_train_golden] f32 (TF32 off), sample_block 4, the "
+          f"golden's groups fed in: losses {ours['losses']} vs "
+          f"{golden['losses']}; max rel: losses {rel['losses']:.2e}, grad "
+          f"norms {rel['grad_norms']:.2e} (tol 1e-3), update norms "
+          f"{rel['update_norms']:.2e} (tol 5e-2)")
+    check(rel["losses"] <= 1e-3 and rel["grad_norms"] <= 1e-3,
+          "ResNet100 training golden: loss or grad norm beyond 1e-3")
+    check(rel["update_norms"] <= 5e-2, "ResNet100 training golden: update "
+          "norms beyond 5e-2")
+
+
+def phase_resume():
+    """[resume] 7 epochs of the training CLI in one run, then the same
+    command with --resume, which restores that run's epoch-5 save and runs
+    epochs 6 and 7 again: the same encoder and head, bit for bit. cuDNN is
+    held to its deterministic algorithms for both runs."""
+    import torch
+    from fr_tpu_torch.cli.main import main as cli_main
+    from fr_tpu_torch.ops import sparse_rows as R
+
+    args = ["--config", "webface42m", "--mode", "train", "--network",
+            "ResNet100", "--synthetic", "--sample_rate", "0.5",
+            "--sample_block", "4", "--num_epoch", str(RESUME_EPOCHS),
+            "--device", "cuda"]
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    captured = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+            t0 = time.perf_counter()
+            before = R.grouped_update_sgd.launches
+            whole = cli_main(args + ["--save_root", tmp])
+            steps = R.grouped_update_sgd.launches - before
+            states = sorted(p.name for p in Path(tmp).glob("*/state/*.pt"))
+            size = sum(p.stat().st_size for p in Path(tmp).glob(
+                "*/state/*.pt")) / 1e6
+            again = cli_main(args + ["--save_root", tmp, "--resume"])
+            runs = sorted(p.name for p in Path(tmp).iterdir())
+            wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    out = captured.getvalue()
+    check(states == ["5.pt"], f"[resume] saved states {states}")
+    check(len(runs) == 1 and "--resume: reusing run dir" in out
+          and "resumed at epoch 5" in out,
+          "[resume] the second run did not resume in the first run's dir")
+    check(steps == RESUME_EPOCHS * 8 and whole.pfc_cfg.sample_block == 4,
+          f"[resume] {steps} grouped updates in {RESUME_EPOCHS} epochs")
+    check(len(again.history) == RESUME_EPOCHS - 5
+          and again.state.step == whole.state.step == RESUME_EPOCHS * 8,
+          f"[resume] resumed epochs {len(again.history)}, step "
+          f"{again.state.step}")
+    a, b = again.encoder.state_dict(), whole.encoder.state_dict()
+    differ = [k for k in b if not torch.equal(a[k], b[k])]
+    head = torch.equal(again.state.pfc.weight, whole.state.pfc.weight) and \
+        torch.equal(again.state.pfc.slots["momentum"],
+                    whole.state.pfc.slots["momentum"])
+    print(f"[resume] ResNet100 bf16 b=128, sample_block 4: {RESUME_EPOCHS} "
+          f"epochs in one run against a --resume from its epoch-5 state "
+          f"({size:.1f} MB): {len(b) - len(differ)}/{len(b)} encoder tensors "
+          f"and the head {'are' if head else 'are NOT'} bitwise equal; "
+          f"losses {[round(h['train_loss'], 4) for h in whole.history[5:]]} "
+          f"vs {[round(h['train_loss'], 4) for h in again.history]}; "
+          f"{wall:.1f} s")
+    check(not differ and head, f"[resume] the resumed run differs: "
+          f"{differ[:5]}")
+
+
+HEAD_RANGE = "pfc_head:"   # train/step.py's record_function ranges
+
+
+def _head_device_ms(events, kernels, steps):
+    """{range: device ms per step} of the kernels that the profiled steps
+    launched inside train/step.py's ``pfc_head:*`` ranges (rows, loss,
+    backward, update). A kernel belongs to the range whose host interval
+    holds its launch call (a CUDA API call, ``cu*``); kernel and
+    launch call share a correlation id, which is the event's ``id``."""
+    import bisect
+    import torch
+
+    cpu = torch.autograd.DeviceType.CPU
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events
+                   if e.device_type == cpu and e.name.startswith(HEAD_RANGE))
+    check(len(spans) == 4 * steps, f"[profile] {len(spans)} {HEAD_RANGE}* "
+          f"ranges over {steps} steps")
+    starts = [a for a, _, _ in spans]
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == cpu and e.name.startswith("cu")}
+    found = sum(k.id in launched for k in kernels)
+    check(found >= 0.99 * len(kernels), f"[profile] only {found} of "
+          f"{len(kernels)} device events have their launch call in the "
+          f"trace")
+    out = {}
+    for k in kernels:
+        t = launched.get(k.id)
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        if i >= 0 and t <= spans[i][1]:
+            name = spans[i][2][len(HEAD_RANGE):]
+            out[name] = out.get(name, 0.0) + (
+                k.time_range.end - k.time_range.start) / 1e3 / steps
+    return out
+
+
+def phase_profile(network, warmup: int = 3, steps: int = 5, conf=None):
     """torch.profiler over ``steps`` training steps after ``warmup`` (b=128,
     bf16, the full ms1m_arcface_122 head at sample_rate 0.3, use_fused
     off): wall per step (host clock, synchronised), device busy (the union
     of the kernels' intervals), idle share, kernel launches per step and
-    device time by family."""
+    device time by family, and the head's share: the device time of the
+    kernels launched inside the step's ``pfc_head:*`` ranges. ``conf``
+    replaces the network's ms1m configuration (the webface42m step).
+    Returns the head's device ms per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from fr_tpu_torch.cli.main import build_conf, parse_args
     from fr_tpu_torch.train.task import FaceRecognitionTask
 
-    conf = build_conf(parse_args(_net_args(network, "train")))
-    conf.sample_rate = FULL_HEAD_SAMPLE_RATE
+    if conf is None:
+        conf = build_conf(parse_args(_net_args(network, "train")))
+        conf.sample_rate = FULL_HEAD_SAMPLE_RATE
     gen = torch.Generator(device="cuda").manual_seed(7)
     images = torch.randint(0, 256, (conf.b, conf.img_size, conf.img_size, 3),
                            dtype=torch.uint8, device="cuda", generator=gen)
@@ -1199,8 +1760,11 @@ def phase_profile(network, warmup: int = 3, steps: int = 5):
         for _ in range(steps):
             task.training_step((images, labels))
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    # the ranges show on the device's timeline too: they are no kernels
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(HEAD_RANGE)]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
@@ -1215,7 +1779,8 @@ def phase_profile(network, warmup: int = 3, steps: int = 5):
         families[fam] = families.get(fam, 0.0) + ms
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
     print(f"[profile] {network} bf16 b={conf.b}, {conf.n_classes:,} classes "
-          f"at sample_rate {conf.sample_rate}: wall {wall:.2f} ms per step "
+          f"at sample_rate {conf.sample_rate}, sample_block "
+          f"{conf.sample_block}: wall {wall:.2f} ms per step "
           f"unprofiled ({conf.b * 1e3 / wall:.1f} imgs/s), device busy "
           f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall:.3f}, "
           f"{len(kernels) / steps:.0f} kernel launches per step")
@@ -1225,13 +1790,24 @@ def phase_profile(network, warmup: int = 3, steps: int = 5):
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile] {network}   top: {ms:8.3f} ms/step "
               f"[{_family(name)}] {name[:90]}")
+    head = _head_device_ms(events, kernels, steps)
+    head_ms = sum(head.values())
+    print(f"[profile] {network}   the head inside the step (kernels launched "
+          f"in the step's {HEAD_RANGE}* ranges): {head_ms:.3f} ms/step, "
+          f"{100 * head_ms / max(busy_ms, 1e-9):.1f}% of device busy: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(head.items())))
     del task
+    torch.cuda.empty_cache()
+    return head_ms
 
 
 def _family(name):
     n = name.lower()
     for fam, keys in (("port attention kernels", ("window_attn", "window_sum")),
                       ("port margin-CE kernels", ("margin_ce",)),
+                      ("port sparse-row kernels", ("grouped_gather_kernel",
+                                                   "grouped_sgd_kernel",
+                                                   "grouped_adamw_kernel")),
                       ("cuDNN BatchNorm", ("bn_", "batch_norm", "batchnorm")),
                       ("convolution", ("conv", "implicit", "dgrad", "wgrad",
                                        "depthwise", "xmma_fprop")),
@@ -1310,7 +1886,8 @@ def _entry(name, source, line, launches, err, ms, plain_ms, bound, lib):
 def main() -> None:
     import torch
     check(torch.cuda.is_available(), "torch finds no CUDA device")
-    for path in (GOLDEN, TRAIN_GOLDEN, SWIN_TRAIN_GOLDEN, *NET_GOLDENS):
+    for path in (GOLDEN, TRAIN_GOLDEN, SWIN_TRAIN_GOLDEN, *NET_GOLDENS,
+                 R100_GOLDEN, R100_TRAIN_GOLDEN):
         check(path.is_file(), f"{path} is missing: run from a checkout of "
               f"the repository")
     import fr_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -1324,6 +1901,7 @@ def main() -> None:
     worst_ce, times_ce = phase_margin_ce()
     worst_ph_f, worst_ph_b, times_ph = phase_kernel_perhead()
     worst_st_f, worst_st_b, times_st = phase_kernel_stats()
+    worst_rows, times_rows, bounds_rows = phase_kernel_sparse_rows()
     # each main path runs with its counts set to 0 just before it
     launches_fwd, _ = phase_main_path()
     phase_throughput()
@@ -1340,8 +1918,18 @@ def main() -> None:
         perhead["bwd"] += counts["train_bwd"]
         perhead_stats = [a + b for a, b in zip(perhead_stats, stats)]
     phase_swin50_train_golden()
+    phase_resnet100()
+    launches_rows, launches_ce_webface = phase_webface42m()
+    phase_resnet100_train_golden()
+    phase_resume()
     for network in ("Swin50", "EffiAlter_m"):
         phase_profile(network)
+    head_block = phase_profile("ResNet100", conf=_webface_conf())
+    head_row = phase_profile("ResNet100", conf=_webface_conf(sample_block=1))
+    print(f"[profile] ResNet100 webface42m, the head inside the step at "
+          f"sample_block {WEBFACE_BLOCK} against 1: {head_block:.3f} vs "
+          f"{head_row:.3f} ms of device time per step "
+          f"({head_row / head_block:.2f}x)")
 
     fwd = _mix(times_fwd, torch.bfloat16)
     bwd = _mix(times_bwd, torch.bfloat16)
@@ -1382,6 +1970,16 @@ def main() -> None:
                 f"window_attn_{kind}_stats ({entry} entry)",
                 "window_attn_stats.cu", f"{attn}:{lines[i]}", counts[i], err,
                 mix[kind], mix[f"{kind}_plain"], bound, mix[f"{kind}_lib"]))
+    for (name, line), count in zip(
+            (("grouped_gather", 70), ("grouped_update_sgd", 99),
+             ("grouped_update_adamw", 151)), launches_rows):
+        ms, plain_ms, lib = times_rows[name]
+        kernels.append(_entry(name, "sparse_rows.cu",
+                              f"sparse_rows.py:{line}", count,
+                              worst_rows[name], ms, plain_ms,
+                              bounds_rows[name], lib))
+    check(all(c > 0 for c in launches_ce_webface),
+          f"[webface42m] margin-CE launches {launches_ce_webface}")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its "
               f"main path")

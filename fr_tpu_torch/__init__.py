@@ -7,13 +7,14 @@ ported path becomes a hand-written CUDA C++ kernel for sm_90a under
 ``csrc/``, built at first use by ``ops/_build.py``; beside each kernel sits
 its plain PyTorch version, which CPU tensors take.
 
-Ported so far, for AlterNet at its reference width: the serving path
-(``--mode test``: encoder in eval mode, L2-normalised embeddings, pair
-scores and the 100001-bin ROC report) and the one-GPU training path
-(``--mode train``: augmentation, the PartialFC margin-softmax head,
-backward, clip, SGD/AdamW with sampled-row head updates). This package
-imports torch and never jax; the only ``fr_tpu`` modules it uses are the
-jax-free ``fr_tpu.configs`` and ``fr_tpu.utils.logger``.
+Ported so far, for IR-ResNet, AlterNet50, Swin and EffiAlterNet at their
+reference widths: the serving path (``--mode test``: encoder in eval mode,
+L2-normalised embeddings, pair scores and the 100001-bin ROC report) and
+the one-GPU training path (``--mode train``: augmentation, the PartialFC
+margin-softmax head with per-row or block-aligned negative sampling,
+backward, clip, SGD/AdamW with sampled-row head updates, full-state
+checkpoints with exact resume). This package imports torch and never jax,
+and nothing of ``fr_tpu``.
 """
 
 __version__ = "0.2.0"

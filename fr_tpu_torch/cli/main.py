@@ -5,14 +5,19 @@
     python -m fr_tpu_torch.cli.main --config ms1m_arcface_122 --mode test \
         --network AlterNet50 --synthetic --test_b 64 --device cuda
 
+    python -m fr_tpu_torch.cli.main --config webface42m --mode train \
+        --network ResNet100 --sample_rate 0.1 --sample_block 64 --synthetic \
+        --device cuda        # and again with --resume to go on from a save
+
 Ported: ``--mode train --synthetic`` on one device (128 synthetic classes ×
 8 images by default, validation on 256 synthetic pairs, encoder snapshots
-in fr_tpu's ``.npz`` layout) and ``--mode test --test_type pair
---synthetic``, with ``--ckpt_path`` taking an fr_tpu ``.npz`` encoder
-snapshot. ``--device {cuda,cpu}`` takes the place of JAX_PLATFORMS; it
-raises when CUDA is asked for and absent and never switches device on its
-own. Flags of paths not ported yet raise NotImplementedError naming their
-ROADMAP item.
+in fr_tpu's ``.npz`` layout beside full-state checkpoints; ``--sample_block
+N`` for block-aligned negative sampling, ``--resume`` to continue the newest
+matching run) and ``--mode test --test_type pair --synthetic``, with
+``--ckpt_path`` taking an fr_tpu ``.npz`` encoder snapshot. ``--device
+{cuda,cpu}`` takes the place of JAX_PLATFORMS; it raises when CUDA is asked
+for and absent and never switches device on its own. Flags of paths not
+ported yet raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -89,11 +94,20 @@ def build_conf(args):
 
 
 def make_save_dir(args, conf) -> Path:
-    """Timestamped run dir with the resolved config dump and log.txt."""
+    """Timestamped run dir with the resolved config dump and log.txt.
+    ``--resume`` reuses the newest run dir of the same network and loss
+    under save_root, where the saved state lives; a fresh dir would start
+    again from epoch 0."""
     from fr_tpu_torch.utils.logger import print_log
 
+    prefix = f"{conf.network}_{conf.loss}_"
+    if getattr(args, "resume", False):
+        prior = sorted(Path(args.save_root).glob(f"{prefix}*"))
+        if prior:
+            print(f"--resume: reusing run dir {prior[-1]}")
+            return prior[-1]
     stamp = time.strftime("%Y%m%d_%H%M%S")
-    save = Path(args.save_root) / f"{conf.network}_{conf.loss}_{stamp}"
+    save = Path(args.save_root) / f"{prefix}{stamp}"
     save.mkdir(parents=True, exist_ok=True)
     with open(save / f"{args.config}_config.txt", "w") as f:
         f.write(conf.pretty())
@@ -115,9 +129,6 @@ def train(args):
         raise NotImplementedError(_MULTI_GPU)
     if not args.synthetic:
         raise NotImplementedError(_LOADERS)
-    if args.sample_block > 1:
-        raise NotImplementedError("--sample_block > 1 is not ported yet: "
-                                  "ROADMAP §1 slice 5")
     device = resolve_device(args.device)
     conf = build_conf(args)
     imgs, labels = synthetic_corpus(args.synthetic_classes, 8, conf.img_size)

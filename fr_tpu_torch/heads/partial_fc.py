@@ -9,16 +9,23 @@ fr_tpu's deliberate divergences from its torch reference carry over: excess
 positives beyond num_sample are dropped (their rows hit the 1e-30 log
 clamp), and classes are padded rather than split unevenly.
 
+Block-aligned sampling (sample_block > 1) draws aligned groups of
+``sample_block`` consecutive class rows instead (``shard_group_masks``,
+``sample_groups``), so that the sampled rows are whole contiguous runs of the
+class table for the grouped kernels of ops/sparse_rows.py. Its two
+divergences from the per-row draw are fr_tpu's: negatives of one group come
+together, and negatives that share a group with one of the batch's positives
+are always in.
+
 The default CE (use_fused=False) is plain PyTorch, as it is plain XLA in
 fr_tpu; use_fused=True takes the margin-softmax CE kernels of
-ops/fused_pfc.py. Block-aligned sampling (sample_block > 1) is ROADMAP §1
-slice 5.
+ops/fused_pfc.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -26,8 +33,6 @@ from fr_tpu_torch.heads.margins import get_margin_fn
 from fr_tpu_torch.models.common import l2_normalize
 
 MASK_VALUE = -1e30  # additive logit mask for padded/invalid class columns
-_BLOCK_SAMPLING = ("block-aligned sampling (sample_block > 1) is not ported "
-                   "yet: ROADMAP §1 slice 5")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +71,10 @@ class PFCConfig:
             n = max(self.sample_block,
                     (n // self.sample_block) * self.sample_block)
         return n
+
+    @property
+    def num_sample_groups(self) -> int:
+        return self.num_sample // max(1, self.sample_block)
 
     @property
     def sampling(self) -> bool:
@@ -113,14 +122,40 @@ def sample_columns(cfg: PFCConfig, generator: torch.Generator,
                    ) -> torch.Tensor:
     """num_sample sorted class indices: positives forced in (noise 2.0),
     negatives by uniform top-k, padding rows excluded."""
-    if cfg.sample_block > 1:
-        raise NotImplementedError(_BLOCK_SAMPLING)
     perm = torch.rand(cfg.num_local, generator=generator,
                       device=pos_mask.device)
     perm = torch.where(pos_mask, 2.0, perm)
     perm = torch.where(valid, perm, -1.0)
     idx = torch.topk(perm, cfg.num_sample, sorted=False).indices
     return torch.sort(idx).values
+
+
+def shard_group_masks(cfg: PFCConfig, labels: torch.Tensor,
+                      owned: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group-level (positives, valid) masks, (num_local // sample_block,)
+    each, built without any num_local-sized tensor: the positives scatter
+    straight onto the group axis, and a group holds a real class iff its
+    first row id is below num_classes."""
+    block = cfg.sample_block
+    ng_total = cfg.num_local // block
+    gpos = torch.zeros(ng_total, dtype=torch.bool, device=labels.device)
+    gpos[labels[owned] // block] = True
+    first_row = torch.arange(ng_total, device=labels.device) * block
+    return gpos, first_row < cfg.num_classes
+
+
+def sample_groups(cfg: PFCConfig, generator: torch.Generator,
+                  gpos: torch.Tensor, gvalid: torch.Tensor) -> torch.Tensor:
+    """num_sample_groups sorted group indices from the group-level masks:
+    the positives' groups forced in (noise 2.0), the rest by uniform top-k,
+    groups of padding rows only excluded (a partly padded tail group stays
+    drawable; its padding columns are masked per column)."""
+    perm = torch.rand(gpos.shape[0], generator=generator, device=gpos.device)
+    perm = torch.where(gpos, 2.0, perm)
+    perm = torch.where(gvalid, perm, -1.0)
+    gidx = torch.topk(perm, cfg.num_sample_groups, sorted=False).indices
+    return torch.sort(gidx).values
 
 
 def remap_labels(cfg: PFCConfig, idx: torch.Tensor, local_labels: torch.Tensor,

@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("window_attn_fwd.cu", "window_attn_bwd.cu", "window_attn_stats.cu",
-           "margin_ce.cu")
+           "margin_ce.cu", "sparse_rows.cu")
 HEADERS = ("window_attn_common.cuh",)   # included by the sources; hashed too
 # -Xptxas -v writes each kernel's registers, shared memory and spills to
 # the build log next to the library.
@@ -107,7 +107,7 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    i64 = ctypes.c_longlong
+    i64, f64 = ctypes.c_longlong, ctypes.c_double
     margin = [i32, f32, f32, f32, f32, f32, f32]   # kind, s, cos_m .. m
     signatures = {
         "window_attn_fwd": [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32, i32,
@@ -124,6 +124,11 @@ def load_library() -> ctypes.CDLL:
                                *margin, i32, vp, vp, vp],
         "margin_ce_grad_w": [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
                              *margin, vp, vp],
+        "grouped_gather": [vp, vp, vp, i64, i64, i64, vp],
+        "grouped_update_sgd": [vp, vp, vp, vp, i64, i64, i64, f64, f64, f64,
+                               vp],
+        "grouped_update_adamw": [vp, vp, vp, vp, vp, i64, i64, i64, f64, f64,
+                                 f64, f64, f64, f64, f64, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

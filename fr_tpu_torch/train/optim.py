@@ -22,6 +22,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from fr_tpu_torch.ops.sparse_rows import (bias_corrections, grouped_update,
+                                          row_adamw_update, row_sgd_update)
+
 Slots = Dict[str, List[torch.Tensor]]
 
 
@@ -43,26 +46,6 @@ def init_slots(optimizer: str, params: Sequence[torch.Tensor]) -> Slots:
     raise ValueError(optimizer)
 
 
-def _sgd(p, g, b, lr, wd: float, mom: float) -> None:
-    b.mul_(mom).add_(g + wd * p)
-    p.sub_(lr * b)
-
-
-def _adamw(p, g, m, v, lr, wd: float, b1: float, b2: float, eps: float,
-           bc1: float, bc2: float) -> None:
-    p.mul_(1.0 - lr * wd)
-    m.mul_(b1).add_((1.0 - b1) * g)
-    v.mul_(b2).add_((1.0 - b2) * torch.square(g))
-    p.sub_((lr / bc1) * m / (torch.sqrt(v) / bc2 ** 0.5 + eps))
-
-
-def _bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
-    """1 − βᵗ with the powers taken in f32, as fr_tpu does."""
-    t = torch.tensor(float(count), dtype=torch.float32)
-    return (float(1.0 - torch.tensor(b1, dtype=torch.float32) ** t),
-            float(1.0 - torch.tensor(b2, dtype=torch.float32) ** t))
-
-
 @torch.no_grad()
 def sgd_update(params: List[torch.Tensor], grads: List[torch.Tensor],
                slots: Slots, lr: float, wd: float, mom: float) -> None:
@@ -79,7 +62,7 @@ def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor],
                  eps: float, count: int) -> None:
     """Per tensor: p ← p·(1 − lr·wd); m ← β1·m + (1−β1)·g;
     v ← β2·v + (1−β2)·g²; p ← p − lr/bc1 · m/(√v/√bc2 + eps)."""
-    bc1, bc2 = _bias_corrections(b1, b2, count)
+    bc1, bc2 = bias_corrections(b1, b2, count)
     m, v = slots["exp_avg"], slots["exp_avg_sq"]
     torch._foreach_mul_(params, 1.0 - lr * wd)
     torch._foreach_mul_(m, b1)
@@ -105,45 +88,15 @@ def encoder_update(optimizer: str, conf, params, grads, slots: Slots, lr,
     raise ValueError(optimizer)
 
 
-@torch.no_grad()
-def row_sgd_update(weight: torch.Tensor, slots: Dict[str, torch.Tensor],
-                   idx: Optional[torch.Tensor], grad_rows: torch.Tensor,
-                   lr: float, wd: float, mom: float) -> None:
-    """SGD on the sampled rows only; idx=None means every row."""
-    if idx is None:
-        return _sgd(weight, grad_rows, slots["momentum"], lr, wd, mom)
-    w = weight.index_select(0, idx)
-    b = slots["momentum"].index_select(0, idx)
-    _sgd(w, grad_rows, b, lr, wd, mom)
-    weight.index_copy_(0, idx, w)
-    slots["momentum"].index_copy_(0, idx, b)
-
-
-@torch.no_grad()
-def row_adamw_update(weight: torch.Tensor, slots: Dict[str, torch.Tensor],
-                     idx: Optional[torch.Tensor], grad_rows: torch.Tensor,
-                     lr: float, wd: float, b1: float, b2: float, eps: float,
-                     count: int) -> None:
-    """AdamW on the sampled rows with the head's single step count."""
-    bc1, bc2 = _bias_corrections(b1, b2, count)
-    if idx is None:
-        return _adamw(weight, grad_rows, slots["exp_avg"],
-                      slots["exp_avg_sq"], lr, wd, b1, b2, eps, bc1, bc2)
-    w = weight.index_select(0, idx)
-    m = slots["exp_avg"].index_select(0, idx)
-    v = slots["exp_avg_sq"].index_select(0, idx)
-    _adamw(w, grad_rows, m, v, lr, wd, b1, b2, eps, bc1, bc2)
-    weight.index_copy_(0, idx, w)
-    slots["exp_avg"].index_copy_(0, idx, m)
-    slots["exp_avg_sq"].index_copy_(0, idx, v)
-
-
 def pfc_row_update(optimizer: str, conf, weight, slots, idx, grad_rows, lr,
-                   count: int, block: int = 1) -> None:
-    """The head's sampled-row update (per-row sampling only)."""
-    if block > 1:
-        raise NotImplementedError("the grouped head update (sample_block > "
-                                  "1) is not ported yet: ROADMAP §1 slice 5")
+                   count: int, gidx: Optional[torch.Tensor] = None,
+                   block: int = 1) -> None:
+    """The head's sampled-row update. With the drawn group ids ``gidx`` of
+    block-aligned sampling (block > 1) it is the grouped in-place update of
+    ops/sparse_rows.py; else the per-row one, which lives there too."""
+    if gidx is not None and block > 1:
+        return grouped_update(optimizer, conf, weight, slots, gidx,
+                              grad_rows, lr, count, block)
     if optimizer == "SGD":
         return row_sgd_update(weight, slots, idx, grad_rows, lr, conf.wd,
                               conf.mom)

@@ -10,9 +10,22 @@ The training step, in fr_tpu's order:
   encoder, then the head's sampled rows.
 Augmentation, when configured, runs as its own call before the step.
 
+With block-aligned sampling (sample_block > 1) the head draws aligned groups
+of rows: the masks stay at group granularity, the column mask is arithmetic
+on the expanded index, and the rows move through the grouped kernels of
+ops/sparse_rows.py (gather, then the in-place update). The gradient is taken
+with respect to the gathered rows, so the gather carries no autograd.
+
+The head's four parts of a step (drawing and gathering the rows, the loss,
+its backward, the update) run inside ``record_function`` ranges named
+``pfc_head:*``, so that a profile of the step can tell the head's device
+time from the encoder's; outside a profile the ranges do nothing.
+
 Random numbers come from explicit generators, one per fr_tpu RNG stream
-(``stream_generators``); JAX and torch streams differ, so a test feeds the
-JAX side's sampled columns in through ``sample_idx``.
+(``stream_generators``), which live in the training state so that a
+checkpoint carries them; JAX and torch streams differ, so a test feeds the
+JAX side's sampled columns or groups in through ``sample_idx`` /
+``sample_gidx``.
 """
 
 from __future__ import annotations
@@ -21,51 +34,55 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from fr_tpu_torch.data.augment import augment
 from fr_tpu_torch.heads.partial_fc import (PFCConfig, label_columns,
-                                          sample_columns, shard_softmax_ce,
+                                          sample_columns, sample_groups,
+                                          shard_group_masks, shard_softmax_ce,
                                           shard_valid_mask)
 from fr_tpu_torch.models.common import l2_normalize
+from fr_tpu_torch.ops.sparse_rows import expand_group_index, grouped_gather
 from fr_tpu_torch.train.optim import (clip_by_global_norm, encoder_update,
                                       pfc_row_update)
 from fr_tpu_torch.train.state import TrainState
 
-# fr_tpu's stream_key tags
-STREAMS = {"sample": 0, "augment": 1, "dropout": 2}
 MAX_GRAD_NORM = 5.0
 
 
-def stream_generators(seed: int, device) -> Dict[str, torch.Generator]:
-    """One generator per RNG stream (negative sampling, augmentation,
-    dropout), seeded apart from each other."""
-    return {name: torch.Generator(device=device).manual_seed(
-        seed * len(STREAMS) + tag) for name, tag in STREAMS.items()}
-
-
 def make_train_step(conf, pfc_cfg: PFCConfig, device,
-                    augment_cfg: Optional[tuple] = None,
-                    seed: int = 0) -> Callable:
-    """step(state, images, labels, lr, sample_idx=None) → metrics.
+                    augment_cfg: Optional[tuple] = None) -> Callable:
+    """step(state, images, labels, lr, sample_idx=None, sample_gidx=None)
+    → metrics.
 
     images: (B, H, W, 3) float32, or uint8 when augment_cfg is given; labels
     (B,) int class ids; lr a float. Updates ``state`` in place and returns
     {"loss", "grad_norm"} as device scalars and "lr". ``sample_idx`` (test
     use) replaces the drawn sampled columns with a given sorted index
-    vector. The encoder is the state's."""
+    vector, ``sample_gidx`` the drawn groups of block-aligned sampling with
+    given sorted group ids. The encoder and the generators are the
+    state's."""
     device = torch.device(device)
-    gens = stream_generators(seed, device)
     optimizer = conf.optimizer_name
     cfg = pfc_cfg
-    valid = shard_valid_mask(cfg, device)
+    grouped = cfg.sampling and cfg.sample_block > 1
+    # the grouped path keeps every mask at group granularity
+    valid = None if grouped else shard_valid_mask(cfg, device)
 
-    def step(state: TrainState, images, labels, lr: float,
-             sample_idx=None) -> Dict:
-        images = torch.as_tensor(images).to(device)
-        labels = torch.as_tensor(labels).to(device).long()
-        if augment_cfg is not None:
-            images = augment(images, augment_cfg, gens["augment"])
-        pfc = state.pfc
+    def head_rows(labels, pfc, gens, sample_idx, sample_gidx):
+        """(idx, gidx, col_valid, w_rows): the active rows' ids (None for
+        all), their group ids under block-aligned sampling (else None), the
+        mask of the real columns among them and the rows themselves."""
+        if grouped:
+            if sample_gidx is None:
+                owned = (labels >= 0) & (labels < cfg.num_local)
+                gidx = sample_groups(cfg, gens["sample"],
+                                     *shard_group_masks(cfg, labels, owned))
+            else:
+                gidx = torch.as_tensor(sample_gidx).to(device).long()
+            idx = expand_group_index(gidx, cfg.sample_block)
+            return (idx, gidx, idx < cfg.num_classes,
+                    grouped_gather(pfc.weight, gidx, cfg.sample_block))
         if cfg.sampling:
             if sample_idx is None:
                 owned = (labels >= 0) & (labels < cfg.num_local)
@@ -75,26 +92,44 @@ def make_train_step(conf, pfc_cfg: PFCConfig, device,
                 idx = sample_columns(cfg, gens["sample"], pos, valid)
             else:
                 idx = torch.as_tensor(sample_idx).to(device).long()
-            col_valid = valid[idx]
-            w_rows = pfc.weight.index_select(0, idx)
-        else:
-            idx, col_valid, w_rows = None, valid, pfc.weight
-        label_cols = label_columns(cfg, labels, idx)
+            return idx, None, valid[idx], pfc.weight.index_select(0, idx)
+        return None, None, valid, pfc.weight
+
+    def step(state: TrainState, images, labels, lr: float,
+             sample_idx=None, sample_gidx=None) -> Dict:
+        gens = state.generators
+        images = torch.as_tensor(images).to(device)
+        labels = torch.as_tensor(labels).to(device).long()
+        if augment_cfg is not None:
+            images = augment(images, augment_cfg, gens["augment"])
+        pfc = state.pfc
+        with record_function("pfc_head:rows"):
+            idx, gidx, col_valid, w_rows = head_rows(labels, pfc, gens,
+                                                     sample_idx, sample_gidx)
+            label_cols = label_columns(cfg, labels, idx)
 
         encoder = state.encoder
         encoder.train()
         names, params = zip(*encoder.named_parameters())
         w_act = w_rows.detach().requires_grad_(True)
         emb = l2_normalize(encoder(images, gens["dropout"]).float())
-        loss = shard_softmax_ce(cfg, emb, label_cols, w_act, col_valid).mean()
-        *g_enc, g_rows = torch.autograd.grad(loss, [*params, w_act])
+        with record_function("pfc_head:loss"):
+            loss = shard_softmax_ce(cfg, emb, label_cols, w_act,
+                                    col_valid).mean()
+        # the head's backward, then the encoder's from the embeddings'
+        # gradient: the same graph in two walks
+        with record_function("pfc_head:backward"):
+            g_emb, g_rows = torch.autograd.grad(loss, [emb, w_act])
+        g_enc = torch.autograd.grad(emb, params, g_emb)
 
         g_enc, grad_norm = clip_by_global_norm(g_enc, MAX_GRAD_NORM)
         slots = {k: [v[n] for n in names] for k, v in state.opt_slots.items()}
         encoder_update(optimizer, conf, [p.data for p in params], g_enc,
                        slots, lr, state.step + 1)
-        pfc_row_update(optimizer, conf, pfc.weight, pfc.slots, idx, g_rows,
-                       lr, pfc.count + 1, cfg.sample_block)
+        with record_function("pfc_head:update"):
+            pfc_row_update(optimizer, conf, pfc.weight, pfc.slots, idx,
+                           g_rows, lr, pfc.count + 1, gidx=gidx,
+                           block=cfg.sample_block)
         state.step += 1
         pfc.count += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr}

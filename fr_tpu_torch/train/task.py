@@ -85,7 +85,7 @@ class FaceRecognitionTask:
                                           self.device, seed)
             self._train_step = make_train_step(
                 conf, self.pfc_cfg, self.device,
-                augment_cfg_from_conf(conf), seed)
+                augment_cfg_from_conf(conf))
             msg += (f", head {self.pfc_cfg.num_classes_padded:,} x "
                     f"{conf.emd_size} ({self.pfc_cfg.num_sample:,} columns "
                     f"sampled per step)")

@@ -3,10 +3,13 @@ the same report text.
 
 The training loop: epochs of the loader's batches through the task's
 training step, validation every ``valid_freq`` epochs, the epoch report,
-and an encoder snapshot every ``save_epoch`` epochs in fr_tpu's ``.npz``
-layout. Not ported yet: the resumable full-state checkpoint (``resume``,
-ROADMAP §1 slice 5), the profiler trace (``profile_steps``, ROADMAP §1,
-tools and the port's bench) and TensorBoard scalars.
+and, every ``save_epoch`` epochs, an encoder snapshot in fr_tpu's ``.npz``
+layout beside the full resumable state (ckpt/checkpoint.py). ``resume``
+restores the newest state under the save directory and goes on at its
+epoch; the loader's order, the schedule and the state's generators make the
+resumed run the uninterrupted one, bit for bit. Not ported yet: the
+profiler trace (``profile_steps``, ROADMAP §1, tools and the port's bench)
+and TensorBoard scalars.
 """
 
 from __future__ import annotations
@@ -29,18 +32,25 @@ class Trainer:
               resume: bool = False, profile_steps: int = 0):
         """task: FaceRecognitionTask(stage="train"); train_loader: with
         .epoch(e); val_datasets: {name: pair dataset}."""
-        if resume:
-            raise NotImplementedError(
-                "resuming from a full training state is not ported yet: "
-                "ROADMAP §1 slice 5 (checkpoints with exact resume)")
         if profile_steps:
             raise NotImplementedError(
                 "--profile is not ported yet: ROADMAP §1, tools and the "
                 "port's bench")
+        from fr_tpu_torch.ckpt import (latest_step, restore_train_state,
+                                       save_train_state)
         from fr_tpu_torch.utils.jax_import import export_encoder_npz
 
         conf = self.conf
-        for epoch in range(conf.num_epoch):
+        start_epoch = 0
+        if resume:
+            step = latest_step(self.save_dir)
+            if step is not None:
+                restore_train_state(self.save_dir, task.state, step)
+                start_epoch = step
+                task.epoch = step
+                print_log(self.logger_, f"resumed at epoch {step}")
+
+        for epoch in range(start_epoch, conf.num_epoch):
             running_t = 0.0
             train_outputs: List[Dict] = []
             print_log(self.logger_, f"{epoch + 1} Epoch Training")
@@ -68,6 +78,7 @@ class Trainer:
                 export_encoder_npz(
                     str(self.save_dir / f"{epoch + 1}_epoch_encoder.npz"),
                     task.encoder, epoch + 1, conf.network, conf.img_size)
+                save_train_state(self.save_dir, task.state, epoch + 1)
         return task
 
     def test(self, task, test_datasets: Dict):

@@ -1,6 +1,6 @@
 """Seeded full-width weights, images and training runs: how a card without
-jax is held to fr_tpu at the full width of AlterNet50, Swin50 and
-EffiAlter_m.
+jax is held to fr_tpu at the full width of AlterNet50, Swin50, EffiAlter_m
+and ResNet100.
 
 ``seeded_state_dict`` draws every reference-named state-dict key of a port
 encoder from a numpy seed, in state-dict order. fr_tpu takes the same dict
@@ -12,7 +12,8 @@ chip_smoke.py checks the card against it.
 
 tests/data/swin50_golden.npz and effialter_m_golden.npz do the same at 112
 px (``golden_encoder``; tests/test_torch_swin.py and
-tests/test_torch_effialternet.py regenerate them).
+tests/test_torch_effialternet.py regenerate them), and
+tests/data/resnet100_golden.npz for IR-ResNet100 (tests/test_torch_resnet100.py).
 
 tests/data/alternet50_train_golden.npz keeps fr_tpu's two SGD steps of the
 seeded AlterNet50 on ``train_golden_batches(seed)``: losses, gradient norms
@@ -20,11 +21,16 @@ and the norm of each tensor's update (``run_train_golden`` is the port's
 side; tests/test_torch_train_golden.py regenerates the file with jax).
 tests/data/swin50_train_golden.npz is the same for Swin50 at 112 px, head
 dropout off (tests/test_torch_swin_train.py regenerates it).
+tests/data/resnet100_train_golden.npz is two SGD steps of ResNet100 at 112 px
+under a block-sampled head (``BLOCK_GOLDEN``: 1,000 classes in groups of 4,
+half of them drawn per step); the file also keeps the groups fr_tpu drew
+(``gidx``), which ``run_train_golden`` feeds to the port's step
+(tests/test_torch_resnet100.py regenerates it).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +43,9 @@ from fr_tpu_torch.models.common import xavier_std
 # f32, 4 images of 2 synthetic identities per step, 1,000 classes, every
 # class active, SGD, drop rates 0
 TRAIN_GOLDEN = dict(emd_size=512, n_classes=1000, batch=4, steps=2, lr=1e-4)
+# ResNet100's training golden: the head samples sample_rate of the classes
+# in aligned groups of sample_block rows (125 groups of 4 per step)
+BLOCK_GOLDEN = dict(sample_rate=0.5, sample_block=4)
 
 # buffers that are functions of the architecture, kept as the model made them
 _FIXED = ("num_batches_tracked", "relative_coords_table",
@@ -83,11 +92,12 @@ def golden_images(seed: int, n: int = 4, img_size: int = 192) -> np.ndarray:
 def golden_encoder(network: str, dtype: torch.dtype = torch.float32,
                    train: bool = False) -> nn.Module:
     """The full-width port encoder of a golden: AlterNet50 at 192 px,
-    Swin50 or EffiAlter_m at 112 px, emd 512; ``train`` turns the drop
-    rates to 0 (AlterNet's DropPath and head dropout, Swin's head
+    Swin50, EffiAlter_m or ResNet100 at 112 px, emd 512; ``train`` turns the
+    drop rates to 0 (AlterNet's DropPath and head dropout, Swin's head
     dropout)."""
     from fr_tpu_torch.models.alternet import ALTERNET_PLANS, AlterNet
     from fr_tpu_torch.models.effialternet import EFFIALTER_CFGS, EffNetV2
+    from fr_tpu_torch.models.resnet import RESNET_LAYERS, ResNet
     from fr_tpu_torch.models.swinv2 import SWIN_PLANS, Swin
 
     size = default_img_size(network)
@@ -101,20 +111,25 @@ def golden_encoder(network: str, dtype: torch.dtype = torch.float32,
     if network == "EffiAlter_m":
         return EffNetV2(EFFIALTER_CFGS[network], img_size=size, emd_size=512,
                         compute_dtype=dtype)
+    if network == "ResNet100":
+        return ResNet(RESNET_LAYERS[network], emd_size=512, img_size=size,
+                      compute_dtype=dtype)
     raise ValueError(f"no golden for {network}")
 
 
 def train_golden_conf(network: str = "AlterNet50"):
-    """The training golden's configuration (SGD, ArcFace s=30 m=0.35, f32,
-    sample_rate 1.0)."""
+    """The training golden's configuration (SGD, ArcFace s=30 m=0.35, f32;
+    sample_rate 1.0, or ``BLOCK_GOLDEN``'s sampling for ResNet100)."""
     from fr_tpu_torch.configs.base import Config
 
+    sampling = BLOCK_GOLDEN if network == "ResNet100" else dict(
+        sample_rate=1.0, sample_block=1)
     return Config(network=network, img_size=default_img_size(network),
                   emd_size=TRAIN_GOLDEN["emd_size"],
                   n_classes=TRAIN_GOLDEN["n_classes"], metric="ArcFace",
                   loss_s=30.0, loss_m=0.35, optimizer_name="SGD",
                   optimizer="SGD", wd=5e-4, mom=0.9, eps=1e-8,
-                  betas=(0.9, 0.999), mixed_precision=False, sample_rate=1.0)
+                  betas=(0.9, 0.999), mixed_precision=False, **sampling)
 
 
 def train_golden_batches(seed: int, img_size: int = 192
@@ -143,13 +158,17 @@ def train_golden_head(seed: int) -> np.ndarray:
             np.float32)
 
 
-def run_train_golden(seed: int, device, network: str = "AlterNet50"
+def run_train_golden(seed: int, device, network: str = "AlterNet50",
+                     gidx: Optional[np.ndarray] = None
                      ) -> Dict[str, np.ndarray]:
     """The port's side of a training golden on ``device``: losses,
     grad_norms, and update_names / update_norms (‖after − before‖ of every
-    encoder parameter by its state-dict name, then "head")."""
+    encoder parameter by its state-dict name, then "head"). ``gidx``
+    (steps, groups): the groups the golden's block-sampled head drew, one
+    row per step."""
     from fr_tpu_torch.heads.partial_fc import PFCConfig, PFCState
-    from fr_tpu_torch.train.state import TrainState, init_encoder_slots
+    from fr_tpu_torch.train.state import (TrainState, init_encoder_slots,
+                                          stream_generators)
     from fr_tpu_torch.train.step import make_train_step
 
     conf = train_golden_conf(network)
@@ -160,14 +179,22 @@ def run_train_golden(seed: int, device, network: str = "AlterNet50"
     state = TrainState(step=0, encoder=model,
                        opt_slots=init_encoder_slots("SGD", model),
                        pfc=PFCState(weight=w0.clone(), slots={
-                           "momentum": torch.zeros_like(w0)}))
+                           "momentum": torch.zeros_like(w0)}),
+                       generators=stream_generators(seed, device))
     cfg = PFCConfig(conf.n_classes, conf.emd_size, margin="ArcFace",
-                    s=30.0, m=0.35, mixed_precision=False)
+                    s=30.0, m=0.35, mixed_precision=False,
+                    sample_rate=conf.sample_rate,
+                    sample_block=conf.sample_block)
+    if cfg.sampling and gidx is None:
+        raise ValueError(f"the {network} golden samples its head: pass the "
+                         f"groups stored in the golden file")
     step = make_train_step(conf, cfg, device)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     losses, norms = [], []
-    for images, labels in train_golden_batches(seed, conf.img_size):
-        m = step(state, images, labels, TRAIN_GOLDEN["lr"])
+    for i, (images, labels) in enumerate(
+            train_golden_batches(seed, conf.img_size)):
+        m = step(state, images, labels, TRAIN_GOLDEN["lr"],
+                 sample_gidx=gidx[i] if cfg.sampling else None)
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
     names = list(before) + ["head"]

@@ -373,14 +373,15 @@ def export_encoder_npz(path: str, encoder: torch.nn.Module, epoch: int,
 
 def train_state_from_jax(jax_state, encoder: torch.nn.Module, network: str,
                          img_size: Optional[int] = None,
-                         plan: Optional[Tuple] = None):
+                         plan: Optional[Tuple] = None, seed: int = 0):
     """fr_tpu's TrainState (arrays readable by np.asarray) → the port's
     TrainState around ``encoder``, on the encoder's device: weights and BN
     statistics, the encoder's optimizer slots through the same entries as
     the parameters (transposes included), the head weight, slots and count,
-    and the step."""
+    and the step. fr_tpu's state holds no generator (its keys derive
+    from the step); the port's three streams are seeded from ``seed``."""
     from fr_tpu_torch.heads.partial_fc import PFCState
-    from fr_tpu_torch.train.state import TrainState
+    from fr_tpu_torch.train.state import TrainState, stream_generators
 
     def host(tree):
         if isinstance(tree, Mapping):
@@ -409,7 +410,8 @@ def train_state_from_jax(jax_state, encoder: torch.nn.Module, network: str,
                for k, v in jax_state.pfc.slots.items()},
         count=int(np.asarray(jax_state.pfc.count)))
     return TrainState(step=int(np.asarray(jax_state.step)), encoder=encoder,
-                      opt_slots=opt_slots, pfc=pfc)
+                      opt_slots=opt_slots, pfc=pfc,
+                      generators=stream_generators(seed, device))
 
 
 def train_state_to_jax_layout(state, network: str,

@@ -23,6 +23,7 @@ from fr_tpu_torch.data import augment
 from fr_tpu_torch.data.synthetic import ArrayTrainLoader, synthetic_corpus
 from fr_tpu_torch.models.common import BatchNorm1d, BatchNorm2d, dropout
 from fr_tpu_torch.models.swin_common import DropPath
+from fr_tpu_torch.ops import sparse_rows
 from fr_tpu_torch.train import optim, schedule
 from test_torch_cpu_threads import one_torch_thread  # noqa: F401
 
@@ -146,10 +147,27 @@ def test_head_row_updates_match_fr_tpu(opt, sampled):
 
 
 def test_block_sampled_head_update_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.pfc_row_update("SGD", Config(wd=0.0, mom=0.9),
-                             torch.zeros(4, 2), {"momentum": torch.zeros(4, 2)},
-                             None, torch.zeros(4, 2), 0.1, 1, block=2)
+    """With the drawn groups (gidx, block > 1) pfc_row_update takes the
+    grouped update, which equals the per-row one on the expanded index and
+    raises on rows that do not match the groups; without gidx it is the
+    per-row path, as in fr_tpu."""
+    conf = Config(wd=5e-4, mom=0.9)
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.standard_normal((8, 2)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((4, 2)).astype(np.float32))
+    gidx = torch.tensor([1, 3])
+    idx = torch.tensor([2, 3, 6, 7])
+    grouped, per_row = w.clone(), w.clone()
+    gs, ps = ({"momentum": torch.zeros(8, 2)} for _ in range(2))
+    optim.pfc_row_update("SGD", conf, grouped, gs, idx, g, 0.1, 1,
+                         gidx=gidx, block=2)
+    optim.pfc_row_update("SGD", conf, per_row, ps, idx, g, 0.1, 1, block=2)
+    assert torch.equal(grouped, per_row)
+    assert torch.equal(gs["momentum"], ps["momentum"])
+    assert not torch.equal(grouped, w)
+    with pytest.raises(ValueError, match="grad_rows must be"):
+        optim.pfc_row_update("SGD", conf, grouped, gs, idx, g[:3], 0.1, 1,
+                             gidx=gidx, block=2)
 
 
 @pytest.mark.parametrize("name", ["CosineAnnealingWarmupRestarts",
@@ -267,3 +285,27 @@ def test_dropout_and_drop_path_use_only_their_generator():
     assert set(torch.unique(y).tolist()) == {0.0, 2.0}
     with pytest.raises(ValueError, match="Generator"):
         dropout(torch.ones(3), 0.5, None)
+
+
+def test_ops_import_nothing_of_the_training_layer():
+    """fr_tpu_torch/ops lies below fr_tpu_torch/train: the per-row update
+    rules live in ops/sparse_rows.py and train/optim.py takes them from
+    there, never the other way round."""
+    import ast
+    from pathlib import Path
+
+    import fr_tpu_torch.ops as ops_pkg
+
+    files = sorted(Path(ops_pkg.__file__).parent.glob("*.py"))
+    assert files
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            assert not any(n.startswith("fr_tpu_torch.train") for n in names), \
+                f"{path.name} imports {names}"
+    assert optim.row_sgd_update is sparse_rows.row_sgd_update
+    assert optim.bias_corrections is sparse_rows.bias_corrections
