@@ -80,6 +80,26 @@ Phases; any failure exits non-zero and prints no result:
     4, sample_rate 0.5) for 7 epochs in one run, then the same command with
     --resume from that run's epoch-5 save: the final encoder and head are
     bitwise equal;
+    [kernel_variants] rows 15-18 against their plain versions: the packed
+    entry's grouped route (head_group 4) at Swin50's N=49 shapes, its
+    forward and backward once more under autograd with the counts set to
+    0 (the path that launches rows 15/16; no model takes it); the spatial
+    kernels at the AlterNet50 shapes and Swin50's window-7 ones, beside
+    partition + row-1/row-2 kernel + reverse; the entry-fused forward and
+    all-in-kernel backward at the AlterNet50 shapes, beside F.linear + the
+    row-1 kernel and the hybrid backward, their sums repeated bit for bit;
+    masked and unmasked, bf16 and f32;
+    [alternet50_spatial] / [alternet50_entry_fused] full-width AlterNet50
+    through the spatial route and the entry-fused route (hybrid and
+    all-in-kernel backward): the golden, three bf16 training steps against
+    the windows route (losses 1e-3 relative, 12 + 12 launches per step on
+    the route's counters), ms per step, one f32 encoder backward
+    (gradients norm-wise 1e-3), a torch.profiler breakdown of the route's
+    step; every switch restored;
+    [alternet_sep50] the serving CLI (1 packed + 9 per-head launches per
+    call), the golden, a 6-epoch training CLI run; [alternet_v1_50] the
+    serving CLI at --img_size 112 and the golden; [dw_taps] EffiAlter_m
+    with DepthwiseTaps against the depthwise conv (f32, 1e-5);
 16. [profile] torch.profiler over 5 training steps of Swin50 and of
     EffiAlter_m (bf16, b=128, the full ms1m head at sample_rate 0.3) and of
     the webface42m step of phase 13 at sample_block 64 and 1: wall per
@@ -88,8 +108,9 @@ Phases; any failure exits non-zero and prints no result:
     train/step.py's pfc_head:* ranges).
 
 Every kernel's launches in the JSON line are counted on its main path
-(phases 4, 6, 7, 8, 9 and 13), each run with the counts set to 0 just before
-it.
+(phases 4, 6, 7, 8, 9 and 13; rows 15/16 on [kernel_variants]'s driven
+calls, rows 17/18 on [alternet50_spatial] and [alternet50_entry_fused]),
+each run with the counts set to 0 just before it.
 
 The last three lines are the kernel JSON line, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -1688,6 +1709,803 @@ def phase_resume():
           f"{differ[:5]}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 6: the grouped (rows 15-16), spatial (row 17) and entry-fused (row
+# 18) attention routes, AlterNetSep50, AlterNetV1_50, DepthwiseTaps.
+# ---------------------------------------------------------------------------
+
+def _bound(nbytes, flops, dt):
+    """(ms, by): the larger of bytes over 3.35 TB/s and flops over the
+    card's peak for the input type (989 TFLOP/s bf16, 67 TFLOP/s f32)."""
+    import torch
+    peak = 989e12 if dt == torch.bfloat16 else 67e12
+    t_bytes, t_ops = nbytes / 3.35e12, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _variant_bound(kind, windows, n, c, heads, dt, n_mask):
+    """The least time of one call of a row-17/18 kernel: each input read
+    once, each output written once. spatial_fwd writes f32; qkv_fwd reads
+    x, W (3C, C) f32 and b, and computes the projection (2·rows·C·3C) before
+    the two attention products; qkv_bwd recomputes it and adds dx and dW
+    (three projections in all) to the five products of the recompute
+    backward, and writes dx, dW, db, dscale and dbias."""
+    import torch
+    es = 2 if dt == torch.bfloat16 else 4
+    rows = windows * n
+    params = heads * 4 + heads * n * n * 4 + n_mask * n * n * 4
+    sums = heads * (n * n + 1) * 4
+    proj = 3 * c * c * 4 + 3 * c * 4
+    attn = 2 * windows * n * n * c        # one attention product, all heads
+    nbytes, flops = {
+        "spatial_fwd": (rows * 3 * c * es + params + rows * c * 4, 2 * attn),
+        "spatial_bwd": (2 * rows * 3 * c * es + params + rows * c * es + sums,
+                        5 * attn),
+        "qkv_fwd": (2 * rows * c * es + proj + params,
+                    2 * rows * c * 3 * c + 2 * attn),
+        "qkv_bwd": (3 * rows * c * es + 2 * proj + params + sums,
+                    3 * 2 * rows * c * 3 * c + 5 * attn)}[kind]
+    return _bound(nbytes, flops, dt)
+
+
+# Swin50's N=49 sites on the grouped route (head_group 4): (name, B·nW,
+# heads, windows per image, sites per Swin50 encoder call)
+GROUPED_SHAPES = [("swin50_s3", 512, 8, 4, 4), ("swin50_s4", 128, 16, 1, 10)]
+# the spatial shapes: AlterNet50's (res, window, heads, unmasked and
+# masked sites per encoder call) and Swin50's window-7 ones (no sites there)
+SPATIAL_SHAPES = [("stage2", 24, 6, 4, 1, 1), ("stage3", 12, 6, 8, 4, 4),
+                  ("stage4", 6, 3, 16, 1, 1), ("swin50_s3", 14, 7, 8, 0, 0),
+                  ("swin50_s4", 7, 7, 16, 0, 0)]
+# the (window, dim) pairs of AlterNet50 that [alternet50_spatial] lists
+ALTERNET50_SPATIAL = frozenset({(6, 128), (6, 256), (3, 512)})
+VARIANT_GOLDENS = {n: ROOT / "tests" / "data" / f"{n.lower()}_golden.npz"
+                   for n in ("AlterNetSep50", "AlterNetV1_50")}
+VARIANT_EPOCHS = 6
+
+
+def _grouped_cases():
+    """Rows 15/16 on the card, bf16: the packed entry with head_group 4 at
+    Swin50's shapes, with and without the shift mask (stage 3 only: stage
+    4 is one window per image), under autograd with stored_stats=True.
+    Returns (max errors {fwd, bwd}, bf16 times per shape, launches {fwd,
+    bwd} of the driven calls)."""
+    import torch
+    from fr_tpu_torch.ops import fused_window_attn as F
+
+    P = F.fused_window_attention_packed
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    times, calls = {}, []
+    for name, bw, heads, nw, _ in GROUPED_SHAPES:
+        for masked in (False, True):
+            if masked and nw == 1:
+                continue
+            shape = (name, bw, heads, 32, nw, masked)
+            qkv, scale, bias16, g, mask, nw_ = _perhead_inputs(
+                shape, torch.bfloat16, gen)
+            calls.append((qkv, scale, bias16, g, mask, nw_, heads))
+            tag = f"{name} {'masked' if masked else 'unmasked'}"
+            q = qkv.detach().requires_grad_(True)
+            stats_before = P.stats_launches
+            out = P(q, scale, bias16, heads, nw_, mask,
+                    out_dtype=torch.bfloat16, stored_stats=True,
+                    head_group=4)
+            out.backward(g)
+            torch.cuda.synchronize()
+            check(P.stats_launches == stats_before,
+                  f"[kernel_variants] {tag}: the grouped route took the "
+                  f"stats arm")
+            ref = F.window_attention_reference(qkv, scale, bias16, heads,
+                                               mask, torch.bfloat16)
+            err = (out.float() - ref.float()).abs().max().item()
+            check(err <= BF16_TOL, f"[kernel_variants] grouped {tag}: "
+                  f"error {err}")
+            worst["fwd"] = max(worst["fwd"], err)
+            plain = F.window_attention_backward_reference(
+                qkv, scale, bias16, g, heads, mask)
+            d = ((q.grad.float() - plain[0].float()).norm()
+                 / plain[0].float().norm()).item()
+            check(d <= 1e-2, f"[kernel_variants] grouped {tag}: dqkv "
+                  f"norm-wise {d}")
+            worst["bwd"] = max(worst["bwd"], (q.grad.float()
+                                              - plain[0].float()).abs()
+                               .max().item())
+            if masked:
+                continue
+            t = {"fwd": time_ms(lambda: P(qkv, scale, bias16, heads, nw_,
+                                          mask, out_dtype=torch.bfloat16,
+                                          head_group=4)),
+                 "fwd_plain": time_ms(lambda: F.window_attention_reference(
+                     qkv, scale, bias16, heads, mask, torch.bfloat16)),
+                 "bwd": time_ms(lambda: F.window_attention_backward(
+                     qkv, scale, bias16, g, heads, nw_, mask)),
+                 "bwd_plain": time_ms(
+                     lambda: F.window_attention_backward_reference(
+                         qkv, scale, bias16, g, heads, mask)),
+                 "fwd_lib": _library_fwd_ms(qkv, scale, bias16, mask, heads),
+                 "bwd_lib": _library_bwd_ms(qkv, scale, bias16, mask, heads,
+                                            g)}
+            times[name] = t
+            print(f"[kernel_variants] grouped {name} {tuple(qkv.shape)} "
+                  f"h{heads} hg4: fwd {t['fwd']:.4f} (plain "
+                  f"{t['fwd_plain']:.4f}, sdpa {t['fwd_lib']:.4f}), bwd "
+                  f"{t['bwd']:.4f} (plain {t['bwd_plain']:.4f}, sdpa "
+                  f"{t['bwd_lib']:.4f}) ms; err fwd {err:.2e}, dqkv "
+                  f"norm-wise {d:.2e}")
+    # the driven path of rows 15/16: every case once more, forward and
+    # backward under autograd, with the counts set to 0 just before
+    _reset([(P, "grouped_launches"), (P, "grouped_backward_launches")])
+    for qkv, scale, bias16, g, mask, nw_, heads in calls:
+        q = qkv.detach().requires_grad_(True)
+        P(q, scale, bias16, heads, nw_, mask, out_dtype=torch.bfloat16,
+          head_group=4).backward(g)
+    torch.cuda.synchronize()
+    launches = {"fwd": P.grouped_launches, "bwd": P.grouped_backward_launches}
+    check(launches == {"fwd": len(calls), "bwd": len(calls)},
+          f"[kernel_variants] grouped launches {launches} for {len(calls)} "
+          f"calls")
+    return worst, times, launches
+
+
+def _spatial_cases():
+    """Row 17 against its plain versions at SPATIAL_SHAPES, masked and
+    unmasked, bf16 and f32; times in bf16 with the chain it replaces
+    (partition, the row-1 or row-2 kernel, reverse) and SDPA on the
+    partitioned qkv (not the same function)."""
+    import torch
+    from fr_tpu_torch.models.swin_common import (shifted_window_mask,
+                                                 window_partition,
+                                                 window_reverse)
+    from fr_tpu_torch.ops import fused_window_attn as F
+    from fr_tpu_torch.ops import fused_window_attn_variants as V
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    times = {}
+    for name, res, ws, heads, *_ in SPATIAL_SHAPES:
+        c = heads * 32
+        for masked in (False, True):
+            if masked and res == ws:
+                continue
+            mask = (torch.from_numpy(shifted_window_mask(res, res, ws,
+                                                         ws // 2)).cuda()
+                    if masked else None)
+            nw = (res // ws) ** 2
+            for dt, tol in ((torch.bfloat16, BF16_TOL),
+                            (torch.float32, F32_TOL)):
+                qkv = torch.randn(128, res, res, 3 * c, device="cuda",
+                                  generator=gen).to(dt)
+                scale = torch.empty(heads, device="cuda").uniform_(
+                    5.0, 20.0, generator=gen)
+                bias16 = 16 * torch.sigmoid(torch.randn(
+                    heads, ws * ws, ws * ws, device="cuda", generator=gen))
+                g = torch.randn(128, res, res, c, device="cuda",
+                                generator=gen)
+                tag = (f"spatial {name} {'masked' if masked else 'unmasked'}"
+                       f" {str(dt).split('.')[-1]}")
+                out = V.fused_window_attention_spatial(qkv, scale, bias16,
+                                                       heads, ws, mask)
+                grads = V.spatial_attention_backward(qkv, scale, bias16, g,
+                                                     heads, ws, mask)
+                torch.cuda.synchronize()
+                ref = V.window_attention_spatial_reference(
+                    qkv, scale, bias16, heads, ws, mask)
+                check(out.dtype == torch.float32
+                      and bool(torch.isfinite(out).all()),
+                      f"[kernel_variants] {tag}: output")
+                err = (out - ref).abs().max().item()
+                check(err <= tol, f"[kernel_variants] {tag}: error {err}")
+                worst["fwd"] = max(worst["fwd"], err)
+                worst["bwd"] = max(worst["bwd"], _check_grads(
+                    f"[kernel_variants] {tag}", grads,
+                    V.window_attention_spatial_backward_reference(
+                        qkv, scale, bias16, g, heads, ws, mask), dt))
+                if dt != torch.bfloat16:
+                    continue
+
+                def chain_fwd():
+                    win = F.fused_window_attention_packed(
+                        window_partition(qkv, ws), scale, bias16, heads,
+                        nw if masked else 1, mask)
+                    return window_reverse(win, ws, res, res)
+
+                def chain_bwd():
+                    d = F.window_attention_backward(
+                        window_partition(qkv, ws), scale, bias16,
+                        window_partition(g, ws), heads, nw if masked else 1,
+                        mask)
+                    return window_reverse(d[0], ws, res, res)
+
+                wq = window_partition(qkv, ws)
+                t = {"fwd": time_ms(lambda: V.fused_window_attention_spatial(
+                         qkv, scale, bias16, heads, ws, mask)),
+                     "fwd_plain": time_ms(
+                         lambda: V.window_attention_spatial_reference(
+                             qkv, scale, bias16, heads, ws, mask)),
+                     "fwd_chain": time_ms(chain_fwd),
+                     "fwd_lib": _library_fwd_ms(wq, scale, bias16, mask,
+                                                heads),
+                     "bwd": time_ms(lambda: V.spatial_attention_backward(
+                         qkv, scale, bias16, g, heads, ws, mask)),
+                     "bwd_plain": time_ms(
+                         lambda: V.window_attention_spatial_backward_reference(
+                             qkv, scale, bias16, g, heads, ws, mask)),
+                     "bwd_chain": time_ms(chain_bwd),
+                     "bwd_lib": _library_bwd_ms(
+                         wq, scale, bias16, mask, heads,
+                         window_partition(g, ws).to(dt))}
+                times[(name, masked)] = t
+                print(f"[kernel_variants] {tag:34s} {tuple(qkv.shape)} h"
+                      f"{heads}: fwd {t['fwd']:.4f} (plain "
+                      f"{t['fwd_plain']:.4f}, partition+row1+reverse "
+                      f"{t['fwd_chain']:.4f}, sdpa {t['fwd_lib']:.4f}); bwd "
+                      f"{t['bwd']:.4f} (plain {t['bwd_plain']:.4f}, "
+                      f"partition+row2+reverse {t['bwd_chain']:.4f}, sdpa "
+                      f"{t['bwd_lib']:.4f}) ms")
+    return worst, times
+
+
+def _qkv_check(tag, grads, ref, dt):
+    """Row 18's backward against its plain version: f32 dx, dscale, dbias
+    5e-5·max(|ref|, 1) element-wise, dW and db (sums over every token row,
+    in another order) 1e-5 norm-wise; bf16 1e-2 norm-wise and dscale
+    3e-2·max(|ref|, 1) (a bf16 rounding of the projection's qkv flips where
+    the f32 sums differ in the last digit). Returns the largest max-abs
+    error."""
+    import torch
+    worst = 0.0
+    for t_name, a, b in zip(("dx", "dw", "db", "dscale", "dbias"), grads,
+                            ref):
+        a, b = a.float(), b.float()
+        check(bool(torch.isfinite(a).all()), f"{tag} {t_name} not finite")
+        mx = (a - b).abs().max().item()
+        if dt == torch.bfloat16 and t_name == "dscale":
+            ok = mx <= 3e-2 * max(b.abs().max().item(), 1.0)
+        elif dt == torch.bfloat16 or t_name in ("dw", "db"):
+            rel = ((a - b).norm() / b.norm()).item()
+            ok = rel <= (1e-2 if dt == torch.bfloat16 else 1e-5)
+        else:
+            ok = mx <= F32_TOL * max(b.abs().max().item(), 1.0)
+        check(ok, f"{tag} {t_name}: max-abs {mx}")
+        worst = max(worst, mx)
+    return worst
+
+
+def _qkv_cases():
+    """Row 18 against its plain versions at the AlterNet50 shapes, masked
+    and unmasked, bf16 and f32: the forward and the all-in-kernel backward,
+    its sums repeated bit for bit; times in bf16 with F.linear + the row-1
+    kernel (the forward it replaces), the hybrid backward, and SDPA (not
+    the same function)."""
+    import torch
+    import torch.nn.functional as Fn
+    from fr_tpu_torch.ops import fused_window_attn as F
+    from fr_tpu_torch.ops import fused_window_attn_variants as V
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    times = {}
+    for name, bw, n, heads, res, ws, *_ in SHAPES:
+        c = heads * 32
+        for masked in (False, True):
+            for dt, tol in ((torch.bfloat16, BF16_TOL),
+                            (torch.float32, F32_TOL)):
+                qkv, scale, bias16, g, mask, nw = _attention_inputs(
+                    bw, n, heads, res, ws, masked, dt, gen)
+                x = torch.randn(bw, n, c, device="cuda", generator=gen).to(dt)
+                w = 0.1 * torch.randn(3 * c, c, device="cuda", generator=gen)
+                b = 0.1 * torch.randn(3 * c, device="cuda", generator=gen)
+                tag = (f"[kernel_variants] qkv {name} "
+                       f"{'masked' if masked else 'unmasked'} "
+                       f"{str(dt).split('.')[-1]}")
+                out = V.fused_window_attention_packed_qkv(
+                    x, w, b, scale, bias16, heads, nw, mask, out_dtype=dt)
+                grads = V.qkv_attention_backward(x, w, b, scale, bias16, g,
+                                                 heads, nw, mask)
+                torch.cuda.synchronize()
+                ref = V.window_attention_qkv_reference(
+                    x, w, b, scale, bias16, heads, mask, dt)
+                err = (out.float() - ref.float()).abs().max().item()
+                check(bool(torch.isfinite(out.float()).all()) and err <= tol,
+                      f"{tag}: error {err}")
+                worst["fwd"] = max(worst["fwd"], err)
+                worst["bwd"] = max(worst["bwd"], _qkv_check(
+                    tag, grads, V.window_attention_qkv_backward_reference(
+                        x, w, b, scale, bias16, g, heads, mask), dt))
+                again = V.qkv_attention_backward(x, w, b, scale, bias16, g,
+                                                 heads, nw, mask)
+                check(all(torch.equal(a, a2) for a, a2 in zip(grads, again)),
+                      f"{tag}: the sums changed between two runs")
+                if dt != torch.bfloat16:
+                    continue
+                bias = b.to(dt)
+
+                def linear_row1():
+                    q = Fn.linear(x, w.to(dt)) + bias
+                    return F.fused_window_attention_packed(
+                        q, scale, bias16, heads, nw, mask, out_dtype=dt)
+
+                q0 = Fn.linear(x, w.to(dt)) + bias
+                t = {"fwd": time_ms(
+                         lambda: V.fused_window_attention_packed_qkv(
+                             x, w, b, scale, bias16, heads, nw, mask,
+                             out_dtype=dt)),
+                     "fwd_plain": time_ms(
+                         lambda: V.window_attention_qkv_reference(
+                             x, w, b, scale, bias16, heads, mask, dt)),
+                     "fwd_chain": time_ms(linear_row1),
+                     "fwd_lib": _library_fwd_ms(q0, scale, bias16, mask,
+                                                heads),
+                     "bwd": time_ms(lambda: V.qkv_attention_backward(
+                         x, w, b, scale, bias16, g, heads, nw, mask)),
+                     "bwd_plain": time_ms(
+                         lambda: V.window_attention_qkv_backward_reference(
+                             x, w, b, scale, bias16, g, heads, mask)),
+                     "bwd_hybrid": time_ms(lambda: V.hybrid_backward(
+                         x, w, b, scale, bias16, g, heads, nw, mask)),
+                     "bwd_lib": _library_bwd_ms(q0, scale, bias16, mask,
+                                                heads, g)}
+                times[(name, masked)] = t
+                print(f"[kernel_variants] qkv {name} "
+                      f"{'masked' if masked else 'unmasked'} x "
+                      f"{tuple(x.shape)} h{heads}: fwd {t['fwd']:.4f} (plain "
+                      f"{t['fwd_plain']:.4f}, F.linear+row1 "
+                      f"{t['fwd_chain']:.4f}, sdpa {t['fwd_lib']:.4f}); "
+                      f"all-in-kernel bwd {t['bwd']:.4f} (plain "
+                      f"{t['bwd_plain']:.4f}, hybrid {t['bwd_hybrid']:.4f}, "
+                      f"sdpa {t['bwd_lib']:.4f}) ms")
+    return worst, times
+
+
+def phase_kernel_variants():
+    """[kernel_variants]: rows 15-18 against their plain versions. Returns
+    ({row: (max error fwd, max error bwd)}, {row: times}, the launches of
+    the grouped route's driven calls)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grouped_err, grouped_t, grouped_launches = _grouped_cases()
+    spatial_err, spatial_t = _spatial_cases()
+    qkv_err, qkv_t = _qkv_cases()
+    return ({"grouped": grouped_err, "spatial": spatial_err,
+             "qkv": qkv_err},
+            {"grouped": grouped_t, "spatial": spatial_t, "qkv": qkv_t},
+            grouped_launches)
+
+
+class _Route:
+    """Switches the AlterNet50 attention route for a ``with`` block and
+    restores every switch after it: "windows" (the default), "spatial"
+    (ALTERNET50_SPATIAL listed), "entry_fused" (WindowAttention.entry_fused,
+    hybrid backward), "entry_fused_allkernel" (and _PKX_HYBRID_BWD
+    False)."""
+
+    def __init__(self, route):
+        self.route = route
+
+    def __enter__(self):
+        from fr_tpu_torch.models import swin_common
+        from fr_tpu_torch.ops import fused_window_attn_variants as V
+        self.saved = (swin_common.SPATIAL_KERNEL_CONFIGS,
+                      swin_common.WindowAttention.entry_fused,
+                      V._PKX_HYBRID_BWD)
+        if self.route == "spatial":
+            swin_common.SPATIAL_KERNEL_CONFIGS = ALTERNET50_SPATIAL
+        elif self.route.startswith("entry_fused"):
+            swin_common.WindowAttention.entry_fused = True
+            V._PKX_HYBRID_BWD = self.route == "entry_fused"
+        return self
+
+    def __exit__(self, *exc):
+        from fr_tpu_torch.models import swin_common
+        from fr_tpu_torch.ops import fused_window_attn_variants as V
+        (swin_common.SPATIAL_KERNEL_CONFIGS,
+         swin_common.WindowAttention.entry_fused,
+         V._PKX_HYBRID_BWD) = self.saved
+        return False
+
+
+def _route_counters(route):
+    """(forward, backward) counters of a route's kernels."""
+    from fr_tpu_torch.ops import fused_window_attn as F
+    from fr_tpu_torch.ops import fused_window_attn_variants as V
+    return {"windows": ((F.fused_window_attention_packed, "launches"),
+                        (F.window_attention_backward, "launches")),
+            "spatial": ((V.fused_window_attention_spatial, "launches"),
+                        (V.fused_window_attention_spatial,
+                         "backward_launches")),
+            "entry_fused": ((V.fused_window_attention_packed_qkv,
+                             "launches"),
+                            (F.window_attention_backward, "launches")),
+            "entry_fused_allkernel": ((V.fused_window_attention_packed_qkv,
+                                       "launches"),
+                                      (V.fused_window_attention_packed_qkv,
+                                       "backward_launches"))}[route]
+
+
+def _route_golden(route, tag):
+    """Full-width AlterNet50 through a route against fr_tpu's golden
+    embeddings: f32 (TF32 off) max-abs ≤ 1e-3, bf16 per-row cosine ≥ 0.99,
+    12 forward launches on the route's counter."""
+    import numpy as np
+    import torch
+    from fr_tpu_torch.configs.base import Config
+    from fr_tpu_torch.models.alternet import ALTERNET_PLANS, AlterNet
+    from fr_tpu_torch.train.step import make_embed_step
+    from fr_tpu_torch.utils.golden import golden_images, seeded_state_dict
+
+    golden = np.load(GOLDEN)
+    seed, ref = int(golden["seed"]), golden["embeddings"]
+    fwd, _ = _route_counters(route)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype in (torch.float32, torch.bfloat16):
+        model = AlterNet(*ALTERNET_PLANS["AlterNet50"], img_size=192,
+                         emd_size=512, compute_dtype=dtype)
+        model.load_state_dict(seeded_state_dict(model, seed), strict=True)
+        embed = make_embed_step(Config(img_size=192), model.cuda(), "cuda")
+        before = getattr(*fwd)
+        with _Route(route):
+            out = embed(golden_images(seed)).cpu().numpy()
+        check(getattr(*fwd) - before == 12, f"{tag} golden run: "
+              f"{getattr(*fwd) - before} launches, expected 12")
+        if dtype == torch.float32:
+            err = float(np.abs(out - ref).max())
+            print(f"{tag} golden f32 (TF32 off) max_abs_err {err:.3e} "
+                  f"(tol 1e-3)")
+            check(err <= 1e-3, f"{tag} f32 golden error {err}")
+        else:
+            cos = np.sum(out * ref, axis=1) / (
+                np.linalg.norm(out, axis=1) * np.linalg.norm(ref, axis=1))
+            print(f"{tag} golden bf16 min per-row cosine {cos.min():.5f} "
+                  f"(tol 0.99)")
+            check(cos.min() >= 0.99, f"{tag} bf16 golden cosine {cos.min()}")
+        del model, embed
+
+
+def _route_grads(route, tag, n_img: int = 8):
+    """One f32 encoder backward (TF32 off, train mode, the golden's seeded
+    weights, one dropout seed, a fixed projection of the L2-normalised
+    embeddings as the loss) through the route against the windows route:
+    every parameter's gradient norm-wise within 1e-3 above a floor of 1e-5
+    of the largest gradient norm, as [alternet50]'s stats switch holds it.
+    Printed per attention group, over the tensors above the floor (v_bias
+    and proj.bias get gradients of rounding noise, ~1e-9 of the largest:
+    the next BatchNorm cancels them): qkv, q_bias, logit_scale, cpb_mlp,
+    proj."""
+    import numpy as np
+    import torch
+    from fr_tpu_torch.models.common import l2_normalize
+    from fr_tpu_torch.utils.golden import (golden_encoder, golden_images,
+                                           seeded_state_dict)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = golden_encoder("AlterNet50", train=True)
+    model.load_state_dict(seeded_state_dict(model, 0), strict=True)
+    model.cuda().train()
+    x = torch.from_numpy(golden_images(0, n_img, 192)).cuda()
+    r = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (n_img, 512)).astype(np.float32)).cuda()
+    names, params = zip(*model.named_parameters())
+    grads = {}
+    for arm in ("windows", route):
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        with _Route(arm):
+            loss = (l2_normalize(model(x, gen).float()) * r).sum()
+            grads[arm] = torch.autograd.grad(loss, params)
+    norms = [float(g.norm()) for g in grads["windows"]]
+    diffs = [float((a - b).norm()) for a, b in zip(grads[route],
+                                                   grads["windows"])]
+    floor = 1e-5 * max(norms)
+    worst = max(max(d - floor, 0.0) / max(n0, 1e-30)
+                for n0, d in zip(norms, diffs))
+    groups = {}
+    for name, n0, d in zip(names, norms, diffs):
+        for group in ("qkv", "q_bias", "logit_scale", "cpb_mlp", "proj"):
+            if f".attn.{group}" in name and n0 > floor:
+                groups[group] = max(groups.get(group, 0.0), d / n0)
+    print(f"{tag} f32 encoder gradients against the windows route ({n_img} "
+          f"images): worst norm-wise difference beyond the floor "
+          f"{worst:.2e} (tol 1e-3); per attention group above the floor: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in groups.items()))
+    check(len(groups) == 5, f"{tag} attention groups above the floor: "
+          f"{sorted(groups)}")
+    check(worst <= 1e-3, f"{tag} gradients differ from the windows route's:"
+          f" {worst:.2e}")
+    del model
+
+
+def phase_alternet50_routes(steps: int = 3, timed: int = 5):
+    """[alternet50_spatial] and [alternet50_entry_fused]: full-width
+    AlterNet50 through the spatial route and the entry-fused route (hybrid
+    and all-in-kernel backward): the golden; three bf16 training steps
+    (b=128, the CLI's synthetic head) from one seed against the windows
+    route, losses within 1e-3 relative, 12 forward and 12 backward launches
+    per step on the route's counters (set to 0 just before those steps);
+    ms per step on the host clock over ``timed`` more steps; one f32 encoder
+    backward against the windows route; a [profile] of each route's step
+    (phase_profile). Returns {route: (forward launches, backward launches)}
+    and {route: ms per step}."""
+    import torch
+    from fr_tpu_torch.cli.main import build_conf, parse_args
+    from fr_tpu_torch.train.task import FaceRecognitionTask
+
+    args = parse_args(TRAIN_ARGS)
+    conf = build_conf(args)
+    conf.n_classes = args.synthetic_classes
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    images = torch.randint(0, 256, (steps + timed, conf.b, conf.img_size,
+                                    conf.img_size, 3), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    labels = torch.randint(0, conf.n_classes, (steps + timed, conf.b),
+                           device="cuda", generator=gen)
+    losses, launches, ms = {}, {}, {}
+    for route in ("windows", "spatial", "entry_fused",
+                  "entry_fused_allkernel"):
+        tag = ("[alternet50_spatial]" if route == "spatial" else
+               "[alternet50_entry_fused]" if route != "windows"
+               else "[alternet50_windows]")
+        counters = _route_counters(route)
+        with _Route(route):
+            task = FaceRecognitionTask(conf, stage="train", device="cuda",
+                                       seed=0)
+            _reset(counters)
+            losses[route] = [task.training_step((images[i], labels[i]))[
+                "loss"].item() for i in range(steps)]
+            launches[route] = tuple(getattr(f, a) for f, a in counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps, steps + timed):
+                out = task.training_step((images[i], labels[i]))
+            out["loss"].item()
+            ms[route] = (time.perf_counter() - t0) * 1e3 / timed
+            del task
+            # device busy, idle share and time by family of the route's step
+            print(f"{tag} {route}: torch.profiler of the step at the full "
+                  f"ms1m head")
+            phase_profile("AlterNet50")
+        print(f"{tag} {route}: losses {[round(x, 5) for x in losses[route]]}"
+              f", launches forward/backward {launches[route]} over {steps} "
+              f"steps; {ms[route]:.2f} ms per step (host clock, {timed} "
+              f"steps, bf16 b={conf.b})")
+        check(launches[route] == (12 * steps, 12 * steps),
+              f"{tag} {route}: launches {launches[route]}, expected "
+              f"{12 * steps} each")
+        if route == "windows":
+            continue
+        for a, b in zip(losses["windows"], losses[route]):
+            check(abs(a - b) <= 1e-3 * abs(a), f"{tag} {route} loss {b} vs "
+                  f"the windows route's {a}: beyond 1e-3 relative")
+        if route != "entry_fused_allkernel":
+            _route_golden(route, tag)
+        _route_grads(route, f"{tag} {route}")
+    return launches, ms
+
+
+def _retired_serving(network, tag, counters, per_call, extra=()):
+    """The serving CLI on the golden's seeded weights (an fr_tpu-layout
+    snapshot through --ckpt_path); ``counters`` must rise by ``per_call``
+    each per encoder call. Returns the launches {counter: count}."""
+    import numpy as np
+    from fr_tpu_torch.cli.main import main as cli_main
+    from fr_tpu_torch.models.alternet import AlterNetSep
+    from fr_tpu_torch.models.alternet_v1 import AlterNetV1
+    from fr_tpu_torch.utils.golden import golden_encoder, seeded_state_dict
+    from fr_tpu_torch.utils.jax_import import export_encoder_npz
+
+    cls = AlterNetV1 if "V1" in network else AlterNetSep
+    seed = int(np.load(VARIANT_GOLDENS[network])["seed"])
+    calls = _EncoderCalls(cls)
+    captured = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+            model = golden_encoder(network)
+            model.load_state_dict(seeded_state_dict(model, seed), strict=True)
+            ckpt = str(Path(tmp) / "seeded.npz")
+            export_encoder_npz(ckpt, model, 0, network, 112)
+            del model
+            _reset(counters)
+            msg = cli_main(_net_args(network, "test") + list(extra) + [
+                "--save_root", tmp, "--ckpt_path", ckpt])
+            counts = [getattr(f, a) for f, a in counters]
+    finally:
+        calls.close()
+    n_calls = calls.counts["eval"]
+    print(f"{tag} serving: {n_calls} encoder calls, launches {counts}")
+    check(n_calls >= 1 and counts == [p * n_calls for p in per_call],
+          f"{tag} launches {counts} for {n_calls} calls, expected "
+          f"{per_call} per call")
+    check('[Test with "synthetic"]' in captured.getvalue(),
+          f"{tag} the ROC report was not printed")
+    emb = np.concatenate(msg["synthetic"].embeddings)
+    norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1.0).max())
+    check(emb.shape == (512, 512) and bool(np.isfinite(emb).all())
+          and norm_err <= 1e-4, f"{tag} embeddings {emb.shape}")
+    print(f"{tag} embeddings {emb.shape} finite, max | |e| - 1 | "
+          f"{norm_err:.2e}; mean {msg['synthetic'].infer_time:.2f} ms per "
+          f"call of 128 images, host to host")
+    return dict(zip((f"{f.__name__}.{a}" for f, a in counters), counts))
+
+
+def _retired_golden(network, tag, bf16_cos=0.99):
+    """The network's golden at 112 px: f32 (TF32 off) max-abs ≤ 1e-3, bf16
+    per-row cosine ≥ bf16_cos."""
+    import numpy as np
+    import torch
+    from fr_tpu_torch.configs.base import Config
+    from fr_tpu_torch.train.step import make_embed_step
+    from fr_tpu_torch.utils.golden import (golden_encoder, golden_images,
+                                           seeded_state_dict)
+
+    golden = np.load(VARIANT_GOLDENS[network])
+    seed, ref = int(golden["seed"]), golden["embeddings"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype in (torch.float32, torch.bfloat16):
+        model = golden_encoder(network, dtype)
+        model.load_state_dict(seeded_state_dict(model, seed), strict=True)
+        embed = make_embed_step(Config(img_size=112), model.cuda(), "cuda")
+        out = embed(golden_images(seed, img_size=112)).cpu().numpy()
+        if dtype == torch.float32:
+            err = float(np.abs(out - ref).max())
+            print(f"{tag} golden f32 (TF32 off) max_abs_err {err:.3e} "
+                  f"(tol 1e-3)")
+            check(err <= 1e-3, f"{tag} f32 golden error {err}")
+        else:
+            cos = np.sum(out * ref, axis=1) / (
+                np.linalg.norm(out, axis=1) * np.linalg.norm(ref, axis=1))
+            print(f"{tag} golden bf16 min per-row cosine {cos.min():.5f} "
+                  f"(tol {bf16_cos})")
+            check(cos.min() >= bf16_cos,
+                  f"{tag} bf16 golden cosine {cos.min()}")
+        del model, embed
+
+
+def phase_alternet_sep50():
+    """[alternet_sep50]: the serving CLI (1 packed-entry and 9 per-head
+    forward launches per encoder call), the golden, and the training CLI
+    (bf16, b=128, VARIANT_EPOCHS epochs: 1 + 9 forward launches per call,
+    1 + 9 backward per step, the last epoch's loss below the first's).
+    Returns the launches of both runs."""
+    import numpy as np
+    from fr_tpu_torch.cli.main import main as cli_main
+    from fr_tpu_torch.models.alternet import AlterNetSep
+    from fr_tpu_torch.ops import fused_window_attn as F
+
+    tag = "[alternet_sep50]"
+    fwd = [(F.fused_window_attention_packed, "launches"),
+           (F.fused_window_attention, "launches")]
+    bwd = [(F.window_attention_backward, "launches"),
+           (F.fused_window_attention, "backward_launches")]
+    serve = _retired_serving("AlterNetSep50", tag, fwd, [1, 9])
+    _retired_golden("AlterNetSep50", tag)
+    calls = _EncoderCalls(AlterNetSep)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            _reset(fwd + bwd)
+            task = cli_main(_net_args("AlterNetSep50", "train")[:-1] + [
+                str(VARIANT_EPOCHS), "--save_root", tmp])
+            counts = [getattr(f, a) for f, a in fwd + bwd]
+            wall = time.perf_counter() - t0
+    finally:
+        calls.close()
+    steps, evals = calls.counts["train"], calls.counts["eval"]
+    losses = [h["train_loss"] for h in task.history]
+    print(f"{tag} training: {steps} steps, {evals} eval calls, launches "
+          f"forward packed/per-head {counts[:2]}, backward {counts[2:]}; "
+          f"epoch losses {[round(x, 4) for x in losses]}; {wall:.1f} s")
+    check(steps == VARIANT_EPOCHS * 8, f"{tag} {steps} training steps")
+    check(counts == [steps + evals, 9 * (steps + evals), steps, 9 * steps],
+          f"{tag} training launches {counts}")
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"{tag} training loss {losses}")
+    del task
+    return serve, counts
+
+
+def phase_alternet_v1_50():
+    """[alternet_v1_50]: the serving CLI at --img_size 112 (fr_tpu's
+    default 192 does not build, ROADMAP §3; no attention kernel: its
+    products are torch.matmul) and the golden. bf16 is held at cosine 0.97:
+    fr_tpu's own bf16 embeddings of the golden's weights sit at 0.979-0.982
+    of its f32 ones (on the CPU; the unnormalised q·k softmax of the local
+    attention is sharp at these weights)."""
+    tag = "[alternet_v1_50]"
+    _retired_serving("AlterNetV1_50", tag, [], [],
+                     extra=("--img_size", "112"))
+    _retired_golden("AlterNetV1_50", tag, bf16_cos=0.97)
+
+
+def phase_dw_taps():
+    """[dw_taps]: EffiAlter_m at full width on the golden's seeded weights,
+    f32 with TF32 off, eval mode: conf.dw_taps (DepthwiseTaps) against the
+    depthwise conv, the same state dict; embeddings max-abs ≤ 1e-5."""
+    import numpy as np
+    import torch
+    from fr_tpu_torch.configs.base import Config
+    from fr_tpu_torch.models import build_encoder
+    from fr_tpu_torch.models.effialternet import DepthwiseTaps
+    from fr_tpu_torch.utils.golden import golden_images, seeded_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = int(np.load(ROOT / "tests" / "data" /
+                       "effialter_m_golden.npz")["seed"])
+    x = torch.from_numpy(golden_images(seed, img_size=112)).cuda()
+    outs, sd = {}, None
+    for taps in (False, True):
+        model = build_encoder(Config(network="EffiAlter_m", img_size=112,
+                                     emd_size=512, dw_taps=taps))
+        sd = sd or seeded_state_dict(model, seed)
+        model.load_state_dict(sd, strict=True)
+        n_taps = sum(isinstance(m, DepthwiseTaps) for m in model.modules())
+        check((n_taps > 0) == taps, f"[dw_taps] {n_taps} DepthwiseTaps with "
+              f"dw_taps={taps}")
+        with torch.no_grad():
+            outs[taps] = model.cuda().eval()(x)
+        del model
+    err = (outs[True] - outs[False]).abs().max().item()
+    print(f"[dw_taps] EffiAlter_m f32 (TF32 off), 4 images: DepthwiseTaps "
+          f"against the depthwise conv, max-abs {err:.3e} (tol 1e-5)")
+    check(bool(torch.isfinite(outs[True]).all()) and err <= 1e-5,
+          f"[dw_taps] error {err}")
+
+
+def _variant_entries(errs, times, launches):
+    """The JSON entries of rows 15-18. Times: rows 15/16 one Swin50 encoder
+    call's grouped sites (4 at s3, 10 at s4), rows 17/18 one AlterNet50
+    encoder call or step (12 sites, 3-4 of them masked), bf16."""
+    import torch
+    var = "fused_window_attn_variants.py"
+    bf = torch.bfloat16
+    g = times["grouped"]
+    out = []
+    for kind, line, row in (("fwd", 462, 15), ("bwd", 500, 16)):
+        mix = {k: sum(g[name][k] * sites
+                      for name, *_, sites in GROUPED_SHAPES)
+               for k in (kind, f"{kind}_plain", f"{kind}_lib")}
+        bounds = [(_attn_bound_ms(bw, 49, heads * 32, heads, bf, kind, 0),
+                   sites) for _, bw, heads, _, sites in GROUPED_SHAPES]
+        bound = (sum(b[0] * sites for b, sites in bounds), bounds[-1][0][1])
+        out.append(_entry(f"window_attn_{kind} (grouped route, row {row})",
+                          f"window_attn_{kind}.cu", f"{var}:{line}",
+                          launches["grouped"][kind], errs["grouped"][kind],
+                          mix[kind], mix[f"{kind}_plain"], bound,
+                          mix[f"{kind}_lib"]))
+    for key, src, cases in (
+            ("spatial", "window_attn_spatial.cu", ((247, "fwd"),
+                                                   (289, "bwd"))),
+            ("qkv", "window_attn_qkv.cu", ((678, "fwd"), (754, "bwd")))):
+        t = times[key]
+        for line, kind in cases:
+            mix = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+            by = "bytes"
+            for name, bw, n, heads, res, ws, n_unmasked, n_masked in SHAPES:
+                for masked, count in ((False, n_unmasked), (True, n_masked)):
+                    tt = t[(name, masked)]
+                    mix["ms"] += count * tt[kind]
+                    mix["plain"] += count * tt[f"{kind}_plain"]
+                    mix["lib"] += count * tt[f"{kind}_lib"]
+                    b, by = _variant_bound(
+                        f"{key}_{kind}", bw, n, heads * 32, heads, bf,
+                        (res // ws) ** 2 if masked else 0)
+                    mix["bound"] += count * b
+            count = {("spatial", "fwd"): launches["spatial"][0],
+                     ("spatial", "bwd"): launches["spatial"][1],
+                     ("qkv", "fwd"): launches["entry_fused"][0],
+                     ("qkv", "bwd"): launches["entry_fused_allkernel"][1]}[
+                         (key, kind)]
+            out.append(_entry(f"window_attn_{key}_{kind}", src,
+                              f"{var}:{line}", count, errs[key][kind],
+                              mix["ms"], mix["plain"], (mix["bound"], by),
+                              mix["lib"]))
+    return out
+
+
 HEAD_RANGE = "pfc_head:"   # train/step.py's record_function ranges
 
 
@@ -1803,7 +2621,8 @@ def phase_profile(network, warmup: int = 3, steps: int = 5, conf=None):
 
 def _family(name):
     n = name.lower()
-    for fam, keys in (("port attention kernels", ("window_attn", "window_sum")),
+    for fam, keys in (("port attention kernels", ("window_attn", "window_sum",
+                                                  "proj_grad_gemm")),
                       ("port margin-CE kernels", ("margin_ce",)),
                       ("port sparse-row kernels", ("grouped_gather_kernel",
                                                    "grouped_sgd_kernel",
@@ -1887,7 +2706,7 @@ def main() -> None:
     import torch
     check(torch.cuda.is_available(), "torch finds no CUDA device")
     for path in (GOLDEN, TRAIN_GOLDEN, SWIN_TRAIN_GOLDEN, *NET_GOLDENS,
-                 R100_GOLDEN, R100_TRAIN_GOLDEN):
+                 R100_GOLDEN, R100_TRAIN_GOLDEN, *VARIANT_GOLDENS.values()):
         check(path.is_file(), f"{path} is missing: run from a checkout of "
               f"the repository")
     import fr_tpu_torch  # noqa: F401  (fails outside a checkout)
@@ -1902,6 +2721,7 @@ def main() -> None:
     worst_ph_f, worst_ph_b, times_ph = phase_kernel_perhead()
     worst_st_f, worst_st_b, times_st = phase_kernel_stats()
     worst_rows, times_rows, bounds_rows = phase_kernel_sparse_rows()
+    errs_v, times_v, launches_grouped = phase_kernel_variants()
     # each main path runs with its counts set to 0 just before it
     launches_fwd, _ = phase_main_path()
     phase_throughput()
@@ -1910,6 +2730,7 @@ def main() -> None:
     launches_ce = phase_train_full_head()
     phase_train_golden()
     packed_stats = phase_stats_switch("AlterNet50")
+    launches_routes, _ = phase_alternet50_routes()
     perhead = {"fwd": 0, "bwd": 0}
     perhead_stats = [0, 0]
     for network in ("Swin50", "EffiAlter_m"):
@@ -1918,6 +2739,9 @@ def main() -> None:
         perhead["bwd"] += counts["train_bwd"]
         perhead_stats = [a + b for a, b in zip(perhead_stats, stats)]
     phase_swin50_train_golden()
+    phase_alternet_sep50()
+    phase_alternet_v1_50()
+    phase_dw_taps()
     phase_resnet100()
     launches_rows, launches_ce_webface = phase_webface42m()
     phase_resnet100_train_golden()
@@ -1978,6 +2802,8 @@ def main() -> None:
                               f"sparse_rows.py:{line}", count,
                               worst_rows[name], ms, plain_ms,
                               bounds_rows[name], lib))
+    kernels += _variant_entries(errs_v, times_v,
+                                dict(launches_routes, grouped=launches_grouped))
     check(all(c > 0 for c in launches_ce_webface),
           f"[webface42m] margin-CE launches {launches_ce_webface}")
     for k in kernels:

@@ -7,8 +7,10 @@ ported path becomes a hand-written CUDA C++ kernel for sm_90a under
 ``csrc/``, built at first use by ``ops/_build.py``; beside each kernel sits
 its plain PyTorch version, which CPU tensors take.
 
-Ported so far, for IR-ResNet, AlterNet50, Swin and EffiAlterNet at their
-reference widths: the serving path (``--mode test``: encoder in eval mode,
+Ported so far, for every encoder of fr_tpu (IR-ResNet, AlterNet,
+AlterNetSep, AlterNetV1, Swin, EffiAlterNet) at its reference widths, and
+with every one of fr_tpu's eighteen TPU kernels, its opt-in attention
+variants included: the serving path (``--mode test``: encoder in eval mode,
 L2-normalised embeddings, pair scores and the 100001-bin ROC report) and
 the one-GPU training path (``--mode train``: augmentation, the PartialFC
 margin-softmax head with per-row or block-aligned negative sampling,

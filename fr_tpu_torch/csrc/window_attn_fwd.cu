@@ -40,7 +40,7 @@ extern "C" int window_attn_fwd(const void* qkv, const void* scale,
   return window_attn_fwd_entry<false>(qkv, scale, bias16, mask, out, nullptr,
                                       n_windows, N, C, num_heads,
                                       n_win_per_img, in_dtype, out_dtype,
-                                      threads, stream);
+                                      threads, WindowRows{N}, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

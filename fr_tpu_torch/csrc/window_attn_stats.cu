@@ -256,7 +256,7 @@ extern "C" int window_attn_fwd_stats(const void* qkv, const void* scale,
   return window_attn_fwd_entry<true>(qkv, scale, bias16, mask, out, p,
                                      n_windows, N, C, num_heads,
                                      n_win_per_img, in_dtype, out_dtype,
-                                     threads, stream);
+                                     threads, WindowRows{N}, stream);
 }
 
 // dtype code: 0 = float32, 1 = bfloat16, for qkv, g and dqkv alike. p is

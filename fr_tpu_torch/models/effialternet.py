@@ -18,9 +18,15 @@
 
 Module names follow the reference (features.{k}.conv.{i}, .conv.6.fc.{0,2},
 .attn, .chnnel_processing.qv / .temperature, .norm2, .norm3, .attn_mask,
-fc, bn), which fr_tpu/utils/torch_export.py:256-344 also writes. fr_tpu's
-``DepthwiseTaps`` (conf.dw_taps, a measured negative on the TPU) is not
-ported: asking for it raises.
+fc, bn), which fr_tpu/utils/torch_export.py:256-344 also writes.
+
+conf.dw_taps swaps each SE MBConv's depthwise 3×3 conv for fr_tpu's
+``DepthwiseTaps`` (effialternet.py:89-127): the same function as 9 shifted
+multiply-adds in the compute dtype, under the same parameter name
+(conv.3.weight), so weights cross unchanged. It is a measured negative on
+the TPU and off by default there and here. A FANSwinBlock whose (window,
+dim) is in swin_common.SPATIAL_KERNEL_CONFIGS hands its map whole to the
+attention (fr_tpu effialternet.py:260).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from fr_tpu_torch.models.common import BatchNorm1d, BatchNorm2d, Conv
 from fr_tpu_torch.models.swin_common import (DropPath, WindowAttention,
                                              adaptive_avg_pool,
                                              shifted_window_mask,
+                                             use_spatial_attention,
                                              window_partition, window_reverse)
 
 INIT_STD = 0.02
@@ -53,6 +60,34 @@ def _make_divisible(v, divisor=8, min_value=None):
 class EConv(Conv):
     """Bias-free conv with the family's truncated-normal init."""
     init_std = INIT_STD
+
+
+class DepthwiseTaps(EConv):
+    """fr_tpu's DepthwiseTaps: the depthwise 3×3 conv (padding 1, any
+    stride) as 9 shifted multiply-adds, each product and each sum in the
+    compute dtype, in fr_tpu's tap order. Its weight is the EConv's it
+    replaces, (C, 1, 3, 3)."""
+
+    def __init__(self, channels: int, stride: int = 1,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(channels, channels, 3, stride, compute_dtype,
+                         groups=channels)
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        s = self.stride[0]
+        H, W = x.shape[2:]
+        oh, ow = (H - 1) // s + 1, (W - 1) // s + 1
+        xp = F.pad(x.to(cd), (1, 1, 1, 1))
+        k = self.weight.to(cd)
+        acc = None
+        for a in range(3):
+            for b in range(3):
+                term = (xp[:, :, a:a + (oh - 1) * s + 1:s,
+                           b:b + (ow - 1) * s + 1:s]
+                        * k[:, 0, a, b][None, :, None, None])
+                acc = term if acc is None else acc + term
+        return acc
 
 
 class _TruncLinear(nn.Linear):
@@ -80,7 +115,8 @@ class MBConv(nn.Module):
     indices (the SiLUs at 2 and 5 hold no weights)."""
 
     def __init__(self, inp: int, oup: int, stride: int, expand_ratio: int,
-                 use_se: bool, compute_dtype: torch.dtype = torch.float32):
+                 use_se: bool, compute_dtype: torch.dtype = torch.float32,
+                 dw_taps: bool = False):
         super().__init__()
         hidden = round(inp * expand_ratio)
         self.identity = stride == 1 and inp == oup
@@ -88,6 +124,7 @@ class MBConv(nn.Module):
         if use_se:
             self.conv = nn.Sequential(
                 EConv(inp, hidden, 1, 1, cd), BatchNorm2d(hidden), nn.SiLU(),
+                DepthwiseTaps(hidden, stride, cd) if dw_taps else
                 EConv(hidden, hidden, 3, stride, cd, groups=hidden),
                 BatchNorm2d(hidden), nn.SiLU(), SELayer(inp, hidden),
                 EConv(hidden, oup, 1, 1, cd), BatchNorm2d(oup))
@@ -141,6 +178,7 @@ class FANSwinBlock(nn.Module):
                  shift: int = 0, drop_path: float = 0.1,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dim = dim
         self.shift = shift
         self.attn = WindowAttention(dim, (WINDOW, WINDOW), heads,
                                     compute_dtype)
@@ -169,8 +207,11 @@ class FANSwinBlock(nn.Module):
             # resolution, which differs from it at some image sizes
             mask = torch.from_numpy(shifted_window_mask(H, W, WINDOW, s)).to(
                 x.device)
-        attn = self.attn(window_partition(xh, WINDOW), mask)
-        xh = window_reverse(attn, WINDOW, H, W)
+        if use_spatial_attention(WINDOW, self.dim):
+            xh = self.attn(xh, mask)
+        else:
+            attn = self.attn(window_partition(xh, WINDOW), mask)
+            xh = window_reverse(attn, WINDOW, H, W)
         if s > 0:
             xh = torch.roll(xh, (s, s), dims=(1, 2))
         x = x + self.drop_path(self.norm2(xh.permute(0, 3, 1, 2)), generator)
@@ -208,7 +249,8 @@ class EffNetV2(nn.Module):
 
     def __init__(self, cfgs: Sequence[Sequence[int]], img_size: int = 112,
                  emd_size: int = 512,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 dw_taps: bool = False):
         super().__init__()
         cd = self.compute_dtype = compute_dtype
         in_ch = _make_divisible(24, 8)
@@ -217,11 +259,12 @@ class EffNetV2(nn.Module):
         for (t, c, _, s, use_se, _, heads), res, seq in stage_plan(
                 cfgs, img_size):
             out_ch = _make_divisible(c, 8)
-            feats.append(MBConv(in_ch, out_ch, s, t, bool(use_se), cd))
+            feats.append(MBConv(in_ch, out_ch, s, t, bool(use_se), cd,
+                                dw_taps))
             for is_alt in seq:
                 if not is_alt:
                     feats.append(MBConv(out_ch, out_ch, 1, t, bool(use_se),
-                                        cd))
+                                        cd, dw_taps))
                     continue
                 feats.append(FANSwinBlock(out_ch, heads, res,
                                           compute_dtype=cd))
@@ -273,11 +316,8 @@ EFFIALTER_CFGS = {
 
 
 def build_effialternet(conf) -> EffNetV2:
-    if conf.get("dw_taps", False):
-        raise NotImplementedError(
-            "conf.dw_taps (fr_tpu's DepthwiseTaps, a measured negative on "
-            "the TPU) is not ported: ROADMAP §1, slice 6 (retired variants)")
     dtype = torch.bfloat16 if conf.get("mixed_precision", False) \
         else torch.float32
     return EffNetV2(EFFIALTER_CFGS[conf.network], img_size=conf.img_size,
-                    emd_size=conf.emd_size, compute_dtype=dtype)
+                    emd_size=conf.emd_size, compute_dtype=dtype,
+                    dw_taps=bool(conf.get("dw_taps", False)))

@@ -11,9 +11,16 @@ as fr_tpu's ``_fused_call`` routes it: ``ops.fused_window_attention_packed``
 when heads·N ≤ 288 (the AlterNet shapes), ``ops.fused_window_attention``
 (the per-head entry) otherwise (the Swin and EffiAlterNet N=49 shapes).
 Under autograd each takes the recompute arm, or the stored-stats arm when
-``attention_stats_inmodel()`` (FR_ATTN_STORED_STATS=1). fr_tpu's spatial
-and entry-fused variants are off by default there (SPATIAL_KERNEL_CONFIGS
-is empty, entry_fused=False) and are not ported.
+``attention_stats_inmodel()`` (FR_ATTN_STORED_STATS=1).
+
+fr_tpu's two opt-in variants (ops/fused_window_attn_variants.py), routed as
+fr_tpu's ``WindowAttention.__call__`` routes them:
+- rank-4 (B, H, W, C) input: the spatial kernel when (window, dim) is in
+  ``SPATIAL_KERNEL_CONFIGS`` (empty by default, as in fr_tpu; the blocks
+  ask ``use_spatial_attention`` and then pass their map whole), else the
+  window partition, the windows API and the reverse around it;
+- ``entry_fused = True`` on a module (a class attribute, False by
+  default): the entry-fused kernel, on packed shapes with rank-3 input.
 """
 
 from __future__ import annotations
@@ -29,6 +36,19 @@ import torch.nn.functional as F
 
 from fr_tpu_torch.ops.fused_window_attn import (
     fused_window_attention, fused_window_attention_packed)
+from fr_tpu_torch.ops.fused_window_attn_variants import (
+    fused_window_attention_packed_qkv, fused_window_attention_spatial)
+
+# (window, dim) pairs routed to the spatial kernel; empty, as in fr_tpu
+# (swin_common.py:38). Read at every call, so a caller may set it.
+SPATIAL_KERNEL_CONFIGS = frozenset()
+
+
+def use_spatial_attention(window: int, dim: int) -> bool:
+    """Whether a block hands its (B, H, W, C) map whole to WindowAttention
+    (fr_tpu's ``use_spatial_attention``; the port's attention is always
+    the fused one)."""
+    return (window, dim) in SPATIAL_KERNEL_CONFIGS
 
 # fr_tpu's routing rule between its two attention entries: heads·N ≤ 288
 # goes to the packed entry (every AlterNet shape), wider to the per-head
@@ -105,13 +125,19 @@ def shifted_window_mask(H: int, W: int, ws: int, shift: int) -> np.ndarray:
 
 class WindowAttention(nn.Module):
     """SwinV2 cosine window attention over pre-partitioned windows
-    (B·nW, N, C). Parameter and buffer names are the reference's."""
+    (B·nW, N, C), or over a (B, H, W, C) map (rolled for SW-MSA by the
+    caller). Parameter and buffer names are the reference's.
+    ``entry_fused`` (False) puts the qkv projection inside the attention
+    kernel on packed shapes."""
+
+    entry_fused = False
 
     def __init__(self, dim: int, window: Tuple[int, int], num_heads: int,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         assert dim % num_heads == 0
         self.num_heads = num_heads
+        self.window = tuple(window)
         self.compute_dtype = compute_dtype
         self.qkv = nn.Linear(dim, 3 * dim, bias=False)
         self.q_bias = nn.Parameter(torch.zeros(dim))
@@ -128,24 +154,50 @@ class WindowAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
-        B_, N, C = x.shape
         h = self.num_heads
         cd = self.compute_dtype
+        C = x.shape[-1]
+        ws = self.window[0]
+        N = ws * ws
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                           self.v_bias])
-        qkv = F.linear(x.to(cd), self.qkv.weight.to(cd)) + bias.to(cd)
-
         scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(100.0)))
+        scale = scale.reshape(h)
         table = self.cpb_mlp(self.relative_coords_table).reshape(-1, h)
         rel = table[self.relative_position_index.reshape(-1)]
         bias16 = 16.0 * torch.sigmoid(rel.reshape(N, N, h).permute(2, 0, 1))
+        bias16 = bias16.contiguous()
 
+        hg = pick_head_group(h, N)
+        if x.dim() == 3 and self.entry_fused and hg:
+            out = fused_window_attention_packed_qkv(
+                x.to(cd), self.qkv.weight, bias, scale, bias16, h,
+                mask.shape[0] if mask is not None else 1, mask, out_dtype=cd,
+                head_group=hg)
+        else:
+            qkv = F.linear(x.to(cd), self.qkv.weight.to(cd)) + bias.to(cd)
+            if x.dim() == 4 and (ws, C) in SPATIAL_KERNEL_CONFIGS:
+                out = fused_window_attention_spatial(qkv, scale, bias16, h,
+                                                     ws, mask).to(cd)
+            elif x.dim() == 4:
+                # an unlisted (window, dim): windows outside, the windows
+                # API inside
+                H, W = x.shape[1], x.shape[2]
+                out = window_reverse(self._fused_call(
+                    window_partition(qkv, ws), scale, bias16, mask), ws, H, W)
+            else:
+                out = self._fused_call(qkv, scale, bias16, mask)
+        return F.linear(out, self.proj.weight.to(cd)) + self.proj.bias.to(cd)
+
+    def _fused_call(self, qkv, scale, bias16, mask):
+        """The packed or the per-head entry on windows (B·nW, N, 3C)."""
+        h, N = self.num_heads, qkv.shape[1]
         nW = mask.shape[0] if mask is not None else 1
         entry = (fused_window_attention_packed if pick_head_group(h, N)
                  else fused_window_attention)
-        out = entry(qkv, scale.reshape(h), bias16.contiguous(), h, nW, mask,
-                    out_dtype=cd, stored_stats=attention_stats_inmodel())
-        return F.linear(out, self.proj.weight.to(cd)) + self.proj.bias.to(cd)
+        return entry(qkv, scale, bias16, h, nW, mask,
+                     out_dtype=self.compute_dtype,
+                     stored_stats=attention_stats_inmodel())
 
 
 def attention_stats_inmodel() -> bool:

@@ -7,7 +7,9 @@ k2/s2 conv, each block W-MSA + BN residual then a 1×1-conv GELU MLP (ratio
 Dense(emd·49 → emd) → BN1d. Module names follow the reference
 (layer{s}.{k} with the downsampling conv at k = 0, .attn, .mlp.fc1,
 .mlp.fc2, .norm2, .norm3, bn2, fc, bn3), which
-fr_tpu/utils/torch_export.py:208-253 also writes.
+fr_tpu/utils/torch_export.py:208-253 also writes. A block whose (window,
+dim) is in swin_common.SPATIAL_KERNEL_CONFIGS hands its map whole to the
+attention (fr_tpu swinv2.py:45).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from fr_tpu_torch.models.common import (BatchNorm1d, BatchNorm2d, Conv, Dense,
                                         dropout, max_pool_3x3_s2)
 from fr_tpu_torch.models.swin_common import (DropPath, WindowAttention,
                                              adaptive_avg_pool,
+                                             use_spatial_attention,
                                              window_partition, window_reverse)
 
 WINDOW = 7
@@ -46,6 +49,7 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, heads: int, drop_path: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dim = dim
         self.attn = WindowAttention(dim, (WINDOW, WINDOW), heads,
                                     compute_dtype)
         self.norm2 = BatchNorm2d(dim)
@@ -56,8 +60,12 @@ class SwinBlock(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         """x: NCHW (channels_last memory) → same."""
         H, W = x.shape[2], x.shape[3]
-        attn = self.attn(window_partition(x.permute(0, 2, 3, 1), WINDOW))
-        out = window_reverse(attn, WINDOW, H, W).permute(0, 3, 1, 2)
+        xh = x.permute(0, 2, 3, 1)
+        if use_spatial_attention(WINDOW, self.dim):
+            out = self.attn(xh).permute(0, 3, 1, 2)
+        else:
+            attn = self.attn(window_partition(xh, WINDOW))
+            out = window_reverse(attn, WINDOW, H, W).permute(0, 3, 1, 2)
         x = x + self.drop_path(self.norm2(out), generator)
         return x + self.drop_path(self.norm3(self.mlp(x)), generator)
 

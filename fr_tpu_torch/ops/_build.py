@@ -23,8 +23,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("window_attn_fwd.cu", "window_attn_bwd.cu", "window_attn_stats.cu",
-           "margin_ce.cu", "sparse_rows.cu")
-HEADERS = ("window_attn_common.cuh",)   # included by the sources; hashed too
+           "window_attn_spatial.cu", "window_attn_qkv.cu", "margin_ce.cu",
+           "sparse_rows.cu")
+# included by the sources; hashed too
+HEADERS = ("window_attn_common.cuh", "window_attn_bwd.cuh")
 # -Xptxas -v writes each kernel's registers, shared memory and spills to
 # the build log next to the library.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -118,6 +120,15 @@ def load_library() -> ctypes.CDLL:
                                   i32, i32, i32, i32, vp],
         "window_attn_bwd_stats": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
                                   i32, i32, i32, vp],
+        "window_attn_spatial_fwd": [vp, vp, vp, vp, vp, i64, i32, i32, i32,
+                                    i32, i32, i32, i32, i32, vp],
+        "window_attn_spatial_bwd": [vp, vp, vp, vp, vp, vp, vp, vp, i64, i32,
+                                    i32, i32, i32, i32, i32, i32, vp],
+        "window_attn_qkv_fwd": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
+                                i32, i32, i32, i32, i32, vp],
+        "window_attn_qkv_bwd": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                vp, vp, i64, i32, i32, i32, i32, i32, i32,
+                                i32, vp],
         "margin_ce_stats": [vp, vp, vp, vp, i32, i32, i32, i32, *margin, i32,
                             vp, vp, vp, vp, vp],
         "margin_ce_grad_emb": [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,

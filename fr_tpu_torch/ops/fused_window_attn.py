@@ -37,14 +37,24 @@ plain versions; a CUDA tensor launches the kernels or raises.
 
 Kernel launches are counted per entry and per kernel (ROADMAP §2 rows):
 
-    row 1  fused_window_attention_packed.launches
-    row 2  window_attention_backward.launches
-    row 3  fused_window_attention_packed.stats_launches
-    row 4  fused_window_attention_packed.stats_backward_launches
-    row 5  fused_window_attention.launches
-    row 6  fused_window_attention.backward_launches
-    row 7  fused_window_attention.stats_launches
-    row 8  fused_window_attention.stats_backward_launches
+    row 1   fused_window_attention_packed.launches
+    row 2   window_attention_backward.launches
+    row 3   fused_window_attention_packed.stats_launches
+    row 4   fused_window_attention_packed.stats_backward_launches
+    row 5   fused_window_attention.launches
+    row 6   fused_window_attention.backward_launches
+    row 7   fused_window_attention.stats_launches
+    row 8   fused_window_attention.stats_backward_launches
+    row 15  fused_window_attention_packed.grouped_launches
+    row 16  fused_window_attention_packed.grouped_backward_launches
+
+Rows 15/16 are fr_tpu's grid-axis head grouping (``_pkg_fwd``/``_pkg_bwd``
+of fused_window_attn_variants.py), which its packed entry takes when the
+caller passes a head_group with ``_pkg_use``: more than one group and 128-
+aligned group channels. The port computes the same per-head function at
+every grouping, so the row-1 forward and row-2 backward kernels serve them;
+only the counters and the arm differ (the grouped route never stores p, as
+fr_tpu's ``_pk_fwd_rule`` switches the stats arm off there).
 
 Direct calls of the wrappers outside the entries count on the wrappers'
 own ``launches``: window_attention_backward (also the packed entry's row
@@ -136,7 +146,8 @@ def window_attention_forward_stats_reference(
 
 def _grad_products(qkv, scale, p, g, num_heads):
     """The backward's products once p is known (``_bwd_jnp`` and
-    ``_bwd_body_stats`` alike): dv, ds and the normalised-q/k gradients."""
+    ``_bwd_body_stats`` alike): dqkv in f32 (before fr_tpu rounds it to the
+    compute dtype), ds and the row sums of dq̂∘q̂."""
     W, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // num_heads
@@ -157,7 +168,7 @@ def _grad_products(qkv, scale, p, g, num_heads):
     dk = kr * (dkn - torch.where(
         ka, kn * torch.sum(dkn * kn, dim=-1, keepdim=True), 0.0))
     dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(W, N, C3)
-    return dqkv.to(cd), ds, rs_q
+    return dqkv, ds, rs_q
 
 
 def window_attention_backward_reference(
@@ -171,7 +182,8 @@ def window_attention_backward_reference(
     = Σ ds, both summed over the windows."""
     p, s_raw = _softmax_probs(qkv, scale, bias16, num_heads, mask)
     dqkv, ds, _ = _grad_products(qkv, scale, p, g, num_heads)
-    return dqkv, torch.sum(ds * s_raw, dim=(0, 2, 3)), torch.sum(ds, dim=0)
+    return (dqkv.to(qkv.dtype), torch.sum(ds * s_raw, dim=(0, 2, 3)),
+            torch.sum(ds, dim=0))
 
 
 def window_attention_backward_stats_reference(
@@ -182,7 +194,8 @@ def window_attention_backward_stats_reference(
     the mask are not read. dscale comes from fr_tpu's identity
     Σ ds·s_raw = Σ (dq̂·q̂)/scale_h (fused_window_attn.py:595-602)."""
     dqkv, ds, rs_q = _grad_products(qkv, scale, p, g, num_heads)
-    return dqkv, torch.sum(rs_q, dim=(0, 2, 3)) / scale, torch.sum(ds, dim=0)
+    return (dqkv.to(qkv.dtype), torch.sum(rs_q, dim=(0, 2, 3)) / scale,
+            torch.sum(ds, dim=0))
 
 
 def _device(qkv: torch.Tensor) -> str:
@@ -295,46 +308,42 @@ def stored_stats_arm(stored_stats: bool) -> bool:
 
 
 class _WindowAttention(torch.autograd.Function):
-    """fr_tpu's custom_vjp of both entries. ``entry`` is the entry function
-    whose counters the launches go to (its forward and recompute-backward
-    counters; the packed entry's recompute backward counts on
-    window_attention_backward). The recompute arm saves the inputs, the
-    stored-stats arm saves p instead of bias16 and the mask."""
+    """fr_tpu's custom_vjp of both entries. ``counters`` names the
+    (function, attribute) each kernel's launches go to: forward, recompute
+    backward, stats forward, stats backward. The recompute arm saves the
+    inputs, the stored-stats arm saves p instead of bias16 and the mask."""
 
     @staticmethod
     def forward(ctx, qkv, scale, bias16, mask, num_heads, n_win_per_img,
-                out_dtype, entry, stats):
+                out_dtype, counters, stats):
         ctx.num_heads = num_heads
         ctx.n_win_per_img = n_win_per_img
-        ctx.entry = entry
+        ctx.counters = counters
         ctx.stats = stats
         if stats:
             out, p = _forward_stats(qkv, scale, bias16, num_heads,
                                     n_win_per_img, mask, out_dtype,
-                                    (entry, "stats_launches"))
+                                    counters[2])
             ctx.save_for_backward(qkv, scale, p)
             return out
         ctx.save_for_backward(qkv, scale, bias16, mask)
         return _forward(qkv, scale, bias16, num_heads, n_win_per_img, mask,
-                        out_dtype, (entry, "launches"))
+                        out_dtype, counters[0])
 
     @staticmethod
     def backward(ctx, g):
         if ctx.stats:
             qkv, scale, p = ctx.saved_tensors
             grads = _backward_stats(qkv, scale, p, g, ctx.num_heads,
-                                    (ctx.entry, "stats_backward_launches"))
+                                    ctx.counters[3])
         else:
             qkv, scale, bias16, mask = ctx.saved_tensors
-            counter = ((window_attention_backward, "launches")
-                       if ctx.entry is fused_window_attention_packed
-                       else (ctx.entry, "backward_launches"))
             grads = _backward(qkv, scale, bias16, g, ctx.num_heads,
-                              ctx.n_win_per_img, mask, counter)
+                              ctx.n_win_per_img, mask, ctx.counters[1])
         return (*grads, None, None, None, None, None, None)
 
 
-def _entry(entry, qkv, scale, bias16, num_heads, n_win_per_img, mask,
+def _entry(counters, qkv, scale, bias16, num_heads, n_win_per_img, mask,
            out_dtype, stored_stats):
     out_dtype = out_dtype or torch.float32
     if mask is not None and mask.shape[0] != n_win_per_img:
@@ -343,10 +352,29 @@ def _entry(entry, qkv, scale, bias16, num_heads, n_win_per_img, mask,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (qkv, scale, bias16)):
         return _WindowAttention.apply(qkv, scale, bias16, mask, num_heads,
-                                      n_win_per_img, out_dtype, entry,
-                                      stored_stats_arm(stored_stats))
+                                      n_win_per_img, out_dtype, counters,
+                                      stored_stats)
     return _forward(qkv, scale, bias16, num_heads, n_win_per_img, mask,
-                    out_dtype, (entry, "launches"))
+                    out_dtype, counters[0])
+
+
+def checked_head_group(num_heads: int, head_group: int) -> int:
+    """fr_tpu's head group: head_group, or all heads for 0; it must divide
+    the heads, as fr_tpu asserts."""
+    hg = head_group or num_heads
+    if hg <= 0 or num_heads % hg:
+        raise ValueError(f"head_group {head_group} does not divide "
+                         f"{num_heads} heads")
+    return hg
+
+
+def grouped_route(num_heads: int, head_group: int, C: int) -> bool:
+    """fr_tpu's ``_pkg_use(ng, Cg)`` (fused_window_attn.py:1455): the
+    packed entry takes the grid-axis grouped kernels (rows 15/16) when the
+    head_group splits the heads into more than one group of 128-aligned
+    channels. head_group 0 means all heads, the full pack."""
+    ng = num_heads // checked_head_group(num_heads, head_group)
+    return ng > 1 and (C // ng) % 128 == 0
 
 
 def fused_window_attention_packed(qkv: torch.Tensor, scale: torch.Tensor,
@@ -354,8 +382,8 @@ def fused_window_attention_packed(qkv: torch.Tensor, scale: torch.Tensor,
                                   n_win_per_img: int,
                                   mask: Optional[torch.Tensor] = None,
                                   out_dtype: Optional[torch.dtype] = None,
-                                  stored_stats: bool = True
-                                  ) -> torch.Tensor:
+                                  stored_stats: bool = True,
+                                  head_group: int = 0) -> torch.Tensor:
     """fr_tpu's packed-entry contract: qkv (B·nW, N, 3C) compute-dtype →
     (B·nW, N, C) out_dtype (default f32); scale (h,), bias16 (h, N, N) and
     mask (n_win_per_img, N, N) f32, the mask indexed by window mod nW.
@@ -363,17 +391,34 @@ def fused_window_attention_packed(qkv: torch.Tensor, scale: torch.Tensor,
 
     stored_stats (default True, as fr_tpu's op; the model passes its own
     choice) picks the stored-stats arm under autograd; FR_ATTN_STORED_STATS
-    overrides it. A CPU tensor takes the plain versions. A CUDA tensor
+    overrides it. head_group (0 = all heads) is fr_tpu's: it must divide
+    the heads, and where ``grouped_route`` holds the call is fr_tpu's
+    grid-axis grouped route (rows 15/16), which counts on
+    ``grouped_launches``/``grouped_backward_launches`` and never takes the
+    stats arm. A CPU tensor takes the plain versions. A CUDA tensor
     launches the Hopper kernels, or raises; there is no fallback. fr_tpu's
-    TPU tiling arguments (block_rows, interpret, head_group) have no
-    counterpart here."""
-    return _entry(fused_window_attention_packed, qkv, scale, bias16,
-                  num_heads, n_win_per_img, mask, out_dtype, stored_stats)
+    TPU tiling arguments (block_rows, interpret) have no counterpart
+    here."""
+    entry = fused_window_attention_packed
+    if grouped_route(num_heads, head_group, qkv.shape[-1] // 3):
+        counters = ((entry, "grouped_launches"),
+                    (entry, "grouped_backward_launches"), None, None)
+        stats = False
+    else:
+        counters = ((entry, "launches"), (window_attention_backward,
+                                          "launches"),
+                    (entry, "stats_launches"),
+                    (entry, "stats_backward_launches"))
+        stats = stored_stats_arm(stored_stats)
+    return _entry(counters, qkv, scale, bias16, num_heads, n_win_per_img,
+                  mask, out_dtype, stats)
 
 
 fused_window_attention_packed.launches = 0
 fused_window_attention_packed.stats_launches = 0
 fused_window_attention_packed.stats_backward_launches = 0
+fused_window_attention_packed.grouped_launches = 0
+fused_window_attention_packed.grouped_backward_launches = 0
 
 
 def fused_window_attention(qkv: torch.Tensor, scale: torch.Tensor,
@@ -387,8 +432,12 @@ def fused_window_attention(qkv: torch.Tensor, scale: torch.Tensor,
     stored_stats default False as in fr_tpu. The same kernels serve it; its
     launches count on its own attributes (rows 5–8). fr_tpu's block_rows
     and FR_ATTN_BATCHED are TPU tiling and have no counterpart here."""
-    return _entry(fused_window_attention, qkv, scale, bias16, num_heads,
-                  n_win_per_img, mask, out_dtype, stored_stats)
+    entry = fused_window_attention
+    counters = tuple((entry, a) for a in ("launches", "backward_launches",
+                                          "stats_launches",
+                                          "stats_backward_launches"))
+    return _entry(counters, qkv, scale, bias16, num_heads, n_win_per_img,
+                  mask, out_dtype, stored_stats_arm(stored_stats))
 
 
 fused_window_attention.launches = 0
@@ -425,7 +474,14 @@ def _checked_operands(qkv, scale, bias16, num_heads, n_win_per_img, mask,
     if smem_bytes(N, hd) > smem_limit:
         raise ValueError(f"N={N}, head dim {hd} needs {smem_bytes(N, hd)} B "
                          f"of shared memory; the kernel takes ≤ {smem_limit}")
-    dev = qkv.device
+    return ((B_, N, C), qkv.contiguous(), *_checked_params(
+        qkv.device, num_heads, N, n_win_per_img, scale, bias16, mask))
+
+
+def _checked_params(dev, num_heads, N, n_win_per_img, scale, bias16, mask):
+    """Checks scale (h,), bias16 (h, N, N) and mask (n_win_per_img, N, N),
+    all f32 on dev (bias16 and mask may be None); returns them
+    contiguous."""
     expect = {"scale": (scale, (num_heads,))}
     if bias16 is not None:
         expect["bias16"] = (bias16, (num_heads, N, N))
@@ -439,8 +495,7 @@ def _checked_operands(qkv, scale, bias16, num_heads, n_win_per_img, mask,
 
     def contiguous(t):
         return t.contiguous() if t is not None else None
-    return ((B_, N, C), qkv.contiguous(), scale.contiguous(),
-            contiguous(bias16), contiguous(mask))
+    return scale.contiguous(), contiguous(bias16), contiguous(mask)
 
 
 def _stream(dev):

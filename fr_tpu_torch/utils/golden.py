@@ -14,6 +14,10 @@ tests/data/swin50_golden.npz and effialter_m_golden.npz do the same at 112
 px (``golden_encoder``; tests/test_torch_swin.py and
 tests/test_torch_effialternet.py regenerate them), and
 tests/data/resnet100_golden.npz for IR-ResNet100 (tests/test_torch_resnet100.py).
+tests/data/alternetsep50_golden.npz and alternetv1_50_golden.npz hold
+AlterNetSep50 and AlterNetV1_50 at 112 px; fr_tpu has no importer for them,
+so tests/test_torch_alternet_variants.py carries the seeded dict into
+fr_tpu's trees with the port's own weight table.
 
 tests/data/alternet50_train_golden.npz keeps fr_tpu's two SGD steps of the
 seeded AlterNet50 on ``train_golden_batches(seed)``: losses, gradient norms
@@ -73,6 +77,8 @@ def seeded_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
             arr = np.log(rng.uniform(5.0, 20.0, shape))
         elif leaf == "temperature":
             arr = rng.uniform(0.5, 1.5, shape)
+        elif leaf == "pos_embedding":
+            arr = 0.02 * rng.standard_normal(shape)
         elif leaf in ("bias", "q_bias", "v_bias"):
             arr = rng.uniform(-0.1, 0.1, shape)
         elif leaf == "weight":
@@ -92,10 +98,13 @@ def golden_images(seed: int, n: int = 4, img_size: int = 192) -> np.ndarray:
 def golden_encoder(network: str, dtype: torch.dtype = torch.float32,
                    train: bool = False) -> nn.Module:
     """The full-width port encoder of a golden: AlterNet50 at 192 px,
-    Swin50, EffiAlter_m or ResNet100 at 112 px, emd 512; ``train`` turns the
-    drop rates to 0 (AlterNet's DropPath and head dropout, Swin's head
-    dropout)."""
-    from fr_tpu_torch.models.alternet import ALTERNET_PLANS, AlterNet
+    Swin50, EffiAlter_m, ResNet100, AlterNetSep50 or AlterNetV1_50 at 112
+    px, emd 512; ``train`` turns the drop rates to 0 (AlterNet's DropPath
+    and head dropout, Swin's head dropout)."""
+    from fr_tpu_torch.models.alternet import (ALTERNET_PLANS,
+                                              ALTERNET_SEP_PLANS, AlterNet,
+                                              AlterNetSep)
+    from fr_tpu_torch.models.alternet_v1 import ALTERNET_V1_PLANS, AlterNetV1
     from fr_tpu_torch.models.effialternet import EFFIALTER_CFGS, EffNetV2
     from fr_tpu_torch.models.resnet import RESNET_LAYERS, ResNet
     from fr_tpu_torch.models.swinv2 import SWIN_PLANS, Swin
@@ -114,6 +123,13 @@ def golden_encoder(network: str, dtype: torch.dtype = torch.float32,
     if network == "ResNet100":
         return ResNet(RESNET_LAYERS[network], emd_size=512, img_size=size,
                       compute_dtype=dtype)
+    if network == "AlterNetSep50":
+        return AlterNetSep(*ALTERNET_SEP_PLANS[network], emd_size=512,
+                           compute_dtype=dtype)
+    if network == "AlterNetV1_50":
+        # 112 px: at default_img_size's 192 it does not build (ROADMAP §3)
+        return AlterNetV1(*ALTERNET_V1_PLANS[network], img_size=112,
+                          emd_size=512, compute_dtype=dtype)
     raise ValueError(f"no golden for {network}")
 
 

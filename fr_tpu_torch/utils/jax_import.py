@@ -30,7 +30,9 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fr_tpu_torch.models.alternet import ALTERNET_PLANS, alt_sequence
+from fr_tpu_torch.models.alternet import (ALTERNET_PLANS, ALTERNET_SEP_PLANS,
+                                          alt_sequence, alt_sequence_sep)
+from fr_tpu_torch.models.alternet_v1 import ALTERNET_V1_PLANS
 from fr_tpu_torch.models.effialternet import EFFIALTER_CFGS, stage_plan
 from fr_tpu_torch.models.resnet import RESNET_LAYERS
 from fr_tpu_torch.models.swinv2 import SWIN_PLANS
@@ -153,6 +155,22 @@ class _Table:
             self.conv(f"{tb}.conv.7", path + ("EConv_2",))
             self.bn(f"{tb}.conv.8", path + ("BatchNorm_2",))
 
+    def local_attention_block(self, tb: str, path: Tuple[str, ...]) -> None:
+        """AlterNetV1's AttentionBasicBlockB (identity skip). flax numbers
+        the Attention2d's convs in call order: its q Conv wrapper Conv_0,
+        the bare nn.Conv of kv Conv_1 (the two share the class name), the
+        output wrapper Conv_2."""
+        self.bn(f"{tb}.norm1", path + ("BatchNorm_0",))
+        self.conv(f"{tb}.conv", path + ("Conv_0",))
+        self.bn(f"{tb}.norm2", path + ("BatchNorm_1",))
+        la = path + ("LocalAttention_0",)
+        self.vec(f"{tb}.attn.pos_embedding", la + ("pos_embedding",))
+        a2 = la + ("Attention2d_0",)
+        self.conv(f"{tb}.attn.attn.to_q", a2 + ("Conv_0",))
+        self.entries.append(_Entry(f"{tb}.attn.attn.to_kv.weight", "params",
+                                   a2 + ("Conv_1", "kernel"), "conv"))
+        self.conv(f"{tb}.attn.attn.to_out.0", a2 + ("Conv_2",), bias=True)
+
     def head(self) -> None:
         self.bn("bn2", ("BatchNorm_1",))
         self.linear("fc", ("Dense_0", "Dense_0"), bias=True)
@@ -174,32 +192,43 @@ def _resnet_table(layers: Sequence[int]) -> _Table:
 
 
 def _alternet_table(num_blocks: Sequence[int], num_blocks2: Sequence[int],
-                    img_size: int = 192) -> _Table:
+                    img_size: int = 192, variant: str = "AlterNet") -> _Table:
     """Walks the stage plan in construction order: flax numbers modules per
-    type (BasicBlock_i, AlterSwinBlock_j), the reference per stage
-    (layer{s}.{k})."""
+    type (BasicBlock_i, AlterSwinBlock_j or AttentionBasicBlockB_j), the
+    reference per stage (layer{s}.{k}). ``variant``: "AlterNet" (W-MSA /
+    SW-MSA pairs, windows 6, 6, 6, 3), "Sep" (single unshifted window-7
+    blocks) or "V1" (AttentionBasicBlockB)."""
     t = _Table()
     t.conv("conv1", ("Conv_0",))
     t.bn("bn1", ("BatchNorm_0",))
-    basic_i = swin_i = 0
+    basic_i = attn_i = 0
     res = img_size // 4
+    placement = alt_sequence if variant == "AlterNet" else alt_sequence_sep
     for stage, (blocks, blocks2, win) in enumerate(
             zip(num_blocks, num_blocks2, (6, 6, 6, 3)), start=1):
         if stage > 1:
             res //= 2
         k = 0
         for slot, is_alt in enumerate([False]
-                                      + list(alt_sequence(blocks, blocks2))):
+                                      + list(placement(blocks, blocks2))):
             if not is_alt:
                 t.basic_block(f"layer{stage}.{k}", (f"BasicBlock_{basic_i}",),
                               downsample=stage > 1 and slot == 0)
                 basic_i += 1
                 k += 1
                 continue
-            for shift in (0, win // 2):
+            if variant == "V1":
+                t.local_attention_block(
+                    f"layer{stage}.{k}", (f"AttentionBasicBlockB_{attn_i}",))
+                attn_i += 1
+                k += 1
+                continue
+            shifts = (0,) if variant == "Sep" else (0, win // 2)
+            for shift in shifts:
                 t.attention(f"layer{stage}.{k}",
-                            (f"AlterSwinBlock_{swin_i}",), win, res, shift)
-                swin_i += 1
+                            (f"AlterSwinBlock_{attn_i}",),
+                            7 if variant == "Sep" else win, res, shift)
+                attn_i += 1
                 k += 1
     t.head()
     return t
@@ -260,20 +289,27 @@ def _effialter_table(cfgs, img_size: int = 112) -> _Table:
 def _table(network: str, img_size: Optional[int] = None,
            plan: Optional[Tuple] = None) -> _Table:
     """``plan`` overrides the named network's stage plan: ResNet layers,
-    AlterNet (num_blocks, num_blocks2), Swin num_blocks or EffiAlterNet
-    cfgs. Dispatch in fr_tpu's order."""
+    AlterNet, AlterNetSep or AlterNetV1 (num_blocks, num_blocks2), Swin
+    num_blocks or EffiAlterNet cfgs. Dispatch in fr_tpu's order."""
     if "EffiAlter" in network:
         return _effialter_table(plan or EFFIALTER_CFGS[network],
                                 img_size or 112)
-    if "AlterNet" in network and "V1" not in network and "Sep" not in network:
+    if "AlterNetV1" in network:
+        num_blocks, num_blocks2 = plan or ALTERNET_V1_PLANS[network]
+        return _alternet_table(num_blocks, num_blocks2, img_size or 112,
+                               "V1")
+    if "AlterNetSep" in network:
+        num_blocks, num_blocks2 = plan or ALTERNET_SEP_PLANS[network][:2]
+        return _alternet_table(num_blocks, num_blocks2, img_size or 112,
+                               "Sep")
+    if "AlterNet" in network:
         num_blocks, num_blocks2 = plan or ALTERNET_PLANS[network][:2]
         return _alternet_table(num_blocks, num_blocks2, img_size or 192)
     if "Swin" in network:
         return _swin_table(plan or SWIN_PLANS[network][0])
     if "ResNet" in network:
         return _resnet_table(plan or RESNET_LAYERS[network])
-    raise NotImplementedError(
-        f"weight import for {network} is not ported yet (ROADMAP §1)")
+    raise ValueError(f"Unknown network {network!r}")
 
 
 def _get(tree: Mapping, path: Tuple[str, ...]):

@@ -96,13 +96,6 @@ def test_init_follows_the_family():
     assert float(fan.chnnel_processing.qv.bias.detach().abs().max()) == 0.0
 
 
-def test_dw_taps_raises():
-    conf = Config(network="EffiAlter_m", img_size=112, emd_size=512,
-                  dw_taps=True)
-    with pytest.raises(NotImplementedError, match="dw_taps"):
-        effialternet.build_effialternet(conf)
-
-
 def test_effialter_m_port_matches_golden_f32():
     golden_check("EffiAlter_m")
 
