@@ -10,14 +10,20 @@ Phases; any failure exits non-zero and prints no result:
  3. hold every kernel against its plain PyTorch version and time both, and
     the nearest library call (F.scaled_dot_product_attention, not the same
     function): the window-attention forward and backward at the AlterNet50
-    shapes (192 px, 128 images), masked and unmasked, bf16 and f32; the
+    shapes (192 px, 128 images), masked and unmasked, bf16 and f32 (bf16
+    on the tensor-core kernels, f32 on the CUDA-core ones, each call's
+    route checked; the CUDA-core body timed on the bf16 inputs beside them;
+    the backward's sums bitwise equal over two runs); the
     three margin-softmax CE kernels at the ms1m_arcface_122 head (128 rows,
     emd 512, 26,007 sampled columns), ArcFace and CosFace, bf16 and f32,
     and at the webface42m head (205,952 columns, the labels and the column
     mask made as its step makes them);
     [kernel_perhead] the same forward and backward kernels at the Swin50
     and EffiAlter_m N=49 shapes (112 px, 128 images; head dims 32 and 38)
-    and a shift-masked one; [kernel_stats] the stored-stats forward and
+    and a shift-masked one; [kernel_plan] the tensor-core kernels' launch
+    plan (one wave of the CTAs the card holds) against two waves and a
+    fixed plan, interleaved, at four main-path shapes;
+    [kernel_stats] the stored-stats forward and
     backward at the N=49 and AlterNet50 shapes, against their plain
     versions and the recompute kernels, with bitwise repeatable sums;
  4. [main] drive the serving path once through the CLI (--mode test,
@@ -110,7 +116,11 @@ Phases; any failure exits non-zero and prints no result:
 Every kernel's launches in the JSON line are counted on its main path
 (phases 4, 6, 7, 8, 9 and 13; rows 15/16 on [kernel_variants]'s driven
 calls, rows 17/18 on [alternet50_spatial] and [alternet50_entry_fused]),
-each run with the counts set to 0 just before it.
+each run with the counts set to 0 just before it. On those paths every
+launch of the attention forward and recompute backward must take the
+tensor-core kernels (fused_window_attn.route_launches, set to 0 with the
+counts): 12 + 12 per AlterNet50 step, 14 + 14 per Swin50 step, 4 + 4 per
+EffiAlter_m step.
 
 The last three lines are the kernel JSON line, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -215,6 +225,49 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _routes():
+    from fr_tpu_torch.ops.fused_window_attn import route_launches
+    return route_launches
+
+
+def _reset_routes():
+    routes = _routes()
+    for key in routes:
+        routes[key] = 0
+
+
+def _check_routes(tag, fwd, bwd):
+    """Since the last _reset_routes, ``fwd`` forward and ``bwd`` backward
+    launches went through the tensor-core kernels and none through the
+    CUDA-core ones."""
+    r = _routes()
+    print(f"{tag} tensor-core launches: forward {r['fwd_tensor_cores']}, "
+          f"backward {r['bwd_tensor_cores']} (CUDA-core "
+          f"{r['fwd_cuda_cores']}, {r['bwd_cuda_cores']})")
+    check(r == {"fwd_tensor_cores": fwd, "fwd_cuda_cores": 0,
+                "bwd_tensor_cores": bwd, "bwd_cuda_cores": 0},
+          f"{tag} launches by route {r}, expected {fwd} forward and {bwd} "
+          f"backward on the tensor cores")
+
+
+def _route_of(call):
+    """Runs call() and returns the body its one launch took: "tensor_cores"
+    or "cuda_cores"."""
+    before = dict(_routes())
+    out = call()
+    moved = [k for k, v in _routes().items() if v != before[k]]
+    check(len(moved) == 1, f"one launch expected, the routes moved {moved}")
+    return moved[0].split("_", 1)[1], out
+
+
+def _cuda_core_ms(call):
+    """call() timed on the CUDA-core body (TENSOR_CORES off): the one the
+    bf16 main-path shapes took before the tensor-core kernels, and still
+    the body of bf16 shapes beyond their tile."""
+    with _Body(False):
+        return time_ms(call)
+
+
 class _Tee(io.TextIOBase):
     def __init__(self, *streams):
         self.streams = streams
@@ -225,16 +278,50 @@ class _Tee(io.TextIOBase):
         return len(s)
 
 
+def _ptxas_table(log):
+    """[(kernel, template arguments, registers, spill stores, spill loads)]
+    from nvcc's -Xptxas -v lines, one entry per compiled kernel."""
+    import re
+    table, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d([a-z_]+_kernel)(I.*?E+v)?", m.group(1))
+            args = (k.group(2) if k else None) or ""
+            parts = [a or b or c for a, b, c in re.findall(
+                r"Li(\d+)E|Lb(\d)E|(WindowRows|SpatialRows|__nv_bfloat16)",
+                args)]
+            name = (k.group(1) if k else m.group(1), ",".join(parts))
+            spills = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            table.append((*name, int(m.group(1)), *spills))
+            name = None
+    return table
+
+
 def phase_build():
+    """Builds the kernels and prints one line per compiled kernel: its
+    registers and spills (nvcc -Xptxas -v). The tensor-core kernels'
+    template arguments are <tiles of 16 tokens, tiles of 16 head channels,
+    row layout>."""
     from fr_tpu_torch.ops import _build
     t0 = time.perf_counter()
     _build.load_library()
     print(f"[build] {time.perf_counter() - t0:.1f} s -> "
           f"{_build.library_path().relative_to(ROOT)}")
-    for line in _build.build_log_path().read_text().splitlines():
-        if ("Compiling entry function" in line or "registers" in line
-                or "spill" in line):
-            print(f"[build] {line.strip()}")
+    table = _ptxas_table(_build.build_log_path().read_text())
+    check(any(k.endswith("_tc_kernel") for k, *_ in table),
+          "the build log lists no tensor-core kernel")
+    for kernel, args, regs, st, ld in table:
+        print(f"[build] {kernel}<{args}>: {regs} registers, spill stores "
+              f"{st} B, loads {ld} B")
 
 
 def phase_kernel():
@@ -263,7 +350,8 @@ def phase_kernel():
                 bias16 = 16 * torch.sigmoid(torch.randn(
                     heads, n, n, device="cuda", generator=gen))
                 args = (qkv, scale, bias16, heads)
-                out = kernel(*args, nw, mask, out_dtype=dt)
+                route, out = _route_of(
+                    lambda: kernel(*args, nw, mask, out_dtype=dt))
                 torch.cuda.synchronize()
                 ref = window_attention_reference(*args, mask, dt)
                 torch.cuda.synchronize()
@@ -273,17 +361,24 @@ def phase_kernel():
                 ms = time_ms(lambda: kernel(*args, nw, mask, out_dtype=dt))
                 plain = time_ms(lambda: window_attention_reference(
                     *args, mask, dt))
+                bf16 = dt == torch.bfloat16
                 lib = (_library_fwd_ms(qkv, scale, bias16, mask, heads)
-                       if dt == torch.bfloat16 else None)
+                       if bf16 else None)
+                cc = (_cuda_core_ms(lambda: kernel(*args, nw, mask,
+                                                   out_dtype=dt))
+                      if bf16 else None)
                 tag = f"{name} {'masked' if masked else 'unmasked'} " \
                       f"{str(dt).split('.')[-1]}"
                 print(f"[kernel] {tag:26s} ({bw},{n},{3 * c}) "
                       f"max_abs_err {err:.3e} (tol {tol:g})  kernel "
-                      f"{ms:.4f} ms  plain {plain:.4f} ms" +
-                      (f"  sdpa {lib:.4f} ms" if lib is not None else ""))
+                      f"({route}) {ms:.4f} ms  plain {plain:.4f} ms" +
+                      (f"  sdpa {lib:.4f} ms  CUDA-core bf16 {cc:.4f} ms"
+                       if bf16 else ""))
+                check(route == ("tensor_cores" if bf16 else "cuda_cores"),
+                      f"{tag} took the {route} body")
                 check(err <= tol, f"{tag}: error {err} > {tol}")
                 worst = max(worst, err)
-                times[(name, masked, dt)] = (ms, plain, lib)
+                times[(name, masked, dt)] = (ms, plain, lib, cc)
     return worst, times
 
 
@@ -320,8 +415,15 @@ def phase_kernel_bwd():
             for dt in (torch.bfloat16, torch.float32):
                 qkv, scale, bias16, g, mask, nw = _attention_inputs(
                     bw, n, heads, res, ws, masked, dt, gen)
-                ours = kernel(qkv, scale, bias16, g, heads, nw, mask)
+                route, ours = _route_of(
+                    lambda: kernel(qkv, scale, bias16, g, heads, nw, mask))
                 torch.cuda.synchronize()
+                bf16 = dt == torch.bfloat16
+                check(route == ("tensor_cores" if bf16 else "cuda_cores"),
+                      f"{name} backward took the {route} body")
+                again = kernel(qkv, scale, bias16, g, heads, nw, mask)
+                check(all(torch.equal(a, b) for a, b in zip(ours, again)),
+                      f"{name} the backward's sums changed between two runs")
                 ref = plain(qkv, scale, bias16, g, heads, mask)
                 tag = f"{name} {'masked' if masked else 'unmasked'} " \
                       f"{str(dt).split('.')[-1]}"
@@ -342,14 +444,16 @@ def phase_kernel_bwd():
                 plain_ms = time_ms(lambda: plain(qkv, scale, bias16, g,
                                                  heads, mask))
                 lib = (_library_bwd_ms(qkv, scale, bias16, mask, heads, g)
-                       if dt == torch.bfloat16 else None)
+                       if bf16 else None)
+                cc = (_cuda_core_ms(lambda: kernel(qkv, scale, bias16, g,
+                                                   heads, nw, mask))
+                      if bf16 else None)
                 print(f"[kernel_bwd] {tag:26s} err/tol {', '.join(errs)}  "
-                      f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms" +
-                      (f"  sdpa {lib:.4f} ms" if lib is not None else ""))
-                times[(name, masked, dt)] = (ms, plain_ms, lib)
-    again = kernel(qkv, scale, bias16, g, heads, nw, mask)
-    check(all(torch.equal(a, b) for a, b in zip(ours, again)),
-          "the backward kernel's sums changed between two runs")
+                      f"kernel ({route}) {ms:.4f} ms  plain {plain_ms:.4f} "
+                      f"ms" + (f"  sdpa {lib:.4f} ms  CUDA-core bf16 "
+                               f"{cc:.4f} ms" if bf16 else "") +
+                      "; sums bitwise equal over two runs")
+                times[(name, masked, dt)] = (ms, plain_ms, lib, cc)
     return worst, times
 
 
@@ -508,12 +612,14 @@ def phase_main_path():
         with tempfile.TemporaryDirectory() as tmp, \
                 contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
             kernel.launches = 0
+            _reset_routes()
             msg = cli_main(CLI_ARGS + ["--save_root", tmp])
             launches = kernel.launches
     finally:
         calls.close()
     n_calls = calls.counts["eval"]
     print(f"[main] encoder calls {n_calls}, kernel launches {launches}")
+    _check_routes("[main]", launches, 0)
     check(n_calls >= 1 and launches == 12 * n_calls,
           f"{launches} launches for {n_calls} encoder calls, expected 12 "
           f"per call")
@@ -608,6 +714,7 @@ def phase_train():
                 contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
             t0 = time.perf_counter()
             fwd.launches = bwd.launches = 0
+            _reset_routes()
             task = cli_main(TRAIN_ARGS + ["--save_root", tmp])
             launches = fwd.launches, bwd.launches
             wall = time.perf_counter() - t0
@@ -619,6 +726,7 @@ def phase_train():
           f"launches {launches[0]}, backward launches {launches[1]}, "
           f"{wall:.1f} s for the whole run")
     check(steps == expected, f"{steps} training steps, expected {expected}")
+    _check_routes("[train]", *launches)
     check(launches[1] == 12 * steps,
           f"{launches[1]} backward launches for {steps} steps, expected 12 "
           f"per step")
@@ -855,7 +963,11 @@ def phase_kernel_perhead():
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             qkv, scale, bias16, g, mask, nw = _perhead_inputs(shape, dt, gen)
             args = (qkv, scale, bias16, heads)
-            out = F.fused_window_attention(*args, nw, mask, out_dtype=dt)
+            bf16 = dt == torch.bfloat16
+            want = "tensor_cores" if bf16 else "cuda_cores"
+            route, out = _route_of(lambda: F.fused_window_attention(
+                *args, nw, mask, out_dtype=dt))
+            check(route == want, f"[kernel_perhead] {name} took {route}")
             torch.cuda.synchronize()
             ref = F.window_attention_reference(*args, mask, dt)
             check(bool(torch.isfinite(out.float()).all()),
@@ -864,13 +976,20 @@ def phase_kernel_perhead():
             tag = f"{name} {str(dt).split('.')[-1]}"
             check(err <= tol, f"[kernel_perhead] {tag}: error {err} > {tol}")
             worst_f = max(worst_f, err)
-            ours = F.window_attention_backward(qkv, scale, bias16, g, heads,
-                                               nw, mask)
+            route, ours = _route_of(lambda: F.window_attention_backward(
+                qkv, scale, bias16, g, heads, nw, mask))
+            check(route == want, f"[kernel_perhead] {name} backward took "
+                  f"{route}")
             torch.cuda.synchronize()
             plain = F.window_attention_backward_reference(
                 qkv, scale, bias16, g, heads, mask)
             worst_b = max(worst_b, _check_grads(f"[kernel_perhead] {tag}",
                                                 ours, plain, dt))
+            again = F.window_attention_backward(qkv, scale, bias16, g, heads,
+                                                nw, mask)
+            check(all(torch.equal(a, b) for a, b in zip(ours, again)),
+                  f"[kernel_perhead] {tag}: the backward's sums changed "
+                  f"between two runs")
             t = {"fwd": time_ms(lambda: F.fused_window_attention(
                      *args, nw, mask, out_dtype=dt)),
                  "fwd_plain": time_ms(lambda: F.window_attention_reference(
@@ -883,14 +1002,92 @@ def phase_kernel_perhead():
             t["fwd_lib"] = _library_fwd_ms(qkv, scale, bias16, mask, heads)
             t["bwd_lib"] = _library_bwd_ms(qkv, scale, bias16, mask, heads,
                                            g)
+            cc = ""
+            if bf16:
+                fwd_cc = _cuda_core_ms(lambda: F.fused_window_attention(
+                    *args, nw, mask, out_dtype=dt))
+                bwd_cc = _cuda_core_ms(lambda: F.window_attention_backward(
+                    qkv, scale, bias16, g, heads, nw, mask))
+                cc = (f"; CUDA-core bf16 fwd {fwd_cc:.4f} bwd {bwd_cc:.4f} "
+                      f"ms")
+                t["fwd_cc"], t["bwd_cc"] = fwd_cc, bwd_cc
             print(f"[kernel_perhead] {tag:22s} {tuple(qkv.shape)} h{heads} "
-                  f"fwd err {err:.2e} kernel {t['fwd']:.4f} plain "
+                  f"({route}) fwd err {err:.2e} kernel {t['fwd']:.4f} plain "
                   f"{t['fwd_plain']:.4f} sdpa {t['fwd_lib']:.4f} ms; bwd "
                   f"kernel {t['bwd']:.4f} plain {t['bwd_plain']:.4f} sdpa "
-                  f"{t['bwd_lib']:.4f} ms")
+                  f"{t['bwd_lib']:.4f} ms{cc}")
             if dt == torch.bfloat16:
                 times[name] = t
     return worst_f, worst_b, times
+
+
+# [kernel_plan]: (name, B·nW, N, heads, head dim, windows per image, masked)
+PLAN_SHAPES = [("alternet50_stage3", 512, 36, 8, 32, 4, True),
+               ("alternet50_stage4", 512, 9, 16, 32, 1, False),
+               ("swin50_s3", 512, 49, 8, 32, 4, False),
+               ("n49_h16", 128, 49, 16, 32, 1, False)]
+
+
+def _fixed_plan(N):
+    """The launch plan the tensor-core kernels first had: at most 8 windows
+    per CTA, fewer where the grid would hold under 16 warps per SM (a CTA
+    has one warp per 16 tokens); tensor_core_plan's signature."""
+    import torch
+
+    def plan(n_windows, n_win_per_img, num_heads, masked, slots):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        groups = n_win_per_img if masked else 1
+        warps = n_windows * num_heads * -(-N // 16)
+        wpc = max(1, min(8, warps // (16 * sms)))
+        return wpc, groups * -(-(n_windows // groups) // wpc)
+    return plan
+
+
+def phase_kernel_plan():
+    """[kernel_plan]: the tensor-core kernels' launch plan at main-path
+    shapes (bf16), interleaved in one run (fixed, 1 wave, 2 waves, 2, 1,
+    fixed; 100 launches each after 10): the shipped plan (the grid within
+    one wave of the CTAs the card holds, fused_window_attn._TC_WAVES = 1)
+    against two waves and against the fixed plan (_fixed_plan). Forward and
+    backward ms, each the mean of its two turns. The plan is restored."""
+    import torch
+    from fr_tpu_torch.ops import fused_window_attn as F
+
+    shipped = (F.tensor_core_plan, F._TC_WAVES)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    try:
+        for name, bw, n, heads, hd, nw, masked in PLAN_SHAPES:
+            qkv = torch.randn(bw, n, 3 * heads * hd, device="cuda",
+                              generator=gen).to(torch.bfloat16)
+            scale = torch.empty(heads, device="cuda").uniform_(
+                5.0, 20.0, generator=gen)
+            bias16 = 16 * torch.sigmoid(torch.randn(
+                heads, n, n, device="cuda", generator=gen))
+            g = torch.randn(bw, n, heads * hd, device="cuda",
+                            generator=gen).to(torch.bfloat16)
+            mask = (torch.where(torch.rand(nw, n, n, device="cuda",
+                                           generator=gen) < 0.3, -100.0, 0.0)
+                    if masked else None)
+            turns = {}
+            for arm in ("fixed", "1 wave", "2 waves", "2 waves", "1 wave",
+                        "fixed"):
+                F.tensor_core_plan = (_fixed_plan(n) if arm == "fixed"
+                                      else shipped[0])
+                F._TC_WAVES = 2 if arm == "2 waves" else 1
+                f = time_ms(lambda: F.fused_window_attention(
+                    qkv, scale, bias16, heads, nw, mask,
+                    out_dtype=torch.bfloat16), iters=100, warmup=10)
+                b = time_ms(lambda: F.window_attention_backward(
+                    qkv, scale, bias16, g, heads, nw, mask), iters=100,
+                    warmup=10)
+                turns.setdefault(arm, []).append((f, b))
+            print(f"[kernel_plan] {name} ({bw},{n},{3 * heads * hd}) h{heads}"
+                  f"{' masked' if masked else ''}: fwd/bwd ms " + "; ".join(
+                      f"{arm} {sum(t[0] for t in v) / 2:.4f}/"
+                      f"{sum(t[1] for t in v) / 2:.4f}"
+                      for arm, v in turns.items()))
+    finally:
+        F.tensor_core_plan, F._TC_WAVES = shipped
 
 
 def phase_kernel_stats():
@@ -1049,6 +1246,7 @@ def phase_network(network):
             export_encoder_npz(ckpt, model, 0, network, 112)
             del model
             _reset(perhead)
+            _reset_routes()
             msg = cli_main(_net_args(network, "test") + [
                 "--save_root", tmp, "--ckpt_path", ckpt])
             serve = F.fused_window_attention.launches
@@ -1057,6 +1255,7 @@ def phase_network(network):
     n_calls = calls.counts["eval"]
     print(f"{tag} serving: {n_calls} encoder calls, per-head forward "
           f"launches {serve}")
+    _check_routes(f"{tag} serving:", serve, 0)
     check(n_calls >= 1 and serve == per_call * n_calls,
           f"{tag} {serve} launches for {n_calls} calls, expected {per_call} "
           f"per call")
@@ -1104,6 +1303,7 @@ def phase_network(network):
                 contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
             t0 = time.perf_counter()
             _reset(perhead)
+            _reset_routes()
             task = cli_main(_net_args(network, "train") + ["--save_root",
                                                            tmp])
             fwd, bwd = (getattr(f, a) for f, a in perhead)
@@ -1116,6 +1316,7 @@ def phase_network(network):
           f"launches forward {fwd}, backward {bwd}; epoch losses "
           f"{[round(x, 4) for x in losses]}; {wall:.1f} s")
     check(steps == NET_EPOCHS * 8, f"{tag} {steps} training steps")
+    _check_routes(f"{tag} training:", fwd, bwd)
     check(bwd == per_call * steps, f"{tag} {bwd} backward launches for "
           f"{steps} steps")
     check(fwd == per_call * (steps + evals), f"{tag} {fwd} forward launches "
@@ -1127,12 +1328,36 @@ def phase_network(network):
     return {"serve": serve, "train_fwd": fwd, "train_bwd": bwd}, stats
 
 
+class _Body:
+    """Sets fused_window_attn.TENSOR_CORES for a ``with`` block and restores
+    it after."""
+
+    def __init__(self, tensor_cores):
+        self.on = tensor_cores
+
+    def __enter__(self):
+        from fr_tpu_torch.ops import fused_window_attn as F
+        self.saved, F.TENSOR_CORES = F.TENSOR_CORES, self.on
+        return self
+
+    def __exit__(self, *exc):
+        from fr_tpu_torch.ops import fused_window_attn as F
+        F.TENSOR_CORES = self.saved
+        return False
+
+
 def phase_stats_switch(network, steps: int = 3):
     """Three training_steps with FR_ATTN_STORED_STATS=1 against =0 from one
     seed (b=128, bf16, the CLI's synthetic head): the stats kernels launch
-    once per attention site and step, the losses agree to 1e-3 relative;
-    then the arms' encoder gradients (``_stats_switch_grads``). The
-    variable is restored. Returns the stats kernels' launches."""
+    once per attention site and step, and the losses agree to 1e-3
+    relative with the recompute arm on the CUDA-core body (TENSOR_CORES
+    off), whose forward arithmetic the stats kernels share bit for bit.
+    The recompute arm on its default tensor-core body runs too and is
+    printed: bf16 training at init parts from any change of rounding within
+    two steps, so that body is held by its bf16 gradients instead
+    (_bf16_body_grads). Then the arms' f32 encoder gradients
+    (``_stats_switch_grads``). The variable and the switch are restored.
+    Returns the stats kernels' launches."""
     import os
     import torch
     from fr_tpu_torch.cli.main import build_conf, parse_args
@@ -1155,13 +1380,15 @@ def phase_stats_switch(network, steps: int = 3):
     saved = os.environ.get("FR_ATTN_STORED_STATS")
     losses, launches = {}, None
     try:
-        for arm in ("0", "1"):
-            os.environ["FR_ATTN_STORED_STATS"] = arm
-            task = FaceRecognitionTask(conf, stage="train", device="cuda",
-                                       seed=0)
-            _reset(counters)
-            losses[arm] = [task.training_step((images[i], labels[i]))[
-                "loss"].item() for i in range(steps)]
+        for arm, stats, tensor_cores in (("0", "0", False), ("1", "1", True),
+                                         ("0 tensor cores", "0", True)):
+            os.environ["FR_ATTN_STORED_STATS"] = stats
+            with _Body(tensor_cores):
+                task = FaceRecognitionTask(conf, stage="train",
+                                           device="cuda", seed=0)
+                _reset(counters)
+                losses[arm] = [task.training_step((images[i], labels[i]))[
+                    "loss"].item() for i in range(steps)]
             counts = [getattr(f, a) for f, a in counters]
             if arm == "1":
                 launches = counts
@@ -1173,15 +1400,90 @@ def phase_stats_switch(network, steps: int = 3):
             os.environ["FR_ATTN_STORED_STATS"] = saved
     per_call = NET_LAUNCHES[network]
     _stats_switch_grads(network, tag)
-    print(f"{tag} FR_ATTN_STORED_STATS=0 losses "
+    _bf16_body_grads(network, tag)
+    print(f"{tag} FR_ATTN_STORED_STATS=0 (CUDA-core body) losses "
           f"{[round(x, 5) for x in losses['0']]}, =1 "
-          f"{[round(x, 5) for x in losses['1']]}; stats launches {launches}")
+          f"{[round(x, 5) for x in losses['1']]}; =0 on the tensor cores "
+          f"{[round(x, 5) for x in losses['0 tensor cores']]}; stats "
+          f"launches {launches}")
     check(launches == [per_call * steps] * 2,
           f"{tag} stats launches {launches}, expected {per_call * steps}")
     for a, b in zip(losses["0"], losses["1"]):
         check(abs(a - b) <= 1e-3 * abs(a), f"{tag} stats-arm loss {b} vs "
               f"recompute {a}: beyond 1e-3 relative")
     return launches
+
+
+def _bf16_body_grads(network, tag, n_img: int = 8):
+    """One bf16 encoder backward through the tensor-core body and one
+    through the CUDA-core body (TENSOR_CORES off), each against the f32
+    gradients (TF32 off; the golden's seeded weights, train mode, a fixed
+    projection of the L2-normalised embeddings as the loss, one dropout
+    seed). Per attention group (qkv, q_bias, logit_scale, cpb_mlp, proj
+    weight) and for the other parameters, the median over tensors of the
+    norm-wise distance to f32 must be within 1.1× the CUDA-core body's:
+    the two sat within 4% of each other there on the card (PERF.md §6),
+    while bf16 sits 12–110% from f32 at init, whichever body runs. v_bias
+    and proj.bias get gradients of rounding noise that the next BatchNorm
+    cancels, and are left out."""
+    import numpy as np
+    import torch
+    from fr_tpu_torch.configs.base import default_img_size
+    from fr_tpu_torch.models.common import l2_normalize
+    from fr_tpu_torch.utils.golden import (golden_encoder, golden_images,
+                                           seeded_state_dict)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.from_numpy(golden_images(0, n_img, default_img_size(network))
+                         ).cuda()
+    r = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (n_img, 512)).astype(np.float32)).cuda()
+    grads, names = {}, None
+    for arm, dtype, tensor_cores in (("f32", torch.float32, True),
+                                     ("tensor cores", torch.bfloat16, True),
+                                     ("CUDA cores", torch.bfloat16, False)):
+        model = golden_encoder(network, dtype, train=True)
+        model.load_state_dict(seeded_state_dict(model, 0), strict=True)
+        model.cuda().train()
+        names, params = zip(*model.named_parameters())
+        with _Body(tensor_cores):
+            _reset_routes()
+            gen = torch.Generator(device="cuda").manual_seed(8)
+            loss = (l2_normalize(model(x, gen).float()) * r).sum()
+            grads[arm] = [g.float() for g in torch.autograd.grad(loss,
+                                                                 params)]
+        if arm != "f32":
+            body = "tensor_cores" if tensor_cores else "cuda_cores"
+            r_ = _routes()
+            check(r_[f"fwd_{body}"] > 0 and r_[f"bwd_{body}"] > 0 and
+                  sum(r_.values()) == r_[f"fwd_{body}"] + r_[f"bwd_{body}"],
+                  f"{tag} bf16 {arm}: launches by route {r_}")
+        del model
+    medians = {}
+    for arm in ("tensor cores", "CUDA cores"):
+        groups = {}
+        for name, a, b in zip(names, grads[arm], grads["f32"]):
+            if ".v_bias" in name or ".proj.bias" in name:
+                continue
+            n0 = float(b.norm())
+            if n0 <= 1e-6:
+                continue
+            key = next((k for k in ("qkv", "q_bias", "logit_scale",
+                                    "cpb_mlp", "proj") if f".{k}" in name),
+                       "other")
+            groups.setdefault(key, []).append(float((a - b).norm()) / n0)
+        medians[arm] = {k: float(np.median(v)) for k, v in groups.items()}
+    tc, cc = medians["tensor cores"], medians["CUDA cores"]
+    print(f"{tag} bf16 gradients against f32 (median norm-wise distance "
+          f"per group, tensor cores / CUDA cores, tol 1.1x): " + ", ".join(
+              f"{k} {tc[k]:.3e}/{cc[k]:.3e}" for k in sorted(cc)))
+    check(sorted(tc) == sorted(cc) and len(cc) == 6,
+          f"{tag} parameter groups {sorted(tc)} / {sorted(cc)}")
+    for k in cc:
+        check(tc[k] <= 1.1 * cc[k], f"{tag} the tensor-core body's bf16 "
+              f"{k} gradients sit {tc[k]:.3e} from f32, the CUDA-core "
+              f"body's {cc[k]:.3e}")
 
 
 def _stats_switch_grads(network, tag, n_img: int = 8):
@@ -1836,11 +2138,13 @@ def _grouped_cases():
     # the driven path of rows 15/16: every case once more, forward and
     # backward under autograd, with the counts set to 0 just before
     _reset([(P, "grouped_launches"), (P, "grouped_backward_launches")])
+    _reset_routes()
     for qkv, scale, bias16, g, mask, nw_, heads in calls:
         q = qkv.detach().requires_grad_(True)
         P(q, scale, bias16, heads, nw_, mask, out_dtype=torch.bfloat16,
           head_group=4).backward(g)
     torch.cuda.synchronize()
+    _check_routes("[kernel_variants] grouped route:", len(calls), len(calls))
     launches = {"fwd": P.grouped_launches, "bwd": P.grouped_backward_launches}
     check(launches == {"fwd": len(calls), "bwd": len(calls)},
           f"[kernel_variants] grouped launches {launches} for {len(calls)} "
@@ -2252,9 +2556,18 @@ def phase_alternet50_routes(steps: int = 3, timed: int = 5):
             task = FaceRecognitionTask(conf, stage="train", device="cuda",
                                        seed=0)
             _reset(counters)
+            _reset_routes()
             losses[route] = [task.training_step((images[i], labels[i]))[
                 "loss"].item() for i in range(steps)]
             launches[route] = tuple(getattr(f, a) for f, a in counters)
+            # the windows and spatial routes run both bodies on the tensor
+            # cores; the entry-fused forward is its own kernel, and only
+            # the hybrid backward runs the row-2 body
+            _check_routes(f"{tag} {route}:", *{
+                "windows": (12 * steps, 12 * steps),
+                "spatial": (12 * steps, 12 * steps),
+                "entry_fused": (0, 12 * steps),
+                "entry_fused_allkernel": (0, 0)}[route])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for i in range(steps, steps + timed):
@@ -2471,14 +2784,13 @@ def _variant_entries(errs, times, launches):
         bounds = [(_attn_bound_ms(bw, 49, heads * 32, heads, bf, kind, 0),
                    sites) for _, bw, heads, _, sites in GROUPED_SHAPES]
         bound = (sum(b[0] * sites for b, sites in bounds), bounds[-1][0][1])
-        out.append(_entry(f"window_attn_{kind} (grouped route, row {row})",
-                          f"window_attn_{kind}.cu", f"{var}:{line}",
+        out.append(_entry(f"window_attn_{kind}_tc (grouped route, row "
+                          f"{row})", "window_attn_tc.cuh", f"{var}:{line}",
                           launches["grouped"][kind], errs["grouped"][kind],
                           mix[kind], mix[f"{kind}_plain"], bound,
                           mix[f"{kind}_lib"]))
     for key, src, cases in (
-            ("spatial", "window_attn_spatial.cu", ((247, "fwd"),
-                                                   (289, "bwd"))),
+            ("spatial", "window_attn_tc.cuh", ((247, "fwd"), (289, "bwd"))),
             ("qkv", "window_attn_qkv.cu", ((678, "fwd"), (754, "bwd")))):
         t = times[key]
         for line, kind in cases:
@@ -2499,7 +2811,8 @@ def _variant_entries(errs, times, launches):
                      ("qkv", "fwd"): launches["entry_fused"][0],
                      ("qkv", "bwd"): launches["entry_fused_allkernel"][1]}[
                          (key, kind)]
-            out.append(_entry(f"window_attn_{key}_{kind}", src,
+            out.append(_entry(f"window_attn_{key}_{kind}"
+                              + ("_tc" if key == "spatial" else ""), src,
                               f"{var}:{line}", count, errs[key][kind],
                               mix["ms"], mix["plain"], (mix["bound"], by),
                               mix["lib"]))
@@ -2719,6 +3032,7 @@ def main() -> None:
     worst_bwd, times_bwd = phase_kernel_bwd()
     worst_ce, times_ce = phase_margin_ce()
     worst_ph_f, worst_ph_b, times_ph = phase_kernel_perhead()
+    phase_kernel_plan()
     worst_st_f, worst_st_b, times_st = phase_kernel_stats()
     worst_rows, times_rows, bounds_rows = phase_kernel_sparse_rows()
     errs_v, times_v, launches_grouped = phase_kernel_variants()
@@ -2757,25 +3071,42 @@ def main() -> None:
 
     fwd = _mix(times_fwd, torch.bfloat16)
     bwd = _mix(times_bwd, torch.bfloat16)
+    cc = [sum(count * t[(name, masked, torch.bfloat16)][3]
+              for name, *_, n_unmasked, n_masked in SHAPES
+              for masked, count in ((False, n_unmasked), (True, n_masked)))
+          for t in (times_fwd, times_bwd)]
+    cc += [_perhead_mix(times_ph, k) for k in ("fwd_cc", "bwd_cc")]
+    print("[summary] bf16 mixes in this run, tensor cores against the "
+          "CUDA-core body: " + "; ".join(
+              f"row {row} {ms:.4f} vs {c:.4f} ms" for row, ms, c in zip(
+                  (1, 2, 5, 6), (fwd["ms"], bwd["ms"],
+                                 _perhead_mix(times_ph, "fwd"),
+                                 _perhead_mix(times_ph, "bwd")), cc)))
     attn = "fused_window_attn.py"
+    # rows 1, 2, 5, 6, 15-17b: the bf16 bodies on the tensor cores
+    # (window_attn_tc.cuh; entries in window_attn_fwd.cu, _bwd.cu and
+    # _spatial.cu); the main paths' launches all took them (_check_routes)
     kernels = [
-        _entry("window_attn_fwd", "window_attn_fwd.cu",
-               f"{attn}:1572", launches_fwd, worst_fwd, fwd["ms"],
-               fwd["plain_ms"], _packed_bound("fwd"), fwd["library_ms"]),
-        _entry("window_attn_bwd", "window_attn_bwd.cu",
-               f"{attn}:1717", launches_bwd, worst_bwd, bwd["ms"],
-               bwd["plain_ms"], _packed_bound("bwd"), bwd["library_ms"])]
+        _entry("window_attn_fwd_tc (packed entry, row 1)",
+               "window_attn_tc.cuh", f"{attn}:1572", launches_fwd,
+               worst_fwd, fwd["ms"], fwd["plain_ms"], _packed_bound("fwd"),
+               fwd["library_ms"]),
+        _entry("window_attn_bwd_tc (packed entry, row 2)",
+               "window_attn_tc.cuh", f"{attn}:1717", launches_bwd,
+               worst_bwd, bwd["ms"], bwd["plain_ms"], _packed_bound("bwd"),
+               bwd["library_ms"])]
     for name, line, count in zip(
             ("margin_ce_stats", "margin_ce_grad_emb", "margin_ce_grad_w"),
             (308, 406, 425), launches_ce):
         kernels.append(_entry(name, "margin_ce.cu", f"fused_pfc.py:{line}",
                               count, worst_ce[name], times_ce[name][0],
                               times_ce[name][1], _ce_bound(name), None))
-    for kind, line, count, err, src in (
-            ("fwd", 1909, perhead["fwd"], worst_ph_f, "window_attn_fwd.cu"),
-            ("bwd", 2002, perhead["bwd"], worst_ph_b, "window_attn_bwd.cu")):
+    for kind, line, count, err, row in (
+            ("fwd", 1909, perhead["fwd"], worst_ph_f, 5),
+            ("bwd", 2002, perhead["bwd"], worst_ph_b, 6)):
         kernels.append(_entry(
-            f"window_attn_{kind} (per-head entry)", src, f"{attn}:{line}",
+            f"window_attn_{kind}_tc (per-head entry, row {row})",
+            "window_attn_tc.cuh", f"{attn}:{line}",
             count, err, _perhead_mix(times_ph, kind),
             _perhead_mix(times_ph, f"{kind}_plain"), _perhead_bound(kind),
             _perhead_mix(times_ph, f"{kind}_lib")))

@@ -14,10 +14,11 @@ Ported: ``--mode train --synthetic`` on one device (128 synthetic classes ×
 in fr_tpu's ``.npz`` layout beside full-state checkpoints; ``--sample_block
 N`` for block-aligned negative sampling, ``--resume`` to continue the newest
 matching run) and ``--mode test --test_type pair --synthetic``, with
-``--ckpt_path`` taking an fr_tpu ``.npz`` encoder snapshot. ``--device
-{cuda,cpu}`` takes the place of JAX_PLATFORMS; it raises when CUDA is asked
-for and absent and never switches device on its own. Flags of paths not
-ported yet raise NotImplementedError naming their ROADMAP item.
+``--ckpt_path`` taking an fr_tpu ``.npz`` encoder snapshot or a reference
+``.pth``. ``--device {cuda,cpu}`` takes the place of JAX_PLATFORMS; it
+raises when CUDA is asked for and absent and never switches device on its
+own. Flags of paths not ported yet raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ def parse_args(argv=None):
     p.add_argument("--sample_rate", type=float, default=None)
     p.add_argument("--sample_block", type=int, default=1)
     p.add_argument("--ckpt_path", type=str, default=None,
-                   help="fr_tpu .npz encoder snapshot to evaluate")
+                   help="fr_tpu .npz or reference .pth encoder snapshot "
+                        "to evaluate")
     p.add_argument("--test_type", type=str, default="pair",
                    choices=["pair", "cross"])
     p.add_argument("--data_dir", type=str, default=None)

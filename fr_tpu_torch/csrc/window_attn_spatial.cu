@@ -26,10 +26,13 @@
 // N·3C, which costs nothing at these widths (3C ≥ 384 elements per row).
 // What the layout saves is the partition and reverse copies around the
 // windows API (two passes over qkv and one over out forward; over g and
-// dqkv backward). Products on the CUDA cores, as in the windows API's
-// kernels; tensor cores and TMA are later steps.
+// dqkv backward). As in the windows API, bf16 at N ≤ 64 and an even head
+// dim ≤ 64 takes the tensor-core kernels of window_attn_tc.cuh
+// (window_attn_spatial_fwd_tc, window_attn_spatial_bwd_tc) and everything
+// else the CUDA-core ones; the Python wrapper picks the entry.
 
 #include "window_attn_bwd.cuh"
+#include "window_attn_tc.cuh"
 
 namespace {
 
@@ -80,4 +83,46 @@ extern "C" int window_attn_spatial_bwd(const void* qkv, const void* scale,
   return window_attn_bwd_entry(qkv, scale, bias16, mask, g, dqkv, partial,
                                out, B * nw, ws * ws, C, num_heads, nw, dtype,
                                threads, spatial_rows(H, W, ws), stream);
+}
+
+// The tensor-core forward: qkv bf16, out f32 (as fr_tpu's spatial op
+// returns it); wpc: windows per CTA; vec: 16- or 4-byte copies.
+extern "C" int window_attn_spatial_fwd_tc(const void* qkv, const void* scale,
+                                          const void* bias16,
+                                          const void* mask, void* out,
+                                          long long B, int H, int W, int C,
+                                          int num_heads, int ws, int wpc,
+                                          int vec, void* stream) {
+  if (!spatial_shape_ok(B, H, W, C, num_heads, ws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nw = (H / ws) * (W / ws);
+  return window_attn_fwd_tc_entry(qkv, scale, bias16, mask, out, B * nw,
+                                  ws * ws, C, num_heads, nw, 0, wpc, vec,
+                                  spatial_rows(H, W, ws), stream);
+}
+
+// The tensor-core backward: qkv, g and dqkv bf16; partial holds one
+// (N·N + 1) row per CTA and head (fused_window_attn.py, tensor_core_plan);
+// out as window_attn_spatial_bwd's.
+extern "C" int window_attn_spatial_bwd_tc(const void* qkv, const void* scale,
+                                          const void* bias16,
+                                          const void* mask, const void* g,
+                                          void* dqkv, void* partial,
+                                          void* out, long long B, int H,
+                                          int W, int C, int num_heads, int ws,
+                                          int wpc, int vec, void* stream) {
+  if (!spatial_shape_ok(B, H, W, C, num_heads, ws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nw = (H / ws) * (W / ws);
+  return window_attn_bwd_tc_entry(qkv, scale, bias16, mask, g, dqkv, partial,
+                                  out, B * nw, ws * ws, C, num_heads, nw, wpc,
+                                  vec, spatial_rows(H, W, ws), stream);
+}
+
+// CTAs of the spatial tensor-core forward (backward 0) or backward (1) one
+// SM holds at once for these tiles, or the negated CUDA error.
+extern "C" int window_attn_spatial_tc_occupancy(int N, int C, int num_heads,
+                                                int masked, int backward) {
+  return window_attn_tc_occupancy_entry<SpatialRows>(N, C, num_heads, masked,
+                                                     backward);
 }

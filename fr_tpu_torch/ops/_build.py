@@ -26,7 +26,8 @@ SOURCES = ("window_attn_fwd.cu", "window_attn_bwd.cu", "window_attn_stats.cu",
            "window_attn_spatial.cu", "window_attn_qkv.cu", "margin_ce.cu",
            "sparse_rows.cu")
 # included by the sources; hashed too
-HEADERS = ("window_attn_common.cuh", "window_attn_bwd.cuh")
+HEADERS = ("window_attn_common.cuh", "window_attn_bwd.cuh",
+           "window_attn_tc.cuh")
 # -Xptxas -v writes each kernel's registers, shared memory and spills to
 # the build log next to the library.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -116,6 +117,10 @@ def load_library() -> ctypes.CDLL:
                             i32, i32, vp],
         "window_attn_bwd": [vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
                             i32, i32, i32, i32, vp],
+        "window_attn_fwd_tc": [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32,
+                               i32, i32, i32, vp],
+        "window_attn_bwd_tc": [vp, vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
+                               i32, i32, i32, i32, vp],
         "window_attn_fwd_stats": [vp, vp, vp, vp, vp, vp, i64, i32, i32, i32,
                                   i32, i32, i32, i32, vp],
         "window_attn_bwd_stats": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
@@ -124,6 +129,13 @@ def load_library() -> ctypes.CDLL:
                                     i32, i32, i32, i32, i32, vp],
         "window_attn_spatial_bwd": [vp, vp, vp, vp, vp, vp, vp, vp, i64, i32,
                                     i32, i32, i32, i32, i32, i32, vp],
+        "window_attn_spatial_fwd_tc": [vp, vp, vp, vp, vp, i64, i32, i32, i32,
+                                       i32, i32, i32, i32, vp],
+        "window_attn_spatial_bwd_tc": [vp, vp, vp, vp, vp, vp, vp, vp, i64,
+                                       i32, i32, i32, i32, i32, i32, i32, vp],
+        "window_attn_fwd_tc_occupancy": [i32, i32, i32, i32],
+        "window_attn_bwd_tc_occupancy": [i32, i32, i32, i32],
+        "window_attn_spatial_tc_occupancy": [i32, i32, i32, i32, i32],
         "window_attn_qkv_fwd": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
                                 i32, i32, i32, i32, i32, vp],
         "window_attn_qkv_bwd": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,

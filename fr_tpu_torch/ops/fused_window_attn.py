@@ -22,10 +22,24 @@ both entries:
     csrc/window_attn_stats.cu  forward storing p   rows 3, 7; _fwd_body_stats
                                backward from p     rows 4, 8; _bwd_body_stats
 
-(rows of ROADMAP §2). Under autograd an entry takes one of two arms, chosen
-as fr_tpu chooses: the recompute arm saves qkv, scale, bias16 and the mask
-and its backward recomputes the forward; the stored-stats arm saves the f32
-softmax p, (B·nW, h, N, N), and its backward starts from p. The entry's
+(rows of ROADMAP §2). The forward and the recompute backward have two
+bodies each, and the wrapper picks one by dtype and shape
+(``tensor_core_route``), with no fallback from one to the other:
+
+    tensor cores  bf16, N ≤ 64, an even head dim ≤ 64 (every shape of the
+                  models' path: N 9, 36, 49; head dims 32, 38):
+                  window_attn_fwd_tc, window_attn_bwd_tc (window_attn_tc.cuh)
+    CUDA cores    f32 (TF32 would break the f32 tolerance and goldens), and
+                  bf16 beyond that tile, or with ``TENSOR_CORES`` off:
+                  window_attn_fwd, window_attn_bwd
+
+Every launch of the two bodies, from any entry or route of this module and
+of fused_window_attn_variants.py, also counts on ``route_launches``.
+
+Under autograd an entry takes one of two arms, chosen as fr_tpu chooses:
+the recompute arm saves qkv, scale, bias16 and the mask and its backward
+recomputes the forward; the stored-stats arm saves the f32 softmax p,
+(B·nW, h, N, N), and its backward starts from p. The entry's
 ``stored_stats`` argument picks the arm (default True on the packed entry,
 False on the per-head one, as in fr_tpu); FR_ATTN_STORED_STATS=0/1
 overrides it. A call without autograd runs the forward kernel alone. Both
@@ -64,6 +78,7 @@ own ``launches``: window_attention_backward (also the packed entry's row
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import Optional
 
@@ -74,6 +89,119 @@ _THREADS = 128
 _SMEM_LIMIT = 48 * 1024
 _BWD_THREADS = 256
 _BWD_SMEM_LIMIT = 227 * 1024
+# The tensor-core kernels pad N and the head dim to tiles of 16, at most 4.
+_TC_MAX = 64
+# CTAs per launch of the tensor-core kernels: at most _TC_WAVES times the
+# CTAs of that kernel the card holds at once (the CUDA occupancy API's count
+# per SM, times the SMs), each walking an equal run of windows.
+_TC_WAVES = 1
+
+# launches of the forward and recompute-backward kernels by body
+route_launches = {"fwd_tensor_cores": 0, "fwd_cuda_cores": 0,
+                  "bwd_tensor_cores": 0, "bwd_cuda_cores": 0}
+
+# The bf16 body switch, read at every call: True (the default) puts bf16
+# calls within the tile on the tensor cores; False puts every call on the
+# CUDA-core kernels, whose arithmetic the stored-stats and entry-fused
+# kernels share. chip_smoke.py turns it off only to hold those against the
+# recompute arm bit for bit in the forward (bf16 training at init amplifies
+# any change of rounding; PERF.md §6).
+TENSOR_CORES = True
+
+
+def tensor_core_route(dtype: torch.dtype, N: int, hd: int) -> bool:
+    """Whether a call takes the tensor-core kernels (csrc/window_attn_tc.cuh):
+    bf16 with N and the head dim at most 64 and the head dim even (its values
+    move in bf16 pairs), while TENSOR_CORES is on. f32 and every other bf16
+    shape take the CUDA-core kernels."""
+    return (TENSOR_CORES and dtype == torch.bfloat16 and 0 < N <= _TC_MAX
+            and 0 < hd <= _TC_MAX and hd % 2 == 0)
+
+
+def tensor_core_plan(n_windows: int, n_win_per_img: int, num_heads: int,
+                     masked: bool, slots: int):
+    """The tensor-core kernels' launch plan: (windows per CTA, CTAs per
+    head). The grid is CTAs · num_heads, block = CTA·num_heads + head, and
+    the backward's scratch holds one (N·N + 1) row per block. With a mask a
+    CTA's windows share one mask slice (w mod n_win_per_img), so that the
+    CTA stages it once. The runs are as short as keeps the grid within
+    _TC_WAVES · slots CTAs (slots: the CTAs the card holds at once), so
+    that one wave covers every window and bias16[h] is staged as few times
+    as that allows. csrc/window_attn_tc.cuh (tc_plan) walks the same runs."""
+    groups = n_win_per_img if masked else 1
+    per_group = n_windows // groups
+    room = max(1, _TC_WAVES * slots)
+    wpc = min(per_group, max(1, -(-n_windows * num_heads // room)))
+    while (wpc < per_group
+           and num_heads * groups * -(-per_group // wpc) > room):
+        wpc += 1
+    return wpc, groups * -(-per_group // wpc)
+
+
+def tensor_core_windows(block: int, n_windows: int, n_win_per_img: int,
+                        num_heads: int, masked: bool, slots: int):
+    """(head, windows) of one block of the plan, in the order the kernel
+    walks them."""
+    wpc, _ = tensor_core_plan(n_windows, n_win_per_img, num_heads, masked,
+                              slots)
+    groups = n_win_per_img if masked else 1
+    per_group = n_windows // groups
+    cta, h = divmod(block, num_heads)
+    per_slice = -(-per_group // wpc)
+    j, first = cta // per_slice, (cta % per_slice) * wpc
+    return h, [r * groups + j
+               for r in range(first, min(first + wpc, per_group))]
+
+
+def _tc_smem_bytes(N: int, hd: int, masked: bool, backward: bool) -> int:
+    """Dynamic shared memory of a tensor-core CTA (window_attn_tc.cuh's
+    tc_fwd_smem_bytes, tc_bwd_smem_bytes): the f32 bias (and mask) tiles
+    (N, NP + 8); bf16 token tiles (N, HDP + 8) — a zero row and two stages
+    of q, k, v (forward) or q, k, v, g plus q̂, k̂ (backward); in the
+    backward also the round(p) and round(ds·scale) tiles (NP, NP + 8) and
+    4·NP + 32 f32 of norms, flags and sums."""
+    np_ = 16 * -(-N // 16)
+    ld = 16 * -(-hd // 16) + 8
+    bias = 4 * N * (np_ + 8) * (2 if masked else 1)
+    if backward:
+        return (bias + 4 * (4 * np_ + 32)
+                + 2 * (ld + 10 * N * ld + 2 * np_ * (np_ + 8)))
+    return bias + 2 * (ld + 6 * N * ld)
+
+
+def _tc_check(backward: bool, masked: bool):
+    """The shared-memory size and limit _checked_operands holds a
+    tensor-core call to."""
+    return (lambda N, hd: _tc_smem_bytes(N, hd, masked, backward),
+            _BWD_SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_slots(entry: str, index: int, *args) -> int:
+    """The CTAs of a tensor-core kernel that card ``index`` holds at once:
+    the occupancy entry's count per SM (csrc/window_attn_tc.cuh,
+    window_attn_tc_occupancy_entry) times the SMs."""
+    from fr_tpu_torch.ops._build import check_launch, load_library
+
+    lib = load_library()
+    with torch.cuda.device(index):
+        per_sm = getattr(lib, entry)(*args)
+    check_launch(lib, -per_sm if per_sm < 0 else 0, entry)
+    if per_sm == 0:
+        raise RuntimeError(f"{entry}{args}: no CTA fits on an SM")
+    return per_sm * torch.cuda.get_device_properties(
+        index).multi_processor_count
+
+
+def _tc_operands(hd: int, C: int, *tensors):
+    """The tensors at 4-byte-aligned addresses (a view can start at an odd
+    bf16 element; such a one is copied), and the widest copy the kernels
+    can make: 16 bytes when every row and head offset and every tensor is
+    16-byte aligned, else 4."""
+    tensors = [t if t.data_ptr() % 4 == 0 else t.clone() for t in tensors]
+    vec = 16 if (hd % 8 == 0 and C % 8 == 0
+                 and all(t.data_ptr() % 16 == 0 for t in tensors)) else 4
+    return vec, tensors
 
 
 def _split_heads(qkv: torch.Tensor, num_heads: int):
@@ -502,6 +630,12 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _windows_route(qkv, num_heads) -> bool:
+    """tensor_core_route for a windows-API qkv (B·nW, N, 3C)."""
+    return (qkv.dim() == 3 and tensor_core_route(
+        qkv.dtype, qkv.shape[1], qkv.shape[2] // 3 // num_heads))
+
+
 def _launch(qkv, scale, bias16, num_heads, n_win_per_img, mask, out_dtype,
             p_out=None):
     """The forward kernel, or with ``p_out`` (B·nW, h, N, N) f32 the
@@ -511,13 +645,31 @@ def _launch(qkv, scale, bias16, num_heads, n_win_per_img, mask, out_dtype,
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"qkv {qkv.dtype} / out {out_dtype}: the kernel "
                         f"takes float32 or bfloat16")
+    tc = p_out is None and _windows_route(qkv, num_heads)
     (B_, N, C), qkv, scale, bias16, mask = _checked_operands(
-        qkv, scale, bias16, num_heads, n_win_per_img, mask, _smem_bytes,
-        _SMEM_LIMIT)
+        qkv, scale, bias16, num_heads, n_win_per_img, mask,
+        *(_tc_check(False, mask is not None) if tc
+          else (_smem_bytes, _SMEM_LIMIT)))
     out = torch.empty((B_, N, C), dtype=out_dtype, device=qkv.device)
     if B_ == 0:
         return out
     lib = load_library()
+    if tc:
+        vec, (qkv,) = _tc_operands(C // num_heads, C, qkv)
+        masked = mask is not None
+        wpc, _ = tensor_core_plan(B_, n_win_per_img, num_heads, masked,
+                                  _tc_slots("window_attn_fwd_tc_occupancy",
+                                            qkv.device.index or 0, N, C,
+                                            num_heads, int(masked)))
+        with torch.cuda.device(qkv.device):
+            err = lib.window_attn_fwd_tc(
+                qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
+                mask.data_ptr() if mask is not None else None,
+                out.data_ptr(), B_, N, C, num_heads, n_win_per_img,
+                _DTYPE_CODE[out_dtype], wpc, vec, _stream(qkv.device))
+        check_launch(lib, err, "window_attn_fwd_tc")
+        route_launches["fwd_tensor_cores"] += 1
+        return out
     args = [qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
             mask.data_ptr() if mask is not None else None, out.data_ptr()]
     name = "window_attn_fwd"
@@ -530,6 +682,8 @@ def _launch(qkv, scale, bias16, num_heads, n_win_per_img, mask, out_dtype,
             _DTYPE_CODE[qkv.dtype], _DTYPE_CODE[out_dtype], _THREADS,
             _stream(qkv.device))
     check_launch(lib, err, name)
+    if p_out is None:
+        route_launches["fwd_cuda_cores"] += 1
     return out
 
 
@@ -567,25 +721,46 @@ def _checked_cotangent(g, qkv, B_, N, C):
 def _launch_bwd(qkv, scale, bias16, g, num_heads, n_win_per_img, mask):
     from fr_tpu_torch.ops._build import check_launch, load_library
 
+    tc = _windows_route(qkv, num_heads)
     (B_, N, C), qkv, scale, bias16, mask = _checked_operands(
-        qkv, scale, bias16, num_heads, n_win_per_img, mask, _bwd_smem_bytes,
-        _BWD_SMEM_LIMIT)
+        qkv, scale, bias16, num_heads, n_win_per_img, mask,
+        *(_tc_check(True, mask is not None) if tc
+          else (_bwd_smem_bytes, _BWD_SMEM_LIMIT)))
     g = _checked_cotangent(g, qkv, B_, N, C)
     dev = qkv.device
     cols = N * N + 1
     dqkv = torch.empty_like(qkv)
-    partial = torch.empty((B_ * num_heads, cols), dtype=torch.float32,
-                          device=dev)
     sums = torch.empty((num_heads, cols), dtype=torch.float32, device=dev)
     lib = load_library()
-    with torch.cuda.device(dev):
-        err = lib.window_attn_bwd(
-            qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
-            mask.data_ptr() if mask is not None else None, g.data_ptr(),
-            dqkv.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-            B_, N, C, num_heads, n_win_per_img, _DTYPE_CODE[qkv.dtype],
-            _BWD_THREADS, _stream(dev))
-    check_launch(lib, err, "window_attn_bwd")
+    if tc:
+        vec, (qkv, g) = _tc_operands(C // num_heads, C, qkv, g)
+        masked = mask is not None
+        wpc, ctas = tensor_core_plan(
+            B_, n_win_per_img, num_heads, masked,
+            _tc_slots("window_attn_bwd_tc_occupancy", dev.index or 0, N, C,
+                      num_heads, int(masked)))
+        partial = torch.empty((ctas * num_heads, cols), dtype=torch.float32,
+                              device=dev)
+        with torch.cuda.device(dev):
+            err = lib.window_attn_bwd_tc(
+                qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
+                mask.data_ptr() if mask is not None else None, g.data_ptr(),
+                dqkv.data_ptr(), partial.data_ptr(), sums.data_ptr(),
+                B_, N, C, num_heads, n_win_per_img, wpc, vec, _stream(dev))
+        check_launch(lib, err, "window_attn_bwd_tc")
+        route_launches["bwd_tensor_cores"] += 1
+    else:
+        partial = torch.empty((B_ * num_heads, cols), dtype=torch.float32,
+                              device=dev)
+        with torch.cuda.device(dev):
+            err = lib.window_attn_bwd(
+                qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
+                mask.data_ptr() if mask is not None else None, g.data_ptr(),
+                dqkv.data_ptr(), partial.data_ptr(), sums.data_ptr(),
+                B_, N, C, num_heads, n_win_per_img, _DTYPE_CODE[qkv.dtype],
+                _BWD_THREADS, _stream(dev))
+        check_launch(lib, err, "window_attn_bwd")
+        route_launches["bwd_cuda_cores"] += 1
     dbias = sums[:, :N * N].reshape(num_heads, N, N).contiguous()
     return dqkv, sums[:, N * N].contiguous(), dbias
 

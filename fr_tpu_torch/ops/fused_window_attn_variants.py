@@ -32,7 +32,10 @@ made, and dW comes back in it.
 
 Launch counters (ROADMAP §2 rows):
 
-    row 17  fused_window_attention_spatial.launches, .backward_launches
+    row 17  fused_window_attention_spatial.launches, .backward_launches;
+            bf16 at N ≤ 64 takes the tensor-core kernels, as the windows
+            API does (fused_window_attn.tensor_core_route), and every
+            launch also counts on fused_window_attn.route_launches
     row 18  fused_window_attention_packed_qkv.launches (forward),
             .backward_launches (the all-in-kernel backward); the hybrid
             backward counts on window_attention_backward.launches (row 2)
@@ -51,8 +54,9 @@ from fr_tpu_torch.ops.fused_window_attn import (
     _BWD_SMEM_LIMIT, _BWD_THREADS, _DTYPE_CODE, _SMEM_LIMIT, _THREADS, _bump,
     _bwd_smem_bytes, _checked_cotangent, _checked_operands, _checked_params,
     _device, _grad_products, _smem_bytes, _softmax_probs, _stream,
-    checked_head_group, window_attention_backward, window_attention_backward_reference,
-    window_attention_reference)
+    _tc_check, _tc_operands, _tc_slots, checked_head_group, route_launches,
+    tensor_core_plan, tensor_core_route, window_attention_backward,
+    window_attention_backward_reference, window_attention_reference)
 
 # fr_tpu's backward switch for the entry-fused op (variants.py:577): True is
 # the hybrid backward, False the all-in-kernel one.
@@ -113,6 +117,12 @@ def window_attention_spatial_backward_reference(
     return _from_windows(dqkv, B, H, W, ws), dscale, dbias
 
 
+def _spatial_route(qkv, num_heads, ws) -> bool:
+    """tensor_core_route for a spatial qkv (B, H, W, 3C)."""
+    return (qkv.dim() == 4 and tensor_core_route(
+        qkv.dtype, ws * ws, qkv.shape[3] // 3 // num_heads))
+
+
 def _spatial_operands(qkv, scale, bias16, num_heads, ws, mask, smem_bytes,
                       smem_limit):
     """Validates what the spatial kernels take; returns (B, H, W, C) and the
@@ -136,28 +146,52 @@ def _spatial_operands(qkv, scale, bias16, num_heads, ws, mask, smem_bytes,
 def _launch_spatial(qkv, scale, bias16, num_heads, ws, mask):
     from fr_tpu_torch.ops._build import check_launch, load_library
 
+    tc = _spatial_route(qkv, num_heads, ws)
     (B, H, W, C), qkv, scale, bias16, mask = _spatial_operands(
-        qkv, scale, bias16, num_heads, ws, mask, _smem_bytes, _SMEM_LIMIT)
+        qkv, scale, bias16, num_heads, ws, mask,
+        *(_tc_check(False, mask is not None) if tc
+          else (_smem_bytes, _SMEM_LIMIT)))
     out = torch.empty((B, H, W, C), dtype=torch.float32, device=qkv.device)
     if B == 0:
         return out
     lib = load_library()
     with torch.cuda.device(qkv.device):
-        err = lib.window_attn_spatial_fwd(
-            qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
-            mask.data_ptr() if mask is not None else None, out.data_ptr(),
-            B, H, W, C, num_heads, ws, _DTYPE_CODE[qkv.dtype],
-            _DTYPE_CODE[torch.float32], _THREADS, _stream(qkv.device))
-    check_launch(lib, err, "window_attn_spatial_fwd")
+        if tc:
+            nw = (H // ws) * (W // ws)
+            vec, (qkv,) = _tc_operands(C // num_heads, C, qkv)
+            masked = mask is not None
+            wpc, _ = tensor_core_plan(
+                B * nw, nw, num_heads, masked,
+                _tc_slots("window_attn_spatial_tc_occupancy",
+                          qkv.device.index or 0, ws * ws, C, num_heads,
+                          int(masked), 0))
+            name = "window_attn_spatial_fwd_tc"
+            err = lib.window_attn_spatial_fwd_tc(
+                qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
+                mask.data_ptr() if mask is not None else None,
+                out.data_ptr(), B, H, W, C, num_heads, ws, wpc, vec,
+                _stream(qkv.device))
+        else:
+            name = "window_attn_spatial_fwd"
+            err = lib.window_attn_spatial_fwd(
+                qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
+                mask.data_ptr() if mask is not None else None,
+                out.data_ptr(), B, H, W, C, num_heads, ws,
+                _DTYPE_CODE[qkv.dtype], _DTYPE_CODE[torch.float32],
+                _THREADS, _stream(qkv.device))
+    check_launch(lib, err, name)
+    route_launches["fwd_tensor_cores" if tc else "fwd_cuda_cores"] += 1
     return out
 
 
 def _launch_spatial_bwd(qkv, scale, bias16, g, num_heads, ws, mask):
     from fr_tpu_torch.ops._build import check_launch, load_library
 
+    tc = _spatial_route(qkv, num_heads, ws)
     (B, H, W, C), qkv, scale, bias16, mask = _spatial_operands(
-        qkv, scale, bias16, num_heads, ws, mask, _bwd_smem_bytes,
-        _BWD_SMEM_LIMIT)
+        qkv, scale, bias16, num_heads, ws, mask,
+        *(_tc_check(True, mask is not None) if tc
+          else (_bwd_smem_bytes, _BWD_SMEM_LIMIT)))
     N = ws * ws
     nw = (H // ws) * (W // ws)
     dev = qkv.device
@@ -168,18 +202,35 @@ def _launch_spatial_bwd(qkv, scale, bias16, g, num_heads, ws, mask):
     g = g.to(qkv.dtype).contiguous()
     cols = N * N + 1
     dqkv = torch.empty_like(qkv)
-    partial = torch.empty((B * nw * num_heads, cols), dtype=torch.float32,
-                          device=dev)
     sums = torch.empty((num_heads, cols), dtype=torch.float32, device=dev)
     lib = load_library()
+    f32 = dict(dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.window_attn_spatial_bwd(
-            qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
-            mask.data_ptr() if mask is not None else None, g.data_ptr(),
-            dqkv.data_ptr(), partial.data_ptr(), sums.data_ptr(), B, H, W, C,
-            num_heads, ws, _DTYPE_CODE[qkv.dtype], _BWD_THREADS,
-            _stream(dev))
-    check_launch(lib, err, "window_attn_spatial_bwd")
+        if tc:
+            vec, (qkv, g) = _tc_operands(C // num_heads, C, qkv, g)
+            masked = mask is not None
+            wpc, ctas = tensor_core_plan(
+                B * nw, nw, num_heads, masked,
+                _tc_slots("window_attn_spatial_tc_occupancy", dev.index or 0,
+                          N, C, num_heads, int(masked), 1))
+            partial = torch.empty((ctas * num_heads, cols), **f32)
+            name = "window_attn_spatial_bwd_tc"
+            err = lib.window_attn_spatial_bwd_tc(
+                qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
+                mask.data_ptr() if mask is not None else None, g.data_ptr(),
+                dqkv.data_ptr(), partial.data_ptr(), sums.data_ptr(), B, H,
+                W, C, num_heads, ws, wpc, vec, _stream(dev))
+        else:
+            partial = torch.empty((B * nw * num_heads, cols), **f32)
+            name = "window_attn_spatial_bwd"
+            err = lib.window_attn_spatial_bwd(
+                qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
+                mask.data_ptr() if mask is not None else None, g.data_ptr(),
+                dqkv.data_ptr(), partial.data_ptr(), sums.data_ptr(), B, H,
+                W, C, num_heads, ws, _DTYPE_CODE[qkv.dtype], _BWD_THREADS,
+                _stream(dev))
+    check_launch(lib, err, name)
+    route_launches["bwd_tensor_cores" if tc else "bwd_cuda_cores"] += 1
     dbias = sums[:, :N * N].reshape(num_heads, N, N).contiguous()
     return dqkv, sums[:, N * N].contiguous(), dbias
 

@@ -45,6 +45,17 @@ def pfc_config_from_conf(conf) -> PFCConfig:
         sample_block=int(conf.get("sample_block", 1)))
 
 
+def load_encoder_snapshot(path, network: str, img_size=None):
+    """The encoder state dict of ``--ckpt_path`` (fr_tpu's ``load_encoder``,
+    ckpt/checkpoint.py:155-162): a reference ``.pth``/``.pt`` snapshot, or
+    else fr_tpu's ``.npz`` layout."""
+    if str(path).endswith((".pth", ".pt")):
+        from fr_tpu_torch.utils.torch_import import load_encoder_pth
+        return load_encoder_pth(path, network)
+    from fr_tpu_torch.utils.jax_import import load_encoder_npz
+    return load_encoder_npz(path, network, img_size)
+
+
 def resolve_device(name) -> torch.device:
     """The device to run on; raises rather than switching when CUDA is
     asked for and absent."""
@@ -60,7 +71,7 @@ class FaceRecognitionTask:
     eval logic on one device. Training batches are uint8 images; the
     train-time augmentation runs on the device, as in fr_tpu."""
 
-    def __init__(self, conf, logger=None, stage: str = "test",
+    def __init__(self, conf, logger=None, stage: str = "train",
                  device="cuda", seed: int = 0):
         if stage not in ("train", "test"):
             raise ValueError(f"stage must be 'train' or 'test', got {stage!r}")
@@ -69,9 +80,7 @@ class FaceRecognitionTask:
         self.device = resolve_device(device)
         self.encoder = init_weights(build_encoder(conf), seed)
         if conf.get("ckpt_path"):
-            # fr_tpu encoder snapshot (weight transfer, fr_tpu task.py:93-99)
-            from fr_tpu_torch.utils.jax_import import load_encoder_npz
-            self.encoder.load_state_dict(load_encoder_npz(
+            self.encoder.load_state_dict(load_encoder_snapshot(
                 conf.ckpt_path, conf.network, conf.img_size), strict=True)
         self.encoder.to(self.device).eval()
         n_params = sum(p.numel() for p in self.encoder.parameters())

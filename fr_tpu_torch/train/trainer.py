@@ -22,8 +22,9 @@ from fr_tpu_torch.utils.logger import print_log
 
 
 class Trainer:
-    def __init__(self, conf, save_dir, mode: str = "test", logger=None):
+    def __init__(self, conf, save_dir, mode: str = "train", logger=None):
         assert mode in ("train", "test"), "Invalid Mode !!!"
+        self.mode = mode
         self.conf = conf
         self.save_dir = Path(save_dir)
         self.logger_ = logger

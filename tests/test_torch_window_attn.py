@@ -15,6 +15,7 @@ from fr_tpu.ops.fused_window_attn import \
     fused_window_attention_packed as jax_packed
 from fr_tpu_torch.models.swin_common import shifted_window_mask
 from fr_tpu_torch.ops import _build
+from fr_tpu_torch.ops import fused_window_attn as F
 from fr_tpu_torch.ops.fused_window_attn import (
     fused_window_attention_packed, window_attention_reference)
 
@@ -148,3 +149,72 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+# (windows, windows per image, heads, masked, CTAs the card holds at once):
+# the main path's tensor-core calls (six or four CTAs an SM, 132 SMs) and
+# small ones whose runs of windows end ragged (prime image counts, few
+# slots so that the runs are long, a mask with more slices than slots)
+PLANS = [(2048, 16, 4, True, 528), (2048, 16, 4, False, 792),
+         (512, 4, 8, True, 528), (512, 1, 16, False, 2112),
+         (512, 4, 8, False, 792), (128, 1, 16, False, 792),
+         (4 * 13, 4, 8, True, 10), (37, 1, 3, False, 4),
+         (16 * 3, 16, 2, True, 5), (41, 1, 8, False, 7)]
+
+
+@pytest.mark.parametrize("plan", PLANS, ids=lambda p: "-".join(map(str, p)))
+def test_tensor_core_plan_covers_each_window_and_head_once(plan):
+    """The tensor-core kernels' launch plan, which the wrapper computes and
+    window_attn_tc.cuh walks: every (window, head) in exactly one block, at
+    most the plan's windows per block, one mask slice per block when
+    masked, the backward's scratch one row per block, and one wave of CTAs
+    unless a block already takes a whole mask slice."""
+    n_windows, nw, heads, masked, slots = plan
+    wpc, ctas = F.tensor_core_plan(n_windows, nw, heads, masked, slots)
+    seen = []
+    for block in range(ctas * heads):
+        h, windows = F.tensor_core_windows(block, n_windows, nw, heads,
+                                           masked, slots)
+        assert 1 <= len(windows) <= wpc
+        if masked:
+            assert len({w % nw for w in windows}) == 1
+        seen += [(w, h) for w in windows]
+    assert len(seen) == len(set(seen)) == n_windows * heads
+    assert set(seen) == {(w, h) for w in range(n_windows)
+                         for h in range(heads)}
+    per_slice = n_windows // (nw if masked else 1)
+    assert ctas * heads <= F._TC_WAVES * slots or wpc == per_slice
+    # and no shorter run would have fit one wave
+    if wpc > 1:
+        shorter = -(-per_slice // (wpc - 1)) * (nw if masked else 1)
+        assert shorter * heads > F._TC_WAVES * slots
+
+
+def test_tensor_core_route_and_shared_memory():
+    """bf16 with N and an even head dim up to 64 takes the tensor cores;
+    f32, odd head dims and larger tiles do not. Every such tile's CTA fits
+    the card's 227 KB of shared memory, masked and in the backward."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert F.tensor_core_route(bf, 49, 38) and F.tensor_core_route(bf, 9, 32)
+    assert not F.tensor_core_route(f32, 49, 32)
+    assert not F.tensor_core_route(bf, 81, 32)
+    assert not F.tensor_core_route(bf, 49, 72)
+    assert not F.tensor_core_route(bf, 49, 33)
+    worst = max(F._tc_smem_bytes(n, hd, True, True)
+                for n in range(1, 65) for hd in range(2, 65, 2))
+    assert worst == F._tc_smem_bytes(64, 64, True, True) <= 227 * 1024
+    # N = 49, head dim 32: bias (49, 72) f32, zero row and two stages of
+    # q, k, v as (49, 40) bf16
+    assert F._tc_smem_bytes(49, 32, False, False) == \
+        4 * 49 * 72 + 2 * (40 + 6 * 49 * 40)
+
+
+def test_tensor_core_switch_routes_every_call_to_the_cuda_cores(monkeypatch):
+    """With fused_window_attn.TENSOR_CORES off, bf16 within the tile takes
+    the CUDA-core kernels too (the arithmetic the stored-stats and
+    entry-fused kernels share); the default is on."""
+    assert F.TENSOR_CORES is True
+    monkeypatch.setattr(F, "TENSOR_CORES", False)
+    assert not F.tensor_core_route(torch.bfloat16, 49, 32)
+    assert not F._windows_route(torch.empty(2, 49, 3 * 64,
+                                            dtype=torch.bfloat16), 2)

@@ -13,6 +13,7 @@ import torch
 
 from fr_tpu_torch.models.swin_common import shifted_window_mask
 from fr_tpu_torch.ops import fused_window_attn as F
+from test_torch_window_attn_cuda import routes_moved
 
 # 112 px, b = 128: (B·nW, heads, head dim, windows per image, shift-masked)
 CARD_SHAPES = {"swin50_s3": (512, 8, 32, 4, False),
@@ -102,3 +103,24 @@ def test_no_grad_call_runs_the_forward_alone(cuda_device):
     assert (F.fused_window_attention.launches,
             F.fused_window_attention.stats_launches) == \
         (before[0] + 1, before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", list(CARD_SHAPES))
+def test_perhead_entry_takes_the_route_of_its_dtype(cuda_device, shape,
+                                                    dtype):
+    """Under autograd at the Swin50 and EffiAlter_m shapes (N 49, head dims
+    32 and 38), bf16 runs the forward and the backward on the tensor cores
+    and f32 on the CUDA cores: one launch each on that route's counters,
+    none on the other's."""
+    dt = DTYPES[dtype]
+    qkv, scale, bias16, g, mask, nw = attention_inputs(CARD_SHAPES[shape],
+                                                       dt, cuda_device, 1)
+    body = "tensor_cores" if dtype == "bf16" else "cuda_cores"
+    q = qkv.clone().requires_grad_(True)
+    _, moved = routes_moved(lambda: F.fused_window_attention(
+        q, scale, bias16, scale.shape[0], nw, mask, out_dtype=dt).backward(g))
+    torch.cuda.synchronize()
+    assert moved == {f"fwd_{body}": 1, f"bwd_{body}": 1}
+    assert torch.isfinite(q.grad.float()).all()

@@ -1,8 +1,9 @@
 """The Hopper kernels of the attention variants against their plain PyTorch
 versions, on the card: the spatial forward and backward
-(csrc/window_attn_spatial.cu), the entry-fused forward and all-in-kernel
-backward (csrc/window_attn_qkv.cu), and the grouped route of the packed
-entry (the row-1 and row-2 kernels at the grouped shapes). Imports no jax,
+(csrc/window_attn_spatial.cu; in bf16 the tensor-core kernels of
+window_attn_tc.cuh on the spatial row layout), the entry-fused forward and
+all-in-kernel backward (csrc/window_attn_qkv.cu), and the grouped route of
+the packed entry (the row-1 and row-2 kernels at the grouped shapes). Imports no jax,
 so it also runs on a machine without it:
 
     python -m pytest tests/test_torch_window_attn_variants_cuda.py \
@@ -24,6 +25,7 @@ import torch
 from fr_tpu_torch.models.swin_common import shifted_window_mask
 from fr_tpu_torch.ops import fused_window_attn as F
 from fr_tpu_torch.ops import fused_window_attn_variants as V
+from test_torch_window_attn_cuda import routes_moved
 
 # AlterNet50 at 192 px, b = 128 images: (resolution, window, heads)
 ALTERNET50 = [(24, 6, 4), (12, 6, 8), (6, 3, 16)]
@@ -219,3 +221,53 @@ def test_grouped_route_on_card(cuda_device, shape, masked):
     ref = F.window_attention_backward_reference(q, scale, bias16, g, heads,
                                                 mask)
     _assert_grads(("dqkv",), (qkv.grad,), ref[:1], "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", [(3, 24, 6, 4, 32), (5, 12, 6, 8, 32),
+                                   (7, 6, 3, 16, 32), (3, 14, 7, 8, 38)],
+                         ids=lambda s: f"B{s[0]}r{s[1]}ws{s[2]}hd{s[4]}")
+def test_spatial_tensor_core_route(cuda_device, shape, masked):
+    """bf16 on the spatial layout takes the tensor-core kernels (N 36, 9,
+    49; head dims 32 and 38; image counts that leave ragged CTAs), one
+    launch each on the tensor-core counters, and matches the plain
+    versions."""
+    B, res, ws, heads, hd = shape
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(B + res + hd)
+    C = heads * hd
+    qkv = torch.randn(B, res, res, 3 * C, device=dev, generator=gen).to(
+        torch.bfloat16)
+    scale, bias16 = _params(heads, ws * ws, dev, gen)
+    g = torch.randn(B, res, res, C, device=dev, generator=gen)
+    mask = _mask(res, ws, masked and res > ws, dev)
+    (out, grads), moved = routes_moved(lambda: (
+        V.fused_window_attention_spatial(qkv, scale, bias16, heads, ws, mask),
+        V.spatial_attention_backward(qkv, scale, bias16, g, heads, ws,
+                                     mask)))
+    torch.cuda.synchronize()
+    assert moved == {"fwd_tensor_cores": 1, "bwd_tensor_cores": 1}
+    _assert_out(out, V.window_attention_spatial_reference(
+        qkv, scale, bias16, heads, ws, mask), "bf16")
+    _assert_grads(("dqkv", "dscale", "dbias"), grads,
+                  V.window_attention_spatial_backward_reference(
+                      qkv, scale, bias16, g, heads, ws, mask), "bf16")
+
+
+@pytest.mark.cuda
+def test_grouped_route_runs_on_tensor_cores(cuda_device):
+    """The grouped route (rows 15/16) takes the tensor-core kernels in
+    bf16: one forward and one backward launch on their counters."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    heads, C = 16, 512
+    qkv = torch.randn(128, 49, 3 * C, device=dev, generator=gen).to(
+        torch.bfloat16).requires_grad_(True)
+    scale, bias16 = _params(heads, 49, dev, gen)
+    g = torch.randn(128, 49, C, device=dev, generator=gen).to(torch.bfloat16)
+    _, moved = routes_moved(lambda: F.fused_window_attention_packed(
+        qkv, scale, bias16, heads, 1, out_dtype=torch.bfloat16,
+        head_group=4).backward(g))
+    torch.cuda.synchronize()
+    assert moved == {"fwd_tensor_cores": 1, "bwd_tensor_cores": 1}
