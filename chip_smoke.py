@@ -92,14 +92,17 @@ Phases; any failure exits non-zero and prints no result:
     0 (the path that launches rows 15/16; no model takes it); the spatial
     kernels at the AlterNet50 shapes and Swin50's window-7 ones, beside
     partition + row-1/row-2 kernel + reverse; the entry-fused forward and
-    all-in-kernel backward at the AlterNet50 shapes, beside F.linear + the
-    row-1 kernel and the hybrid backward, their sums repeated bit for bit;
-    masked and unmasked, bf16 and f32;
+    all-in-kernel backward at the AlterNet50 shapes (the bf16 forward on
+    the tensor cores, route checked), beside the forward's CUDA-core body,
+    F.linear + the row-1 kernel and the hybrid backward, their sums
+    repeated bit for bit; masked and unmasked, bf16 and f32;
     [alternet50_spatial] / [alternet50_entry_fused] full-width AlterNet50
     through the spatial route and the entry-fused route (hybrid and
     all-in-kernel backward): the golden, three bf16 training steps against
     the windows route (losses 1e-3 relative, 12 + 12 launches per step on
-    the route's counters), ms per step, one f32 encoder backward
+    the route's counters; every forward on the tensor cores, and the
+    backward too except the all-in-kernel one), ms per step, one f32
+    encoder backward
     (gradients norm-wise 1e-3), a torch.profiler breakdown of the route's
     step; every switch restored;
     [alternet_sep50] the serving CLI (1 packed + 9 per-head launches per
@@ -120,7 +123,9 @@ each run with the counts set to 0 just before it. On those paths every
 launch of the attention forward and recompute backward must take the
 tensor-core kernels (fused_window_attn.route_launches, set to 0 with the
 counts): 12 + 12 per AlterNet50 step, 14 + 14 per Swin50 step, 4 + 4 per
-EffiAlter_m step.
+EffiAlter_m step; on the entry-fused route 12 + 12 with the hybrid
+backward and 12 + 0 with the all-in-kernel one (its backward is a
+CUDA-core kernel of its own).
 
 The last three lines are the kernel JSON line, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -317,8 +322,10 @@ def phase_build():
     print(f"[build] {time.perf_counter() - t0:.1f} s -> "
           f"{_build.library_path().relative_to(ROOT)}")
     table = _ptxas_table(_build.build_log_path().read_text())
-    check(any(k.endswith("_tc_kernel") for k, *_ in table),
-          "the build log lists no tensor-core kernel")
+    for kernel in ("window_attn_fwd_tc_kernel", "window_attn_bwd_tc_kernel",
+                   "window_attn_qkv_fwd_tc_kernel"):
+        check(any(k == kernel for k, *_ in table),
+              f"the build log lists no {kernel}")
     for kernel, args, regs, st, ld in table:
         print(f"[build] {kernel}<{args}>: {regs} registers, spill stores "
               f"{st} B, loads {ld} B")
@@ -2278,10 +2285,12 @@ def _qkv_check(tag, grads, ref, dt):
 
 def _qkv_cases():
     """Row 18 against its plain versions at the AlterNet50 shapes, masked
-    and unmasked, bf16 and f32: the forward and the all-in-kernel backward,
-    its sums repeated bit for bit; times in bf16 with F.linear + the row-1
-    kernel (the forward it replaces), the hybrid backward, and SDPA (not
-    the same function)."""
+    and unmasked, bf16 and f32: the forward (bf16 on the tensor-core body,
+    f32 on the CUDA-core one, each call's route checked) and the
+    all-in-kernel backward, its sums repeated bit for bit; times in bf16
+    with the CUDA-core body on the same inputs, F.linear + the row-1 kernel
+    (the same function, unfused), the hybrid backward, and SDPA (not the
+    same function)."""
     import torch
     import torch.nn.functional as Fn
     from fr_tpu_torch.ops import fused_window_attn as F
@@ -2298,13 +2307,21 @@ def _qkv_cases():
                 qkv, scale, bias16, g, mask, nw = _attention_inputs(
                     bw, n, heads, res, ws, masked, dt, gen)
                 x = torch.randn(bw, n, c, device="cuda", generator=gen).to(dt)
-                w = 0.1 * torch.randn(3 * c, c, device="cuda", generator=gen)
+                # qkv ~ N(0, 1) as rows 1/2's inputs, so that |out| < 4,
+                # where BF16_TOL is two bf16 ulps
+                w = torch.randn(3 * c, c, device="cuda",
+                                generator=gen) / c ** 0.5
                 b = 0.1 * torch.randn(3 * c, device="cuda", generator=gen)
                 tag = (f"[kernel_variants] qkv {name} "
                        f"{'masked' if masked else 'unmasked'} "
                        f"{str(dt).split('.')[-1]}")
-                out = V.fused_window_attention_packed_qkv(
-                    x, w, b, scale, bias16, heads, nw, mask, out_dtype=dt)
+                route, out = _route_of(
+                    lambda: V.fused_window_attention_packed_qkv(
+                        x, w, b, scale, bias16, heads, nw, mask,
+                        out_dtype=dt))
+                check(route == ("tensor_cores" if dt == torch.bfloat16
+                                else "cuda_cores"),
+                      f"{tag}: the forward took the {route} body")
                 grads = V.qkv_attention_backward(x, w, b, scale, bias16, g,
                                                  heads, nw, mask)
                 torch.cuda.synchronize()
@@ -2338,6 +2355,10 @@ def _qkv_cases():
                      "fwd_plain": time_ms(
                          lambda: V.window_attention_qkv_reference(
                              x, w, b, scale, bias16, heads, mask, dt)),
+                     "fwd_cc": _cuda_core_ms(
+                         lambda: V.fused_window_attention_packed_qkv(
+                             x, w, b, scale, bias16, heads, nw, mask,
+                             out_dtype=dt)),
                      "fwd_chain": time_ms(linear_row1),
                      "fwd_lib": _library_fwd_ms(q0, scale, bias16, mask,
                                                 heads),
@@ -2354,8 +2375,9 @@ def _qkv_cases():
                 print(f"[kernel_variants] qkv {name} "
                       f"{'masked' if masked else 'unmasked'} x "
                       f"{tuple(x.shape)} h{heads}: fwd {t['fwd']:.4f} (plain "
-                      f"{t['fwd_plain']:.4f}, F.linear+row1 "
-                      f"{t['fwd_chain']:.4f}, sdpa {t['fwd_lib']:.4f}); "
+                      f"{t['fwd_plain']:.4f}, CUDA cores {t['fwd_cc']:.4f}, "
+                      f"F.linear+row1 {t['fwd_chain']:.4f}, sdpa "
+                      f"{t['fwd_lib']:.4f}); "
                       f"all-in-kernel bwd {t['bwd']:.4f} (plain "
                       f"{t['bwd_plain']:.4f}, hybrid {t['bwd_hybrid']:.4f}, "
                       f"sdpa {t['bwd_lib']:.4f}) ms")
@@ -2560,14 +2582,14 @@ def phase_alternet50_routes(steps: int = 3, timed: int = 5):
             losses[route] = [task.training_step((images[i], labels[i]))[
                 "loss"].item() for i in range(steps)]
             launches[route] = tuple(getattr(f, a) for f, a in counters)
-            # the windows and spatial routes run both bodies on the tensor
-            # cores; the entry-fused forward is its own kernel, and only
-            # the hybrid backward runs the row-2 body
+            # every route's forward runs on the tensor cores; the
+            # all-in-kernel backward is its own CUDA-core kernel, the other
+            # backwards run the row-2 body
             _check_routes(f"{tag} {route}:", *{
                 "windows": (12 * steps, 12 * steps),
                 "spatial": (12 * steps, 12 * steps),
-                "entry_fused": (0, 12 * steps),
-                "entry_fused_allkernel": (0, 0)}[route])
+                "entry_fused": (12 * steps, 12 * steps),
+                "entry_fused_allkernel": (12 * steps, 0)}[route])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for i in range(steps, steps + timed):
@@ -2812,7 +2834,8 @@ def _variant_entries(errs, times, launches):
                      ("qkv", "bwd"): launches["entry_fused_allkernel"][1]}[
                          (key, kind)]
             out.append(_entry(f"window_attn_{key}_{kind}"
-                              + ("_tc" if key == "spatial" else ""), src,
+                              + ("_tc" if (key, kind) != ("qkv", "bwd")
+                                 else ""), src,
                               f"{var}:{line}", count, errs[key][kind],
                               mix["ms"], mix["plain"], (mix["bound"], by),
                               mix["lib"]))
@@ -3082,6 +3105,14 @@ def main() -> None:
                   (1, 2, 5, 6), (fwd["ms"], bwd["ms"],
                                  _perhead_mix(times_ph, "fwd"),
                                  _perhead_mix(times_ph, "bwd")), cc)))
+    qkv = {k: sum(count * times_v["qkv"][(name, masked)][k]
+                  for name, *_, n_unmasked, n_masked in SHAPES
+                  for masked, count in ((False, n_unmasked),
+                                        (True, n_masked)))
+           for k in ("fwd", "fwd_cc", "fwd_chain")}
+    print(f"[summary] row 18, bf16, the 12 AlterNet50 sites of one call: "
+          f"tensor cores {qkv['fwd']:.4f} ms against the CUDA-core body "
+          f"{qkv['fwd_cc']:.4f} and F.linear + row 1 {qkv['fwd_chain']:.4f}")
     attn = "fused_window_attn.py"
     # rows 1, 2, 5, 6, 15-17b: the bf16 bodies on the tensor cores
     # (window_attn_tc.cuh; entries in window_attn_fwd.cu, _bwd.cu and

@@ -247,12 +247,19 @@ __device__ __forceinline__ void tc_zero(void* p, int n16) {
 // squares summed in f32 in channel order as the CUDA-core kernels sum
 // them), q̂ = round(q·r) and k̂ = round(k·r) into qn, kn (which may be q, k
 // themselves: a thread rewrites only its own row). With rn not null, also
-// the norms and active flags (Σx² > eps²), q rows first.
+// the norms and active flags (Σx² > eps²), q rows first. The rows go to the
+// CTA's threads, or with tid ≥ 0 to the nthreads threads of a window lane
+// (window_attn_qkv.cu), tid being the thread's index among them. The loop
+// steps in unsigned arithmetic, as threadIdx and blockDim do, so that the
+// default compiles to the same instructions as a loop over them.
 __device__ __forceinline__ void tc_normalize(
     const __nv_bfloat16* q, const __nv_bfloat16* k, __nv_bfloat16* qn,
-    __nv_bfloat16* kn, float* rn, float* act, int N, int hd, int ld) {
+    __nv_bfloat16* kn, float* rn, float* act, int N, int hd, int ld,
+    int tid = -1, unsigned nthreads = 0) {
   const int npairs = hd / 2;
-  for (int rr = threadIdx.x; rr < 2 * N; rr += blockDim.x) {
+  const unsigned first = tid < 0 ? threadIdx.x : static_cast<unsigned>(tid);
+  const unsigned stride = tid < 0 ? blockDim.x : nthreads;
+  for (int rr = first; rr < 2 * N; rr += stride) {
     const bool isq = rr < N;
     const int r = isq ? rr : rr - N;
     const __nv_bfloat162* x =
@@ -815,7 +822,9 @@ cudaError_t launch_bwd_tc(const void* qkv, const void* scale,
 }
 
 // Calls launch<NT, DT>(args...) for the tile counts of N and hd (1..4
-// each): sixteen instantiations per kernel and row layout.
+// each): sixteen instantiations per kernel and row layout. Left defined for
+// the sources that include this header (window_attn_qkv.cu dispatches its
+// tensor-core forward with it).
 #define TC_DISPATCH(launch, N, hd, ...)                                    \
   [&]() -> cudaError_t {                                                  \
     switch (4 * (tc_tiles(N) - 1) + tc_tiles(hd) - 1) {                  \
@@ -919,7 +928,5 @@ int window_attn_tc_occupancy_entry(int N, int C, int num_heads, int masked,
                                       masked != 0, Rows{});
   return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }
-
-#undef TC_DISPATCH
 
 }  // namespace

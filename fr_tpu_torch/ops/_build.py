@@ -138,6 +138,9 @@ def load_library() -> ctypes.CDLL:
         "window_attn_spatial_tc_occupancy": [i32, i32, i32, i32, i32],
         "window_attn_qkv_fwd": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
                                 i32, i32, i32, i32, i32, vp],
+        "window_attn_qkv_fwd_tc": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
+                                   i32, i32, i32, i32, i32, vp],
+        "window_attn_qkv_tc_occupancy": [i32, i32, i32, i32, i32],
         "window_attn_qkv_bwd": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                 vp, vp, i64, i32, i32, i32, i32, i32, i32,
                                 i32, vp],

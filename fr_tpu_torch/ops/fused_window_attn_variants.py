@@ -15,8 +15,21 @@ opts in, as swin_common.WindowAttention does for a listed (window, dim)
     fused_window_attention_packed_qkv  x (B·nW, N, C) and the qkv
         projection's weight and bias → (B·nW, N, C): the projection inside
         the attention kernel (csrc/window_attn_qkv.cu; row 18, fr_tpu's
-        _pkx_fwd and _pkx_bwd_rule). Its backward takes one of fr_tpu's two
-        routes by ``_PKX_HYBRID_BWD``, read at backward time:
+        _pkx_fwd and _pkx_bwd_rule). Its forward has two bodies, picked by
+        dtype and shape (``_qkv_tc_route``), with no fallback from one to
+        the other:
+          tensor cores  bf16 on the row-1 kernel's tile (tensor_core_route),
+                        C a multiple of 16 and a one-lane CTA's shared
+                        memory (_qkv_tc_smem_bytes) within 227 KB, every
+                        AlterNet50 site: window_attn_qkv_fwd_tc, the
+                        projection by mma.sync from the head's slice of W
+                        into the row-1 tensor-core body, several windows a
+                        CTA in window lanes (qkv_tc_lanes picks how many);
+          CUDA cores    f32, bf16 off that tile, or with
+                        fused_window_attn.TENSOR_CORES off:
+                        window_attn_qkv_fwd.
+        Its backward takes one of fr_tpu's two routes by
+        ``_PKX_HYBRID_BWD``, read at backward time:
           True (fr_tpu's default), the hybrid: qkv recomputed with
             torch.matmul (a product outside any kernel in fr_tpu too), the
             row-2 recompute backward kernel, then dx and dW with
@@ -36,9 +49,13 @@ Launch counters (ROADMAP §2 rows):
             bf16 at N ≤ 64 takes the tensor-core kernels, as the windows
             API does (fused_window_attn.tensor_core_route), and every
             launch also counts on fused_window_attn.route_launches
-    row 18  fused_window_attention_packed_qkv.launches (forward),
-            .backward_launches (the all-in-kernel backward); the hybrid
-            backward counts on window_attention_backward.launches (row 2)
+    row 18  fused_window_attention_packed_qkv.launches (forward; each
+            launch also counts on fused_window_attn.route_launches,
+            "fwd_tensor_cores" or "fwd_cuda_cores" by body),
+            .backward_launches (the all-in-kernel backward, CUDA cores, not
+            on route_launches); the hybrid backward counts on
+            window_attention_backward.launches (row 2) and on
+            route_launches as the row-2 kernel does
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises.
@@ -46,6 +63,7 @@ or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -65,6 +83,10 @@ _PKX_HYBRID_BWD = True
 # token rows per dW/db partial of the all-in-kernel backward
 _QKV_CHUNK_ROWS = 2048
 _PROJ_CHUNK = 32   # csrc/window_attn_qkv.cu's kProjChunk
+# window lanes of the tensor-core forward: at most 32 warps a CTA (1,024
+# threads) and 15 lanes (its named barriers 1..15)
+_QKV_MAX_WARPS = 32
+_QKV_MAX_LANES = 15
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +374,7 @@ def window_attention_qkv_backward_reference(
 
 
 def _qkv_smem_bytes(N: int, hd: int, backward: bool) -> int:
-    """Dynamic shared memory of one entry-fused block
+    """Dynamic shared memory of one entry-fused block on the CUDA cores
     (csrc/window_attn_qkv.cu): the forward's or the recompute backward's,
     plus the projection's staging (an x chunk and the head's rows of W),
     plus in the backward the raw q and k."""
@@ -362,8 +384,84 @@ def _qkv_smem_bytes(N: int, hd: int, backward: bool) -> int:
     return _smem_bytes(N, hd) + 4 * stage
 
 
+def _qkv_tc_smem_bytes(N: int, C: int, hd: int, masked: bool,
+                       lanes: int) -> int:
+    """Dynamic shared memory of a tensor-core forward CTA
+    (window_attn_qkv.cu's qkv_tc_smem_bytes). Shared by its window lanes:
+    the f32 bias (and mask) tiles (N, NP + 8) and the head's 3·HDP values of
+    b; a bf16 zero row and the head's slice of W (3·HDP, C + 8). Per lane:
+    the q, k, v tiles (N, HDP + 8) and one x window (N, C + 8). NP and HDP
+    are N and hd padded to 16."""
+    np_ = 16 * -(-N // 16)
+    hdp = 16 * -(-hd // 16)
+    ld = hdp + 8
+    bias = N * (np_ + 8) * (2 if masked else 1)
+    return 4 * (bias + 3 * hdp) + 2 * (ld + 3 * hdp * (C + 8) + lanes * (
+        3 * N * ld + N * (C + 8)))
+
+
+def _qkv_tc_route(x: torch.Tensor, num_heads: int, masked: bool) -> bool:
+    """Whether an entry-fused forward takes the tensor-core body: bf16 on
+    the row-1 kernel's tile (tensor_core_route, which reads TENSOR_CORES),
+    C a multiple of 16 (whole k-steps of the projection, 16-byte copies of
+    x) and a one-lane CTA within the card's 227 KB of shared memory. Every
+    other call takes the CUDA-core kernel."""
+    if x.dim() != 3 or x.shape[2] % num_heads:
+        return False
+    _, N, C = x.shape
+    hd = C // num_heads
+    return (C % 16 == 0 and tensor_core_route(x.dtype, N, hd)
+            and _qkv_tc_smem_bytes(N, C, hd, masked, 1) <= _BWD_SMEM_LIMIT)
+
+
+def qkv_tc_lanes(N: int, C: int, hd: int, masked: bool, ctas_per_sm) -> int:
+    """The window lanes per CTA of the tensor-core forward: of the lane
+    counts whose CTA fits 227 KB (at most _QKV_MAX_WARPS warps and
+    _QKV_MAX_LANES lanes), the one that keeps the most warps resident on an
+    SM, ctas_per_sm(lanes)·lanes·NT (the card's occupancy API, which counts
+    shared memory and registers); a tie goes to more lanes, which stage W
+    fewer times."""
+    nt = -(-N // 16)
+    best, most = 1, -1
+    for lanes in range(1, min(_QKV_MAX_LANES, _QKV_MAX_WARPS // nt) + 1):
+        if _qkv_tc_smem_bytes(N, C, hd, masked, lanes) > _BWD_SMEM_LIMIT:
+            break
+        warps = ctas_per_sm(lanes) * lanes * nt
+        if warps >= most:
+            best, most = lanes, warps
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _qkv_tc_launch(index: int, N: int, C: int, num_heads: int,
+                   masked: bool):
+    """(window lanes, CTAs that card ``index`` holds at once) of the
+    tensor-core forward at these shapes, from
+    window_attn_qkv_tc_occupancy."""
+    from fr_tpu_torch.ops._build import check_launch, load_library
+
+    lib = load_library()
+
+    def per_sm(lanes):
+        with torch.cuda.device(index):
+            n = lib.window_attn_qkv_tc_occupancy(N, C, num_heads, int(masked),
+                                                 lanes)
+        check_launch(lib, -n if n < 0 else 0, "window_attn_qkv_tc_occupancy")
+        return n
+    lanes = qkv_tc_lanes(N, C, C // num_heads, masked, per_sm)
+    ctas = per_sm(lanes)
+    if ctas == 0:
+        raise RuntimeError(f"window_attn_qkv_fwd_tc: no CTA fits on an SM "
+                           f"at N={N}, C={C}, {num_heads} heads")
+    return lanes, ctas * torch.cuda.get_device_properties(
+        index).multi_processor_count
+
+
 def _qkv_operands(x, w, b, scale, bias16, num_heads, n_win_per_img, mask,
-                  backward):
+                  smem_bytes):
+    """Validates what the entry-fused kernels take, with ``smem_bytes(N,
+    hd)`` the body's shared memory; returns (B·nW, N, C) and the operands
+    contiguous."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B·nW, N, C), got {tuple(x.shape)}")
     B_, N, C = x.shape
@@ -374,7 +472,7 @@ def _qkv_operands(x, w, b, scale, bias16, num_heads, n_win_per_img, mask,
     if B_ % n_win_per_img:
         raise ValueError(f"{B_} windows are not whole images of "
                          f"{n_win_per_img}")
-    smem = _qkv_smem_bytes(N, C // num_heads, backward)
+    smem = smem_bytes(N, C // num_heads)
     if smem > _BWD_SMEM_LIMIT:
         raise ValueError(f"N={N}, head dim {C // num_heads} needs {smem} B "
                          f"of shared memory; the kernel takes ≤ "
@@ -390,6 +488,12 @@ def _qkv_operands(x, w, b, scale, bias16, num_heads, n_win_per_img, mask,
                              mask))
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it at a 16-byte-aligned address (a view can start
+    anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_qkv(x, w, b, scale, bias16, num_heads, n_win_per_img, mask,
                 out_dtype):
     from fr_tpu_torch.ops._build import check_launch, load_library
@@ -397,20 +501,47 @@ def _launch_qkv(x, w, b, scale, bias16, num_heads, n_win_per_img, mask,
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"out {out_dtype}: the kernel writes float32 or "
                         f"bfloat16")
+    masked = mask is not None
+    tc = _qkv_tc_route(x, num_heads, masked)
+    if tc:
+        C = x.shape[2]
+
+        def smem(N, hd):
+            return _qkv_tc_smem_bytes(N, C, hd, masked, 1)
+    else:
+        def smem(N, hd):
+            return _qkv_smem_bytes(N, hd, False)
     (B_, N, C), x, w, b, scale, bias16, mask = _qkv_operands(
-        x, w, b, scale, bias16, num_heads, n_win_per_img, mask, False)
+        x, w, b, scale, bias16, num_heads, n_win_per_img, mask, smem)
     out = torch.empty((B_, N, C), dtype=out_dtype, device=x.device)
     if B_ == 0:
         return out
     lib = load_library()
     with torch.cuda.device(x.device):
-        err = lib.window_attn_qkv_fwd(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
-            bias16.data_ptr(), mask.data_ptr() if mask is not None else None,
-            out.data_ptr(), B_, N, C, num_heads, n_win_per_img,
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], _THREADS,
-            _stream(x.device))
-    check_launch(lib, err, "window_attn_qkv_fwd")
+        if tc:
+            x, w = _aligned16(x), _aligned16(w)
+            lanes, slots = _qkv_tc_launch(x.device.index or 0, N, C,
+                                          num_heads, masked)
+            wpc, _ = tensor_core_plan(B_, n_win_per_img, num_heads, masked,
+                                      slots)
+            name = "window_attn_qkv_fwd_tc"
+            err = lib.window_attn_qkv_fwd_tc(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                bias16.data_ptr(),
+                mask.data_ptr() if mask is not None else None,
+                out.data_ptr(), B_, N, C, num_heads, n_win_per_img,
+                _DTYPE_CODE[out_dtype], wpc, lanes, _stream(x.device))
+        else:
+            name = "window_attn_qkv_fwd"
+            err = lib.window_attn_qkv_fwd(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                bias16.data_ptr(),
+                mask.data_ptr() if mask is not None else None,
+                out.data_ptr(), B_, N, C, num_heads, n_win_per_img,
+                _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], _THREADS,
+                _stream(x.device))
+    check_launch(lib, err, name)
+    route_launches["fwd_tensor_cores" if tc else "fwd_cuda_cores"] += 1
     return out
 
 
@@ -419,7 +550,8 @@ def _launch_qkv_bwd(x, w, b, scale, bias16, g, num_heads, n_win_per_img,
     from fr_tpu_torch.ops._build import check_launch, load_library
 
     (B_, N, C), x, w, b, scale, bias16, mask = _qkv_operands(
-        x, w, b, scale, bias16, num_heads, n_win_per_img, mask, True)
+        x, w, b, scale, bias16, num_heads, n_win_per_img, mask,
+        lambda N, hd: _qkv_smem_bytes(N, hd, True))
     g = _checked_cotangent(g, x, B_, N, C)
     dev = x.device
     rows = B_ * N

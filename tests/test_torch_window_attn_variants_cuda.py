@@ -1,8 +1,9 @@
 """The Hopper kernels of the attention variants against their plain PyTorch
 versions, on the card: the spatial forward and backward
 (csrc/window_attn_spatial.cu; in bf16 the tensor-core kernels of
-window_attn_tc.cuh on the spatial row layout), the entry-fused forward and
-all-in-kernel backward (csrc/window_attn_qkv.cu), and the grouped route of
+window_attn_tc.cuh on the spatial row layout), the entry-fused forward
+(csrc/window_attn_qkv.cu: in bf16 the tensor-core body, held also against
+the CUDA-core one) and all-in-kernel backward, and the grouped route of
 the packed entry (the row-1 and row-2 kernels at the grouped shapes). Imports no jax,
 so it also runs on a machine without it:
 
@@ -115,7 +116,10 @@ def _entry_inputs(res, ws, heads, masked, dt, dev, seed):
     N, C = ws * ws, heads * 32
     nw = (res // ws) ** 2
     x = torch.randn(128 * nw, N, C, device=dev, generator=gen).to(dt)
-    w = 0.1 * torch.randn(3 * C, C, device=dev, generator=gen)
+    # qkv ~ N(0, 1), the scale rows 1/2 are held at: the bf16 tolerance is
+    # two ulps at |out| < 4 (0.1·randn put out at up to 11 at C = 512,
+    # where one ulp is 6.25e-2)
+    w = torch.randn(3 * C, C, device=dev, generator=gen) / C ** 0.5
     b = 0.1 * torch.randn(3 * C, device=dev, generator=gen)
     scale, bias16 = _params(heads, N, dev, gen)
     g = torch.randn(128 * nw, N, C, device=dev, generator=gen).to(dt)
@@ -271,3 +275,64 @@ def test_grouped_route_runs_on_tensor_cores(cuda_device):
         head_group=4).backward(g))
     torch.cuda.synchronize()
     assert moved == {"fwd_tensor_cores": 1, "bwd_tensor_cores": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", ALTERNET50,
+                         ids=lambda s: f"r{s[0]}ws{s[1]}h{s[2]}")
+def test_entry_fused_forward_tensor_cores(cuda_device, shape, masked,
+                                          out_dtype, monkeypatch):
+    """bf16 x at the AlterNet50 shapes takes the tensor-core forward, one
+    launch on route_launches["fwd_tensor_cores"], and matches the plain
+    version and the CUDA-core body (TENSOR_CORES off, one launch on
+    "fwd_cuda_cores") in bf16 and f32 output."""
+    res, ws, heads = shape
+    dt, odt = torch.bfloat16, DTYPES[out_dtype]
+    x, w, b, scale, bias16, _, mask, nw = _entry_inputs(
+        res, ws, heads, masked, dt, cuda_device, seed=2 * res + heads)
+
+    def call():
+        return V.fused_window_attention_packed_qkv(
+            x, w, b, scale, bias16, heads, nw, mask, out_dtype=odt)
+    out, moved = routes_moved(call)
+    monkeypatch.setattr(F, "TENSOR_CORES", False)
+    cuda_cores, moved_cc = routes_moved(call)
+    torch.cuda.synchronize()
+    assert moved == {"fwd_tensor_cores": 1}
+    assert moved_cc == {"fwd_cuda_cores": 1}
+    assert out.dtype == odt
+    _assert_out(out, V.window_attention_qkv_reference(
+        x, w, b, scale, bias16, heads, mask, odt), "bf16")
+    _assert_out(out, cuda_cores, "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(49, 8, 38, True, True),
+                                  (36, 4, 18, False, False),
+                                  (81, 2, 32, False, False)],
+                         ids=["N49hd38-tc", "C72-cuda_cores",
+                              "N81-cuda_cores"])
+def test_entry_fused_forward_route_by_shape(cuda_device, case):
+    """Head dim 38 at N 49 (both padded: 64 × 48 tiles) stays on the tensor
+    cores; C = 72 (C % 16 != 0) and N = 81 (beyond the 64-token tile) take
+    the CUDA-core kernel and count there. Each matches the plain version
+    (bf16, three images of windows with the mask, one without)."""
+    N, heads, hd, masked, tc = case
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(N + hd)
+    C, nw = heads * hd, (4 if masked else 1)
+    x = torch.randn(3 * nw, N, C, device=dev, generator=gen).to(
+        torch.bfloat16)
+    w = torch.randn(3 * C, C, device=dev, generator=gen) / C ** 0.5
+    b = 0.1 * torch.randn(3 * C, device=dev, generator=gen)
+    scale, bias16 = _params(heads, N, dev, gen)
+    mask = (torch.where(torch.rand(nw, N, N, device=dev, generator=gen) < 0.3,
+                        -100.0, 0.0) if masked else None)
+    out, moved = routes_moved(lambda: V.fused_window_attention_packed_qkv(
+        x, w, b, scale, bias16, heads, nw, mask, out_dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    assert moved == {"fwd_tensor_cores" if tc else "fwd_cuda_cores": 1}
+    _assert_out(out, V.window_attention_qkv_reference(
+        x, w, b, scale, bias16, heads, mask, torch.bfloat16), "bf16")
