@@ -323,7 +323,9 @@ def phase_build():
           f"{_build.library_path().relative_to(ROOT)}")
     table = _ptxas_table(_build.build_log_path().read_text())
     for kernel in ("window_attn_fwd_tc_kernel", "window_attn_bwd_tc_kernel",
-                   "window_attn_qkv_fwd_tc_kernel"):
+                   "window_attn_qkv_fwd_tc_kernel",
+                   "window_attn_qkv_bwd_tc_kernel",
+                   "window_attn_qkv_grad_mma_kernel"):
         check(any(k == kernel for k, *_ in table),
               f"the build log lists no {kernel}")
     for kernel, args, regs, st, ld in table:
@@ -2054,7 +2056,18 @@ def _variant_bound(kind, windows, n, c, heads, dt, n_mask):
         "qkv_fwd": (2 * rows * c * es + proj + params,
                     2 * rows * c * 3 * c + 2 * attn),
         "qkv_bwd": (3 * rows * c * es + 2 * proj + params + sums,
-                    3 * 2 * rows * c * 3 * c + 5 * attn)}[kind]
+                    3 * 2 * rows * c * 3 * c + 5 * attn),
+        # row 18b by part: the recompute and attend kernel (x, g, W in;
+        # round(dqkv) and the sums out), the dx product (round(dqkv) and
+        # the bf16 W that the sums' part rounds, in; dx out) and the dW
+        # product (round(dqkv), x in; dW f32 out)
+        "qkv_bwd_attend": (2 * rows * c * es + proj + params
+                           + rows * 3 * c * es + sums + 3 * c * 4,
+                           2 * rows * c * 3 * c + 5 * attn),
+        "qkv_bwd_dx": (rows * 3 * c * es + 3 * c * c * es + rows * c * es,
+                       2 * rows * c * 3 * c),
+        "qkv_bwd_dw": (rows * 3 * c * es + rows * c * es + 3 * c * c * 4,
+                       2 * rows * c * 3 * c)}[kind]
     return _bound(nbytes, flops, dt)
 
 
@@ -2262,10 +2275,10 @@ def _qkv_check(tag, grads, ref, dt):
     5e-5·max(|ref|, 1) element-wise, dW and db (sums over every token row,
     in another order) 1e-5 norm-wise; bf16 1e-2 norm-wise and dscale
     3e-2·max(|ref|, 1) (a bf16 rounding of the projection's qkv flips where
-    the f32 sums differ in the last digit). Returns the largest max-abs
-    error."""
+    the f32 sums differ in the last digit). Returns the max-abs error of
+    each gradient, {name: error}."""
     import torch
-    worst = 0.0
+    errs = {}
     for t_name, a, b in zip(("dx", "dw", "db", "dscale", "dbias"), grads,
                             ref):
         a, b = a.float(), b.float()
@@ -2279,25 +2292,62 @@ def _qkv_check(tag, grads, ref, dt):
         else:
             ok = mx <= F32_TOL * max(b.abs().max().item(), 1.0)
         check(ok, f"{tag} {t_name}: max-abs {mx}")
-        worst = max(worst, mx)
-    return worst
+        errs[t_name] = mx
+    return errs
+
+
+def _qkv_bwd_parts(call, reps: int = 10):
+    """Device ms per call of the tensor-core all-in-kernel backward by part,
+    from torch.profiler over ``reps`` calls after one: "attend" the
+    recompute-and-attend kernel, "dx" and "dw" the two mma.sync products,
+    "sums" the fixed-order sums and W's rounding, "other" the wrapper's
+    PyTorch copies (g's rounding, the gradients' slices)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    parts = dict.fromkeys(("attend", "dx", "dw", "sums", "other"), 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n = e.name
+        key = ("attend" if "window_attn_qkv_bwd_tc_kernel" in n else
+               ("dw" if "true" in n or "(bool)1" in n else "dx")
+               if "window_attn_qkv_grad_mma_kernel" in n else
+               "sums" if ("window_sum_kernel" in n
+                          or "window_attn_qkv_round_kernel" in n) else
+               "other")
+        parts[key] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    check(all(parts[k] > 0 for k in ("attend", "dx", "dw", "sums")),
+          f"[kernel_variants] the profile misses a part of row 18b: {parts}")
+    return parts
 
 
 def _qkv_cases():
     """Row 18 against its plain versions at the AlterNet50 shapes, masked
     and unmasked, bf16 and f32: the forward (bf16 on the tensor-core body,
     f32 on the CUDA-core one, each call's route checked) and the
-    all-in-kernel backward, its sums repeated bit for bit; times in bf16
-    with the CUDA-core body on the same inputs, F.linear + the row-1 kernel
-    (the same function, unfused), the hybrid backward, and SDPA (not the
-    same function)."""
+    all-in-kernel backward (the same two bodies, each call's route
+    checked), its sums repeated bit for bit; times in bf16 with the
+    CUDA-core body on the same inputs, F.linear + the row-1 kernel (the
+    same function, unfused), the hybrid backward, SDPA (not the same
+    function), and the tensor-core backward by part (_qkv_bwd_parts) beside
+    the parts' plain versions and one PyTorch call each for dx
+    (torch.matmul in bf16) and dW (torch.mm, bf16 in, f32 sums and out).
+    bf16 also runs the backward on the CUDA-core body (TENSOR_CORES off),
+    checked against the plain version as the tensor-core one is."""
     import torch
     import torch.nn.functional as Fn
     from fr_tpu_torch.ops import fused_window_attn as F
     from fr_tpu_torch.ops import fused_window_attn_variants as V
 
     gen = torch.Generator(device="cuda").manual_seed(13)
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    worst = {"fwd": 0.0, "bwd": 0.0, "bwd_attend": 0.0, "bwd_dx": 0.0,
+             "bwd_dw": 0.0}
     times = {}
     for name, bw, n, heads, res, ws, *_ in SHAPES:
         c = heads * 32
@@ -2322,8 +2372,12 @@ def _qkv_cases():
                 check(route == ("tensor_cores" if dt == torch.bfloat16
                                 else "cuda_cores"),
                       f"{tag}: the forward took the {route} body")
-                grads = V.qkv_attention_backward(x, w, b, scale, bias16, g,
-                                                 heads, nw, mask)
+                route, grads = _route_of(
+                    lambda: V.qkv_attention_backward(
+                        x, w, b, scale, bias16, g, heads, nw, mask))
+                check(route == ("tensor_cores" if dt == torch.bfloat16
+                                else "cuda_cores"),
+                      f"{tag}: the backward took the {route} body")
                 torch.cuda.synchronize()
                 ref = V.window_attention_qkv_reference(
                     x, w, b, scale, bias16, heads, mask, dt)
@@ -2331,16 +2385,45 @@ def _qkv_cases():
                 check(bool(torch.isfinite(out.float()).all()) and err <= tol,
                       f"{tag}: error {err}")
                 worst["fwd"] = max(worst["fwd"], err)
-                worst["bwd"] = max(worst["bwd"], _qkv_check(
+                errs = _qkv_check(
                     tag, grads, V.window_attention_qkv_backward_reference(
-                        x, w, b, scale, bias16, g, heads, mask), dt))
+                        x, w, b, scale, bias16, g, heads, mask), dt)
+                worst["bwd"] = max(worst["bwd"], *errs.values())
                 again = V.qkv_attention_backward(x, w, b, scale, bias16, g,
                                                  heads, nw, mask)
                 check(all(torch.equal(a, a2) for a, a2 in zip(grads, again)),
                       f"{tag}: the sums changed between two runs")
                 if dt != torch.bfloat16:
                     continue
+                # bf16 on the CUDA-core body too (TENSOR_CORES off): the
+                # route of bf16 off the tensor-core tile
+                with _Body(False):
+                    route, grads_cc = _route_of(
+                        lambda: V.qkv_attention_backward(
+                            x, w, b, scale, bias16, g, heads, nw, mask))
+                check(route == "cuda_cores",
+                      f"{tag}: TENSOR_CORES off, the backward took the "
+                      f"{route} body")
+                torch.cuda.synchronize()
+                _qkv_check(f"{tag} (CUDA cores)", grads_cc,
+                           V.window_attention_qkv_backward_reference(
+                               x, w, b, scale, bias16, g, heads, mask), dt)
+                # the parts' errors: the attend kernel makes db, dscale and
+                # dbias, the products dx and dW
+                for part, names in (("attend", ("db", "dscale", "dbias")),
+                                    ("dx", ("dx",)), ("dw", ("dw",))):
+                    worst[f"bwd_{part}"] = max(worst[f"bwd_{part}"], *(
+                        errs[k] for k in names))
                 bias = b.to(dt)
+
+                def attend_plain():
+                    qkv_r = V._project(x, w, b)
+                    p, _ = F._softmax_probs(qkv_r, scale, bias16, heads, mask)
+                    return F._grad_products(qkv_r, scale, p, g, heads)
+
+                d16 = attend_plain()[0].to(dt).reshape(-1, 3 * c)
+                w16 = w.to(dt)
+                x2 = x.reshape(-1, c)
 
                 def linear_row1():
                     q = Fn.linear(x, w.to(dt)) + bias
@@ -2370,7 +2453,20 @@ def _qkv_cases():
                      "bwd_hybrid": time_ms(lambda: V.hybrid_backward(
                          x, w, b, scale, bias16, g, heads, nw, mask)),
                      "bwd_lib": _library_bwd_ms(q0, scale, bias16, mask,
-                                                heads, g)}
+                                                heads, g),
+                     "bwd_cc": _cuda_core_ms(lambda: V.qkv_attention_backward(
+                         x, w, b, scale, bias16, g, heads, nw, mask)),
+                     "bwd_attend_plain": time_ms(attend_plain),
+                     "bwd_dx_plain": time_ms(lambda: torch.matmul(
+                         d16.float(), w16.float()).to(dt)),
+                     "bwd_dx_lib": time_ms(lambda: torch.matmul(d16, w16)),
+                     "bwd_dw_plain": time_ms(lambda: torch.matmul(
+                         d16.float().t(), x2.float())),
+                     "bwd_dw_lib": time_ms(lambda: torch.mm(
+                         d16.t(), x2, out_dtype=torch.float32))}
+                t.update({f"bwd_{k}": v for k, v in _qkv_bwd_parts(
+                    lambda: V.qkv_attention_backward(
+                        x, w, b, scale, bias16, g, heads, nw, mask)).items()})
                 times[(name, masked)] = t
                 print(f"[kernel_variants] qkv {name} "
                       f"{'masked' if masked else 'unmasked'} x "
@@ -2379,8 +2475,16 @@ def _qkv_cases():
                       f"F.linear+row1 {t['fwd_chain']:.4f}, sdpa "
                       f"{t['fwd_lib']:.4f}); "
                       f"all-in-kernel bwd {t['bwd']:.4f} (plain "
-                      f"{t['bwd_plain']:.4f}, hybrid {t['bwd_hybrid']:.4f}, "
-                      f"sdpa {t['bwd_lib']:.4f}) ms")
+                      f"{t['bwd_plain']:.4f}, CUDA cores {t['bwd_cc']:.4f}, "
+                      f"hybrid {t['bwd_hybrid']:.4f}, sdpa "
+                      f"{t['bwd_lib']:.4f}) ms; by part (profiler) attend "
+                      f"{t['bwd_attend']:.4f}, dx {t['bwd_dx']:.4f}, dW "
+                      f"{t['bwd_dw']:.4f}, sums {t['bwd_sums']:.4f}, other "
+                      f"{t['bwd_other']:.4f} (plain attend "
+                      f"{t['bwd_attend_plain']:.4f}, dx "
+                      f"{t['bwd_dx_plain']:.4f}, dW {t['bwd_dw_plain']:.4f};"
+                      f" torch.matmul bf16 dx {t['bwd_dx_lib']:.4f}, "
+                      f"torch.mm bf16 → f32 dW {t['bwd_dw_lib']:.4f}) ms")
     return worst, times
 
 
@@ -2582,14 +2686,10 @@ def phase_alternet50_routes(steps: int = 3, timed: int = 5):
             losses[route] = [task.training_step((images[i], labels[i]))[
                 "loss"].item() for i in range(steps)]
             launches[route] = tuple(getattr(f, a) for f, a in counters)
-            # every route's forward runs on the tensor cores; the
-            # all-in-kernel backward is its own CUDA-core kernel, the other
-            # backwards run the row-2 body
-            _check_routes(f"{tag} {route}:", *{
-                "windows": (12 * steps, 12 * steps),
-                "spatial": (12 * steps, 12 * steps),
-                "entry_fused": (12 * steps, 12 * steps),
-                "entry_fused_allkernel": (12 * steps, 0)}[route])
+            # every route's forward and backward run on the tensor cores:
+            # the all-in-kernel backward its own kernels, the others the
+            # row-2 body
+            _check_routes(f"{tag} {route}:", 12 * steps, 12 * steps)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for i in range(steps, steps + timed):
@@ -2833,12 +2933,32 @@ def _variant_entries(errs, times, launches):
                      ("qkv", "fwd"): launches["entry_fused"][0],
                      ("qkv", "bwd"): launches["entry_fused_allkernel"][1]}[
                          (key, kind)]
-            out.append(_entry(f"window_attn_{key}_{kind}"
-                              + ("_tc" if (key, kind) != ("qkv", "bwd")
-                                 else ""), src,
+            out.append(_entry(f"window_attn_{key}_{kind}_tc", src,
                               f"{var}:{line}", count, errs[key][kind],
                               mix["ms"], mix["plain"], (mix["bound"], by),
                               mix["lib"]))
+    # row 18b's kernels by part, launched once each per backward call
+    t = times["qkv"]
+    for part, kernel in (("attend", "window_attn_qkv_bwd_tc_kernel"),
+                         ("dx", "window_attn_qkv_grad_mma_kernel"),
+                         ("dw", "window_attn_qkv_grad_mma_kernel")):
+        mix = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0}
+        by = "bytes"
+        for name, bw, n, heads, res, ws, n_unmasked, n_masked in SHAPES:
+            for masked, count in ((False, n_unmasked), (True, n_masked)):
+                tt = t[(name, masked)]
+                mix["ms"] += count * tt[f"bwd_{part}"]
+                mix["plain"] += count * tt[f"bwd_{part}_plain"]
+                mix["lib"] += count * tt.get(f"bwd_{part}_lib", 0.0)
+                b, by = _variant_bound(
+                    f"qkv_bwd_{part}", bw, n, heads * 32, heads, bf,
+                    (res // ws) ** 2 if masked else 0)
+                mix["bound"] += count * b
+        out.append(_entry(f"{kernel} (row 18b: {part})", "window_attn_qkv.cu",
+                          f"{var}:754", launches["entry_fused_allkernel"][1],
+                          errs["qkv"][f"bwd_{part}"], mix["ms"],
+                          mix["plain"], (mix["bound"], by),
+                          mix["lib"] if part in ("dx", "dw") else None))
     return out
 
 
@@ -3113,6 +3233,19 @@ def main() -> None:
     print(f"[summary] row 18, bf16, the 12 AlterNet50 sites of one call: "
           f"tensor cores {qkv['fwd']:.4f} ms against the CUDA-core body "
           f"{qkv['fwd_cc']:.4f} and F.linear + row 1 {qkv['fwd_chain']:.4f}")
+    qkv = {k: sum(count * times_v["qkv"][(name, masked)][k]
+                  for name, *_, n_unmasked, n_masked in SHAPES
+                  for masked, count in ((False, n_unmasked),
+                                        (True, n_masked)))
+           for k in ("bwd", "bwd_cc", "bwd_hybrid", "bwd_attend", "bwd_dx",
+                     "bwd_dw", "bwd_sums", "bwd_other")}
+    print(f"[summary] row 18b, bf16, the 12 AlterNet50 sites of one call: "
+          f"tensor cores {qkv['bwd']:.4f} ms (by part: attend "
+          f"{qkv['bwd_attend']:.4f}, dx {qkv['bwd_dx']:.4f}, dW "
+          f"{qkv['bwd_dw']:.4f}, sums {qkv['bwd_sums']:.4f}, other "
+          f"{qkv['bwd_other']:.4f}) against the CUDA-core body "
+          f"{qkv['bwd_cc']:.4f} and the hybrid backward "
+          f"{qkv['bwd_hybrid']:.4f}")
     attn = "fused_window_attn.py"
     # rows 1, 2, 5, 6, 15-17b: the bf16 bodies on the tensor cores
     # (window_attn_tc.cuh; entries in window_attn_fwd.cu, _bwd.cu and

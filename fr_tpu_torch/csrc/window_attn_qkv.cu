@@ -49,22 +49,53 @@
 //    chunks of 32 channels, f32 accumulators in shared memory, one rounding
 //    at the end, then the forward body shared with the other forwards
 //    (fwd_attend, window_attn_common.cuh).
-// The backward kernel recomputes qkv as the CUDA-core forward does,
-// keeps the raw q and k for the L2-norm backward and runs the shared
-// recompute-backward body (bwd_attend, window_attn_bwd.cuh), writing dqkv
-// in f32 to a scratch buffer. Two products follow as hand-written tiled
-// kernels (64×64 tiles, 16 deep, f32 FMAs): dx = round(dqkv)·round(Wt), and
-// per chunk of 2,048 token rows a dWt partial with db in its last column.
-// The partials and the per-(window, head) dscale/dbias partials are summed
-// in a fixed order by window_attn_common.cuh's second pass: the same bits on
-// every run, which atomics would not give. Per-window partials would not
-// do: a (384, 128) dWt per window at 2,048 windows is 400 MB.
+// The all-in-kernel backward has two bodies too, chosen by the wrapper
+// (_qkv_bwd_tc_route) and counted on route_launches as "bwd_tensor_cores"
+// or "bwd_cuda_cores":
+//  - window_attn_qkv_bwd_tc (bf16 on the same tile, its one-lane CTA within
+//    227 KB: every AlterNet50 site), six launches. (1)
+//    window_attn_qkv_bwd_tc_kernel: a CTA holds head h and walks a run of
+//    windows under TcPlan in window lanes, as the tensor-core forward does;
+//    it stages the head's bf16 slice of W and b once. Per window a lane's x
+//    and g windows land by cp.async (the next ones during this window's
+//    attention; g in two tiles), warp i projects query rows 16i.. with
+//    mma.sync into the raw q, k, v tiles, and the row-2 kernel's recompute
+//    backward follows: tc_normalize, then the per-window body that both
+//    kernels call (tc_bwd_window, window_attn_tc.cuh) with the lane's
+//    barrier in place of the CTA's and a hook that sees dq, dk and dv in
+//    f32, and at the end tc_store_partial's dbias and dscale; a launch
+//    bound of 384 threads at N > 32 holds its registers to 168, so that
+//    four lanes of N = 36 fit an SM's register file (the wrapper picks the
+//    lanes by the occupancy API, as for the forward). The f32
+//    dq, dk and dv fragments are summed by column into the lane's db sum
+//    (the two rows of a thread, the warp's rows by shuffles, the warps,
+//    then the lane's windows in order) before they are rounded once into a
+//    bf16 dqkv (rows, 3C): the round(dqkv) that dx and dW take, so no f32
+//    dqkv goes through device memory. Each lane writes one partial row
+//    (dbias, dscale, db). (2) window_sum_kernel adds the rows in a fixed
+//    order. (3) window_attn_qkv_round_kernel rounds Wt to bf16 once, as
+//    fr_tpu's kernel does (wT.astype(compute)). (4, 5)
+//    window_attn_qkv_grad_mma_kernel, one mma.sync.m16n8k16 product for
+//    both: dx = round(dqkv·W16) and, per chunk of token rows, an f32 dWt
+//    partial = dqkvᵀ·x; 128 × 64 tiles of 8 warps, 32-deep k tiles by
+//    16-byte cp.async in two stages, the chunk sized so the grid fills the
+//    card. (6) window_sum_kernel adds the dWt partials in a fixed order.
+//    The sums are the same bits on every run; no atomics.
+//  - window_attn_qkv_bwd (f32, bf16 off that tile, TENSOR_CORES off), five
+//    launches: the recompute as the CUDA-core forward, the shared recompute
+//    backward body (bwd_attend, window_attn_bwd.cuh) writing dqkv in f32 to
+//    scratch, then proj_grad_gemm_kernel (64×64 tiles, 16 deep, f32 FMAs)
+//    for dx and, per chunk of 2,048 token rows, a dWt partial with db in
+//    its last column; window_sum_kernel for the partials.
 //
-// What bounds it on the card: at the AlterNet widths the projection's
-// operations (2·3C·C per token row forward, three times that backward):
-// 0.1 ms of the tensor cores' peak for the forward's twelve AlterNet50
-// sites of one call; then device-memory bytes (x, g in; out, dx out; dqkv
-// through scratch in the backward). The backward stays on the CUDA cores.
+// What bounds it on the card: the projection's operations. The forward
+// does 2·3C·C per token row, the backward three times that (the recompute,
+// dx, dW), 87 GFLOP a product over the twelve AlterNet50 sites of one call:
+// 0.09 ms each at the tensor cores' peak, against some 1 GB of x, g, dx and
+// bf16 dqkv (0.3 ms at 3.35 TB/s). On the CUDA cores the scalar projection
+// (two shared-memory reads per FMA) bounded both bodies; the tensor-core
+// bodies keep W resident per CTA and issue mma.sync, and the backward's
+// attention body is the row-2 kernel's.
 
 #include "window_attn_bwd.cuh"
 #include "window_attn_tc.cuh"
@@ -636,6 +667,472 @@ bool qkv_tc_args_ok(long long n_windows, int N, int C, int num_heads,
          qkv_tc_smem_bytes(N, C, C / num_heads, masked, lanes) <= 227 * 1024;
 }
 
+
+// ---------------------------------------------------------------------------
+// The bf16 all-in-kernel backward on the tensor cores
+// ---------------------------------------------------------------------------
+
+// Per window lane of the tensor-core backward: f32 values (the norms and
+// flags of the q and k rows, 4·NP; the warps' column sums of one window's
+// dq, dk, dv, NT·3·HDP; the lane's db sum, 3·HDP) and bf16 values (q̂, k̂,
+// the raw q, k, v and two g tiles (N, HDP + 8); the round(p) and
+// round(ds·scale) tiles (NP, NP + 8); one x window (N, C + 8)).
+__host__ __device__ inline int qkv_bwd_lane_floats(int nt, int dt) {
+  return 4 * 16 * nt + (nt + 1) * 3 * 16 * dt;
+}
+
+__host__ __device__ inline int qkv_bwd_lane_elems(int N, int C, int nt,
+                                                  int hd) {
+  return 7 * N * tc_ld(hd) + 2 * 16 * nt * (16 * nt + 8) + N * (C + 8);
+}
+
+// Shared memory of the tensor-core backward, in bytes: the forward's shared
+// part (bias and mask tiles, the head's b, a zero row, the head's slice of
+// Wt) and `lanes` window lanes. Every part is a multiple of 16 bytes. The
+// Python wrapper computes the same size (_qkv_bwd_tc_smem_bytes).
+inline size_t qkv_bwd_tc_smem_bytes(int N, int C, int hd, bool masked,
+                                    int lanes) {
+  const int nt = tc_tiles(N);
+  const int dt = tc_tiles(hd);
+  const size_t hdp = 16 * dt;
+  const size_t ldx = static_cast<size_t>(C) + 8;
+  return 4 * (static_cast<size_t>(tc_bias_floats(N, 16 * nt, masked)) +
+              3 * hdp +
+              static_cast<size_t>(lanes) * qkv_bwd_lane_floats(nt, dt)) +
+         2 * (tc_ld(hd) + 3 * hdp * ldx +
+              static_cast<size_t>(lanes) * qkv_bwd_lane_elems(N, C, nt, hd));
+}
+
+// Issues the cp.async copies of head h's columns of window w's g (N, C)
+// into gs (N, ld), over the nthreads threads of a lane: 16-byte copies
+// when vec16 (hd a multiple of 8, g 16-byte aligned), else 4-byte ones.
+__device__ __forceinline__ void qkv_tc_stage_g(
+    __nv_bfloat16* gs, const __nv_bfloat16* __restrict__ g, int N, int C,
+    int hd, int ld, long long w, int h, bool vec16, int tid, int nthreads) {
+  const __nv_bfloat16* src =
+      g + static_cast<size_t>(w) * N * C + static_cast<size_t>(h) * hd;
+  const int per = vec16 ? 8 : 2;  // bf16 values a copy
+  const int cpr = hd / per;
+  for (int i = tid; i < N * cpr; i += nthreads) {
+    const int n = i / cpr;
+    const int e = per * (i - n * cpr);
+    if (vec16)
+      cp_async<16>(gs + n * ld + e, src + static_cast<size_t>(n) * C + e);
+    else
+      cp_async<4>(gs + n * ld + e, src + static_cast<size_t>(n) * C + e);
+  }
+}
+
+// The warp's 16 rows of a 16 × HDP accumulator summed by column into
+// red[0, HDP): each thread adds its two rows, the eight row groups of the
+// warp are added by shuffles (every lane takes part), lanes 0..3 write.
+// Rows past N hold zeros.
+template <int DT>
+__device__ __forceinline__ void qkv_tc_colsum(const float (&acc)[2 * DT][4],
+                                              float* red) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nd = 0; nd < 2 * DT; ++nd) {
+    float s0 = acc[nd][0] + acc[nd][2];
+    float s1 = acc[nd][1] + acc[nd][3];
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    }
+    if (lane < 4)
+      *reinterpret_cast<float2*>(red + 8 * nd + 2 * lane) =
+          make_float2(s0, s1);
+  }
+}
+
+// The most threads a CTA of the tensor-core backward takes, its launch
+// bound: 384 for N > 32 (NT 3 and 4), which caps the registers at 168 so
+// that four lanes of N = 36 fit the register file; 256 below.
+__host__ __device__ constexpr int qkv_bwd_max_threads(int nt) {
+  return nt >= 3 ? 384 : 256;
+}
+
+// The tensor-core all-in-kernel backward: one CTA per (run of windows,
+// head), blockIdx.x = CTA·num_heads + head, in window lanes of NT warps
+// (blockDim.x / 32NT lanes) that share the head's W slice, b and the bias
+// (and mask) tiles. Lane l takes windows l, l + lanes, ... of the run:
+// the projection (qkv_tc_project), then the row-2 kernel's per-window body
+// (window_attn_tc.cuh, tc_bwd_window) with the lane's barrier; dq, dk, dv
+// go to dqkv (rows, 3C) as bf16 after their column sums are added to the
+// lane's db. Lane l of CTA c writes partial row
+// (c·lanes + l)·num_heads + h of N·N + 1 + 3·hd floats: dbias, Σ ds·s_raw,
+// then db of the head's q, k and v columns. g16: 16-byte copies of g.
+template <int NT, int DT>
+__global__ void __launch_bounds__(qkv_bwd_max_threads(NT))
+    window_attn_qkv_bwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ wt,
+    const float* __restrict__ b, const float* __restrict__ scale,
+    const float* __restrict__ bias16, const float* __restrict__ mask,
+    const __nv_bfloat16* __restrict__ g, __nv_bfloat16* __restrict__ dqkv,
+    float* __restrict__ partial, int N, int C, int num_heads, bool g16,
+    TcPlan plan) {
+  constexpr int NP = 16 * NT;
+  constexpr int HDP = 16 * DT;
+  constexpr int LDP = NP + 8;
+  constexpr int ld = HDP + 8;
+  constexpr int LT = 32 * NT;  // threads of a lane
+  constexpr int LF = 4 * NP + (NT + 1) * 3 * HDP;  // qkv_bwd_lane_floats
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hd = C / num_heads;
+  const int ldx = C + 8;
+  const int lanes = static_cast<int>(blockDim.x) / LT;
+  const int lane = static_cast<int>(threadIdx.x) / LT;
+  const int ltid = static_cast<int>(threadIdx.x) - lane * LT;
+  const int h = static_cast<int>(blockIdx.x % num_heads);
+  const long long cta = blockIdx.x / num_heads;
+  const int j = static_cast<int>(cta / plan.ipc);
+  const long long r_first = (cta - j * plan.ipc) * plan.wpc;
+  const int nwin = static_cast<int>(
+      min(static_cast<long long>(plan.wpc), plan.R - r_first));
+
+  float* bias_s = reinterpret_cast<float*>(smem_raw);
+  float* mask_s = mask != nullptr ? bias_s + N * LDP : nullptr;
+  float* b_s = bias_s + tc_bias_floats(N, NP, mask != nullptr);
+  float* lanes_f32 = b_s + 3 * HDP;
+  float* rn = lanes_f32 + lane * LF;  // q rows, then k rows
+  float* act = rn + 2 * NP;
+  float* red = act + 2 * NP;          // warp k's column sums at k·3·HDP
+  float* dbl = red + NT * 3 * HDP;    // the lane's db: q, k, v columns
+  __nv_bfloat16* zero_row =
+      reinterpret_cast<__nv_bfloat16*>(lanes_f32 + lanes * LF);
+  __nv_bfloat16* ws = zero_row + ld;
+  const int le = qkv_bwd_lane_elems(N, C, NT, hd);
+  __nv_bfloat16* lanes_bf16 = ws + 3 * HDP * ldx;
+  __nv_bfloat16* qn = lanes_bf16 + lane * le;  // round(q̂), (N, ld)
+  __nv_bfloat16* kn = qn + N * ld;             // round(k̂)
+  __nv_bfloat16* qs = kn + N * ld;             // raw q, k, v
+  __nv_bfloat16* ks = qs + N * ld;
+  const __nv_bfloat16* vs = ks + N * ld;
+  __nv_bfloat16* gbuf = qs + 3 * N * ld;       // two g tiles
+  __nv_bfloat16* pt = gbuf + 2 * N * ld;       // round(p), (NP, NP + 8)
+  __nv_bfloat16* dt = pt + NP * LDP;           // round(ds·scale)
+  __nv_bfloat16* xs = dt + NP * LDP;           // x window (N, C + 8)
+
+  // zeros: the padded columns of q̂, k̂ and g stay zero, the db sums start
+  // at zero; then the first windows' copies, W, b and the bias tiles
+  tc_zero(zero_row, ld / 8);
+  for (int l = 0; l < lanes; ++l) {
+    tc_zero(lanes_f32 + l * LF, LF / 4);
+    tc_zero(lanes_bf16 + l * le, 7 * N * ld / 8);
+  }
+  __syncthreads();
+  auto window = [&](int s) { return (r_first + s) * plan.G + j; };
+  if (lane < nwin) {
+    qkv_tc_stage_x(xs, x, N, C, window(lane), ltid, LT);
+    qkv_tc_stage_g(gbuf, g, N, C, hd, ld, window(lane), h, g16, ltid, LT);
+    cp_async_commit();
+  }
+  qkv_tc_stage_weights<DT>(ws, b_s, wt, b, C, hd, h);
+  tc_stage_bias(bias_s, mask_s, bias16 + static_cast<size_t>(h) * N * N,
+                mask != nullptr ? mask + static_cast<size_t>(j) * N * N
+                                : nullptr,
+                N, NP);
+  __syncthreads();
+  const float sc = scale[h];
+  const int wl = threadIdx.x & 31;
+  const int warp = ltid >> 5;  // warp within the lane
+  const int row0 = 16 * warp;
+  const int r0 = row0 + (wl >> 2);
+  const int c0 = 2 * (wl & 3);
+  const size_t head_off = static_cast<size_t>(h) * hd;
+  const size_t C3 = 3 * static_cast<size_t>(C);
+  const WindowRows rows{N};
+  const auto sync = [&] { lane_sync(lane, LT); };
+
+  float dbias[2 * NT][4] = {};
+  float dscale = 0.f;
+
+  for (int s = lane, it = 0; s < nwin; s += lanes, ++it) {
+    const __nv_bfloat16* gs = gbuf + (it & 1) * N * ld;
+    const long long w = window(s);
+    cp_async_wait<0>();
+    lane_sync(lane, LT);  // x and g landed; the last window's tiles free
+    qkv_tc_project<DT>(qs, xs, ws, b_s, ld, ldx, row0, N, C);
+    lane_sync(lane, LT);  // raw q, k, v written; x and the other g free
+    if (s + lanes < nwin) {
+      qkv_tc_stage_x(xs, x, N, C, window(s + lanes), ltid, LT);
+      qkv_tc_stage_g(gbuf + ((it + 1) & 1) * N * ld, g, N, C, hd, ld,
+                     window(s + lanes), h, g16, ltid, LT);
+      cp_async_commit();
+    }
+    tc_normalize(qs, ks, qn, kn, rn, act, N, hd, ld, ltid, LT);
+    lane_sync(lane, LT);
+
+    float* wred = red + warp * 3 * HDP;
+    tc_bwd_window<NT, DT>(
+        dbias, dscale, qs, ks, vs, gs, qn, kn, pt, dt, zero_row, rn, act,
+        bias_s, mask_s, sc, dqkv, C, C3, head_off, warp, row0, r0, c0, N, hd,
+        w, rows, sync,
+        [&](const float (&acc)[2 * DT][4], int m) {
+          qkv_tc_colsum<DT>(acc, wred + m * HDP);
+        });
+    sync();  // every warp's column sums
+    for (int c = ltid; c < 3 * HDP; c += LT) {
+      float t = 0.f;
+      for (int k = 0; k < NT; ++k) t += red[k * 3 * HDP + c];
+      dbl[c] += t;
+    }
+  }
+
+  // the lane's partial row: db (a thread reads back only the dbl values it
+  // wrote), then, once red is free, dbias and Σ ds·s_raw
+  const int cols = N * N + 1 + 3 * hd;
+  float* prow =
+      partial +
+      (static_cast<size_t>(cta * lanes + lane) * num_heads + h) * cols;
+  for (int c = ltid; c < 3 * HDP; c += LT) {
+    const int m = c / HDP;
+    const int d = c - m * HDP;
+    if (d < hd) prow[N * N + 1 + m * hd + d] = dbl[c];
+  }
+  sync();
+  tc_store_partial<NT>(dbias, dscale, prow, red, warp, r0, c0, N, ltid, sync);
+}
+
+// W (3C, C) f32 → bf16, rounded to nearest even, four values a thread.
+__global__ void window_attn_qkv_round_kernel(const float* __restrict__ w,
+                                             __nv_bfloat16* __restrict__ out,
+                                             long long n4) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n4; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float4 v = reinterpret_cast<const float4*>(w)[i];
+    reinterpret_cast<uint2*>(out)[i] =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
+}
+
+constexpr int kMmaBM = 128;  // the products' CTA tile: rows,
+constexpr int kMmaBN = 64;   // columns,
+constexpr int kMmaBK = 32;   // and the depth staged per step
+constexpr int kMmaThreads = 256;
+
+// A 16-byte cp.async, or 16 zero bytes where !valid (source size 0; src
+// must still be a valid address).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// out(m, n) = Σ_k A(m, k)·B(k, n) over this CTA's chunk of k (blockIdx.z),
+// bf16 operands and f32 sums by mma.sync.m16n8k16. A(m, k) = A[m·lda + k],
+// or A[k·lda + m] with kATrans; B(k, n) = B[k·ldb + n]. A CTA computes one
+// kMmaBM × kMmaBN tile (blockIdx.y, blockIdx.x) in 8 warps of 32 × 32;
+// kMmaBK-deep tiles of A and B land by 16-byte cp.async in two stages
+// (zeros past M, Ncols and the chunk's end) and are read by ldmatrix (.trans
+// where the operand is stored k-major). out is bf16 (out_bf16, rounded once)
+// or f32 with row stride ldo, chunk z at out + z·out_chunk_stride. M (with
+// kATrans), K (without), Ncols, lda and ldb are multiples of 8; A and B
+// 16-byte aligned.
+template <bool kATrans>
+__global__ void __launch_bounds__(kMmaThreads)
+    window_attn_qkv_grad_mma_kernel(const __nv_bfloat16* __restrict__ A,
+                                    const __nv_bfloat16* __restrict__ B,
+                                    void* __restrict__ out, bool out_bf16,
+                                    int M, int Ncols, int K, int lda,
+                                    int ldb, int ldo, int k_chunk,
+                                    long long out_chunk_stride) {
+  constexpr int LDA = kATrans ? kMmaBM + 8 : kMmaBK + 8;
+  constexpr int A_ELEMS = kATrans ? kMmaBK * LDA : kMmaBM * LDA;
+  constexpr int LDB = kMmaBN + 8;
+  constexpr int B_ELEMS = kMmaBK * LDB;
+  __shared__ __align__(16) __nv_bfloat16 As[2][A_ELEMS];
+  __shared__ __align__(16) __nv_bfloat16 Bs[2][B_ELEMS];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp >> 1) * 32;  // the warp's 32 × 32 of the tile
+  const int wn = (warp & 1) * 32;
+  const int m0 = blockIdx.y * kMmaBM;
+  const int n0 = blockIdx.x * kMmaBN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
+  const int nk = (k_end - k_begin + kMmaBK - 1) / kMmaBK;
+
+  auto load = [&](int stage, int k0) {
+    __nv_bfloat16* as = As[stage];
+    __nv_bfloat16* bs = Bs[stage];
+#pragma unroll
+    for (int i = tid; i < kMmaBM * kMmaBK / 8; i += kMmaThreads) {
+      int m, k, dst;
+      if (kATrans) {  // rows of k, 8 values of m a copy
+        const int kk = i / (kMmaBM / 8);
+        const int mm = 8 * (i - kk * (kMmaBM / 8));
+        m = m0 + mm;
+        k = k0 + kk;
+        dst = kk * LDA + mm;
+      } else {  // rows of m, 8 values of k a copy
+        const int mm = i / (kMmaBK / 8);
+        const int kk = 8 * (i - mm * (kMmaBK / 8));
+        m = m0 + mm;
+        k = k0 + kk;
+        dst = mm * LDA + kk;
+      }
+      const bool ok = m < M && k < k_end;
+      const size_t off = kATrans ? static_cast<size_t>(k) * lda + m
+                                 : static_cast<size_t>(m) * lda + k;
+      cp_async16_zfill(as + dst, ok ? A + off : A, ok);
+    }
+#pragma unroll
+    for (int i = tid; i < kMmaBK * kMmaBN / 8; i += kMmaThreads) {
+      const int kk = i / (kMmaBN / 8);
+      const int nn = 8 * (i - kk * (kMmaBN / 8));
+      const int k = k0 + kk;
+      const int n = n0 + nn;
+      const bool ok = k < k_end && n < Ncols;
+      cp_async16_zfill(bs + kk * LDB + nn,
+                       ok ? B + static_cast<size_t>(k) * ldb + n : B, ok);
+    }
+  };
+
+  float acc[2][4][4] = {};
+  if (nk > 0) load(0, k_begin);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) {
+      load((kt + 1) & 1, k_begin + (kt + 1) * kMmaBK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* as = As[kt & 1];
+    const __nv_bfloat16* bs = Bs[kt & 1];
+#pragma unroll
+    for (int ks = 0; ks < kMmaBK; ks += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int im = 0; im < 2; ++im) {
+        if (kATrans)
+          ldsm_x4_t(a[im], as + (ks + (lane & 7) + ((lane >> 4) << 3)) * LDA +
+                               wm + 16 * im + ((lane >> 3) & 1) * 8);
+        else
+          ldsm_x4(a[im], as + (wm + 16 * im + (lane & 15)) * LDA + ks +
+                             (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int jn = 0; jn < 4; jn += 2) {
+        uint32_t f[4];
+        ldsm_x4_t(f, bs + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB +
+                         wn + 8 * jn + (lane >> 4) * 8);
+#pragma unroll
+        for (int im = 0; im < 2; ++im) {
+          mma_bf16(acc[im][jn], a[im], f[0], f[1]);
+          mma_bf16(acc[im][jn + 1], a[im], f[2], f[3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage is refilled two steps on
+  }
+
+  const size_t base = blockIdx.z * out_chunk_stride;
+#pragma unroll
+  for (int im = 0; im < 2; ++im) {
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      const int n = n0 + wn + 8 * jn + 2 * (lane & 3);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = m0 + wm + 16 * im + (lane >> 2) + 8 * half;
+        if (m >= M || n >= Ncols) continue;
+        const size_t off = base + static_cast<size_t>(m) * ldo + n;
+        const float v0 = acc[im][jn][2 * half];
+        const float v1 = acc[im][jn][2 * half + 1];
+        if (out_bf16)
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(out) + off) =
+              __floats2bfloat162_rn(v0, v1);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + off) =
+              make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+cudaError_t launch_grad_mma(bool a_trans, const __nv_bfloat16* A,
+                            const __nv_bfloat16* B, void* out, bool out_bf16,
+                            int M, int Ncols, int K, int lda, int ldb,
+                            int ldo, int k_chunk, long long out_chunk_stride,
+                            cudaStream_t stream) {
+  const dim3 grid((Ncols + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM,
+                  (K + k_chunk - 1) / k_chunk);
+  if (a_trans)
+    window_attn_qkv_grad_mma_kernel<true><<<grid, kMmaThreads, 0, stream>>>(
+        A, B, out, out_bf16, M, Ncols, K, lda, ldb, ldo, k_chunk,
+        out_chunk_stride);
+  else
+    window_attn_qkv_grad_mma_kernel<false><<<grid, kMmaThreads, 0, stream>>>(
+        A, B, out, out_bf16, M, Ncols, K, lda, ldb, ldo, k_chunk,
+        out_chunk_stride);
+  return cudaGetLastError();
+}
+
+template <int NT, int DT>
+cudaError_t qkv_bwd_tc_allow(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(window_attn_qkv_bwd_tc_kernel<NT, DT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int NT, int DT>
+cudaError_t launch_qkv_bwd_tc_attend(const void* x, const void* wt,
+                                     const void* b, const void* scale,
+                                     const void* bias16, const void* mask,
+                                     const void* g, void* dqkv,
+                                     void* partial, int N, int C,
+                                     int num_heads, bool g16, int lanes,
+                                     const TcPlan& plan,
+                                     cudaStream_t stream) {
+  const size_t smem =
+      qkv_bwd_tc_smem_bytes(N, C, C / num_heads, mask != nullptr, lanes);
+  const cudaError_t err = qkv_bwd_tc_allow<NT, DT>(smem);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks =
+      static_cast<unsigned>(plan.G * plan.ipc * num_heads);
+  window_attn_qkv_bwd_tc_kernel<NT, DT><<<blocks, 32 * NT * lanes, smem,
+                                          stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(wt),
+      static_cast<const float*>(b), static_cast<const float*>(scale),
+      static_cast<const float*>(bias16), static_cast<const float*>(mask),
+      static_cast<const __nv_bfloat16*>(g),
+      static_cast<__nv_bfloat16*>(dqkv), static_cast<float*>(partial), N, C,
+      num_heads, g16, plan);
+  return cudaGetLastError();
+}
+
+template <int NT, int DT>
+cudaError_t qkv_bwd_tc_occupancy(int* ctas, int N, int C, int hd,
+                                 bool masked, int lanes) {
+  const size_t smem = qkv_bwd_tc_smem_bytes(N, C, hd, masked, lanes);
+  const cudaError_t err = qkv_bwd_tc_allow<NT, DT>(smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, window_attn_qkv_bwd_tc_kernel<NT, DT>, 32 * NT * lanes, smem);
+}
+
+bool qkv_bwd_tc_args_ok(long long n_windows, int N, int C, int num_heads,
+                        int n_win_per_img, int wpc, int lanes, bool masked) {
+  return tc_args_ok(n_windows, N, C, num_heads, n_win_per_img, wpc, 4, {}) &&
+         C % 16 == 0 && lanes >= 1 && lanes <= kMaxLanes &&
+         32 * tc_tiles(N) * lanes <= qkv_bwd_max_threads(tc_tiles(N)) &&
+         qkv_bwd_tc_smem_bytes(N, C, C / num_heads, masked, lanes) <=
+             227 * 1024 &&
+         n_windows * N <= INT_MAX &&
+         (n_windows * N + kMmaBM - 1) / kMmaBM <= 65535;
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16; in_dtype is x's (the compute
@@ -740,4 +1237,82 @@ extern "C" int window_attn_qkv_bwd(const void* x, const void* wt,
       x, wt, b, scale, bias16, mask, g, dx, dqkv32, partial, sums, wpartial,
       wsums, n_windows, N, C, num_heads, n_win_per_img, threads, chunk_rows,
       s);
+}
+
+// The tensor-core all-in-kernel backward: six launches on `stream`. x, g
+// and dx bf16, wt and b f32; x, wt, dqkv and w16 16-byte aligned, g and dx
+// 4-byte. wpc: windows per CTA (fused_window_attn.tensor_core_plan); lanes:
+// window lanes per CTA (1..15, within qkv_bwd_max_threads). Scratch: dqkv (n_windows·N, 3C) bf16; w16
+// (3C, C) bf16; partial G·⌈R / wpc⌉·lanes·num_heads rows of N·N + 1 + 3·hd
+// floats; wpartial ⌈n_windows·N / chunk_rows⌉·3C·C floats. Results: dx
+// (n_windows·N, C); sums (num_heads, N·N + 1 + 3·hd) with dbias in the
+// first N·N columns, dscale next, then db of the head's q, k and v columns
+// (hd each); wsums (3C, C), dWt.
+extern "C" int window_attn_qkv_bwd_tc(
+    const void* x, const void* wt, const void* b, const void* scale,
+    const void* bias16, const void* mask, const void* g, void* dx, void* dqkv,
+    void* w16, void* partial, void* sums, void* wpartial, void* wsums,
+    long long n_windows, int N, int C, int num_heads, int n_win_per_img,
+    int wpc, int lanes, int chunk_rows, void* stream) {
+  auto aligned = [](const void* p, uintptr_t to) {
+    return reinterpret_cast<uintptr_t>(p) % to == 0;
+  };
+  if (!qkv_bwd_tc_args_ok(n_windows, N, C, num_heads, n_win_per_img, wpc,
+                          lanes, mask != nullptr) ||
+      chunk_rows <= 0 || !aligned(x, 16) || !aligned(wt, 16) ||
+      !aligned(dqkv, 16) || !aligned(w16, 16) || !aligned(g, 4) ||
+      !aligned(dx, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int hd = C / num_heads;
+  const bool g16 = hd % 8 == 0 && aligned(g, 16);
+  const TcPlan plan = tc_plan(n_windows, n_win_per_img, mask != nullptr, wpc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = TC_DISPATCH(launch_qkv_bwd_tc_attend, N, hd, x, wt, b,
+                                scale, bias16, mask, g, dqkv, partial, N, C,
+                                num_heads, g16, lanes, plan, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = launch_window_sum(partial, sums, plan.G * plan.ipc * lanes,
+                               num_heads, N * N + 1 + 3 * hd, s)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  const int C3 = 3 * C;
+  const long long n4 = static_cast<long long>(C3) * C / 4;
+  const unsigned round_blocks =
+      static_cast<unsigned>(n4 < 1024 * 256 ? (n4 + 255) / 256 : 1024);
+  window_attn_qkv_round_kernel<<<round_blocks, 256, 0, s>>>(
+      static_cast<const float*>(wt), static_cast<__nv_bfloat16*>(w16), n4);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int rows = static_cast<int>(n_windows * N);
+  const auto* d16 = static_cast<const __nv_bfloat16*>(dqkv);
+  // dx (rows, C) = round(dqkv·W16): A = dqkv (rows, 3C), B = W16 (3C, C)
+  if ((err = launch_grad_mma(false, d16,
+                             static_cast<const __nv_bfloat16*>(w16), dx, true,
+                             rows, C, C3, C3, C, C, C3, 0, s)) != cudaSuccess)
+    return static_cast<int>(err);
+  // per chunk of rows: dWt (3C, C) = dqkvᵀ·x
+  if ((err = launch_grad_mma(true, d16, static_cast<const __nv_bfloat16*>(x),
+                             wpartial, false, C3, C, rows, C3, C, C,
+                             chunk_rows, static_cast<long long>(C3) * C,
+                             s)) != cudaSuccess)
+    return static_cast<int>(err);
+  return static_cast<int>(launch_window_sum(
+      wpartial, wsums, (rows + chunk_rows - 1) / chunk_rows, 1, C3 * C, s));
+}
+
+// CTAs of the tensor-core backward one SM holds at once with `lanes` window
+// lanes (masked: with the mask tile), from the CUDA occupancy API (0 when
+// none fits or the lanes exceed the launch bound), or the negated CUDA
+// error.
+extern "C" int window_attn_qkv_bwd_tc_occupancy(int N, int C, int num_heads,
+                                                int masked, int lanes) {
+  if (N > 0 && lanes > 0 &&
+      32 * tc_tiles(N) * lanes > qkv_bwd_max_threads(tc_tiles(N)))
+    return 0;  // beyond the launch bound
+  if (!qkv_bwd_tc_args_ok(1, N, C, num_heads, 1, 1, lanes, masked != 0))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int ctas = 0;
+  const cudaError_t err = TC_DISPATCH(qkv_bwd_tc_occupancy, N, C / num_heads,
+                                      &ctas, N, C, C / num_heads,
+                                      masked != 0, lanes);
+  return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }

@@ -508,6 +508,139 @@ __device__ __forceinline__ void tc_norm_backward(float (&dxn)[2 * DT][4],
   }
 }
 
+// The row-2 kernel's hooks of tc_bwd_window and tc_store_partial: the
+// CTA's barrier, and no column sums. The entry-fused backward
+// (window_attn_qkv.cu) gives its window lane's barrier and sums dq, dk and
+// dv by column into its db.
+struct TcCtaSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+struct TcNoColSum {
+  template <typename Acc>
+  __device__ __forceinline__ void operator()(const Acc&, int) const {}
+};
+
+// One window of the recompute backward, once q̂, k̂ and the norms are in
+// place, for the warp's rows (row0 = 16·warp; r0, c0 the thread's first
+// accumulator row and column): for queries row0..: the scores, p (round(p)
+// to the P tile pt), dp = g·vᵀ, ds, its dbias and dscale sums,
+// round(ds·scale) (to the dsc tile dt and as the A operand of
+// dq̂ = dsc·k̂), dq; then, after sync() (the barrier of the warps that
+// share pt and dt), for keys row0..: dv = round(p)ᵀ·g and dk̂ = dscᵀ·q̂,
+// dk. dq, dk and dv go to dqkv (rows, 3C) as bf16, each after colsum(acc,
+// m) has seen it in f32 (m = 0, 1, 2 for q, k, v). qs, ks, vs, gs: the
+// window's raw q, k, v and g tiles.
+template <int NT, int DT, typename Rows, typename Sync = TcCtaSync,
+          typename ColSum = TcNoColSum>
+__device__ __forceinline__ void tc_bwd_window(
+    float (&dbias)[2 * NT][4], float& dscale, const __nv_bfloat16* qs,
+    const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+    const __nv_bfloat16* gs, const __nv_bfloat16* qn,
+    const __nv_bfloat16* kn, __nv_bfloat16* pt, __nv_bfloat16* dt,
+    const __nv_bfloat16* zero_row, const float* rn, const float* act,
+    const float* bias_s, const float* mask_s, float sc,
+    __nv_bfloat16* dqkv, int C, size_t C3, size_t head_off, int warp,
+    int row0, int r0, int c0, int N, int hd, long long w, const Rows& rows,
+    Sync sync = Sync(), ColSum colsum = ColSum()) {
+  constexpr int LDP = 16 * NT + 8;
+  constexpr int ld = 16 * DT + 8;
+  {  // queries row0..row0+15
+    float s_raw[2 * NT][4];
+    tc_scores<NT, DT>(s_raw, qn, kn, zero_row, row0, N, ld);
+    float p[2 * NT][4];
+    tc_softmax<NT>(p, s_raw, bias_s, mask_s, sc, row0, N);
+#pragma unroll
+    for (int jj = 0; jj < 2 * NT; ++jj) {
+      const int c = 8 * jj + c0;
+      *reinterpret_cast<uint32_t*>(pt + r0 * LDP + c) =
+          pack_bf16(p[jj][0], p[jj][1]);
+      *reinterpret_cast<uint32_t*>(pt + (r0 + 8) * LDP + c) =
+          pack_bf16(p[jj][2], p[jj][3]);
+    }
+    float ds[2 * NT][4];  // dp = g·vᵀ, then ds
+    tc_scores<NT, DT>(ds, gs, vs, zero_row, row0, N, ld);
+    float t0 = 0.f, t1 = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 2 * NT; ++jj) {
+      t0 = fmaf(ds[jj][0], p[jj][0], fmaf(ds[jj][1], p[jj][1], t0));
+      t1 = fmaf(ds[jj][2], p[jj][2], fmaf(ds[jj][3], p[jj][3], t1));
+    }
+    t0 = quad_sum(t0);
+    t1 = quad_sum(t1);
+#pragma unroll
+    for (int jj = 0; jj < 2 * NT; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = p[jj][e] * (ds[jj][e] - (e < 2 ? t0 : t1));
+        dbias[jj][e] += v;
+        dscale = fmaf(v, s_raw[jj][e], dscale);
+        ds[jj][e] = v * sc;
+      }
+      const int c = 8 * jj + c0;
+      *reinterpret_cast<uint32_t*>(dt + r0 * LDP + c) =
+          pack_bf16(ds[jj][0], ds[jj][1]);
+      *reinterpret_cast<uint32_t*>(dt + (r0 + 8) * LDP + c) =
+          pack_bf16(ds[jj][2], ds[jj][3]);
+    }
+    uint32_t da[NT][4];
+    tc_to_operand<NT>(da, ds);
+    float dq[2 * DT][4] = {};
+    tc_times_tile<NT, DT>(dq, da, kn, zero_row, N, ld);
+    tc_norm_backward<DT>(dq, qs, rn, act, row0, N, hd, ld);
+    colsum(dq, 0);
+    tc_store_rows<DT>(dq, dqkv, true, C3, head_off, row0, N, hd, w, rows);
+  }
+  sync();  // every warp's rows of round(p) and round(ds·scale)
+  {  // keys row0..row0+15
+    uint32_t a[NT][4];
+    tc_load_transposed<NT>(a, pt, warp);
+    float acc[2 * DT][4] = {};
+    tc_times_tile<NT, DT>(acc, a, gs, zero_row, N, ld);
+    colsum(acc, 2);
+    tc_store_rows<DT>(acc, dqkv, true, C3,
+                      2 * static_cast<size_t>(C) + head_off, row0, N, hd, w,
+                      rows);
+    tc_load_transposed<NT>(a, dt, warp);
+#pragma unroll
+    for (int nd = 0; nd < 2 * DT; ++nd)
+      acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+    tc_times_tile<NT, DT>(acc, a, qn, zero_row, N, ld);
+    tc_norm_backward<DT>(acc, ks, rn + N, act + N, row0, N, hd, ld);
+    colsum(acc, 1);
+    tc_store_rows<DT>(acc, dqkv, true, C3, static_cast<size_t>(C) + head_off,
+                      row0, N, hd, w, rows);
+  }
+}
+
+// The partial of a CTA (or a window lane) of the recompute backward: the
+// dbias sums of the warp's own rows to prow[r·N + c], then Σ ds·s_raw over
+// its NT warps to prow[N·N]. red: NT free floats of shared memory; sync():
+// the barrier of the warps; tid: the thread's index among them (−1: the
+// CTA's threadIdx.x, in unsigned arithmetic as tc_normalize's).
+template <int NT, typename Sync = TcCtaSync>
+__device__ __forceinline__ void tc_store_partial(
+    const float (&dbias)[2 * NT][4], float dscale, float* prow, float* red,
+    int warp, int r0, int c0, int N, int tid = -1, Sync sync = Sync()) {
+#pragma unroll
+  for (int jj = 0; jj < 2 * NT; ++jj) {
+    const int c = 8 * jj + c0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + (e < 2 ? 0 : 8);
+      const int cc = c + (e & 1);
+      if (r < N && cc < N) prow[r * N + cc] = dbias[jj][e];
+    }
+  }
+  dscale = warp_sum(dscale);
+  if ((threadIdx.x & 31) == 0) red[warp] = dscale;
+  sync();
+  if ((tid < 0 ? threadIdx.x : static_cast<unsigned>(tid)) == 0) {
+    float total = 0.f;
+    for (int i = 0; i < NT; ++i) total += red[i];
+    prow[N * N] = total;
+  }
+}
+
 // The forward: one CTA per (run of windows, head), NT warps; blockIdx.x =
 // CTA·num_heads + head. The output is bf16 (out_bf16) or f32.
 template <int NT, int DT, typename Rows>
@@ -583,7 +716,7 @@ __global__ void __launch_bounds__(32 * NT)
 }
 
 // The recompute backward: one CTA per (run of windows, head), NT warps.
-// Per window: q̂, k̂ and the norms; warp i: the scores, p (round(p) to the
+// Per window: q̂, k̂ and the norms; then tc_bwd_window, warp i: the scores, p (round(p) to the
 // P tile), dp = g·vᵀ, ds, its dbias and dscale sums, round(ds·scale) (to
 // the dsc tile and as the A operand of dq̂ = dsc·k̂), dq; then, once every
 // warp has written its rows of the P and dsc tiles, warp i: dv =
@@ -666,93 +799,16 @@ __global__ void __launch_bounds__(32 * NT)
     __syncthreads();
     tc_normalize(qs, ks, qn, kn, rn, act, N, hd, ld);
     __syncthreads();
-
-    {  // queries row0..row0+15
-      float s_raw[2 * NT][4];
-      tc_scores<NT, DT>(s_raw, qn, kn, zero_row, row0, N, ld);
-      float p[2 * NT][4];
-      tc_softmax<NT>(p, s_raw, bias_s, mask_s, sc, row0, N);
-#pragma unroll
-      for (int jj = 0; jj < 2 * NT; ++jj) {
-        const int c = 8 * jj + c0;
-        *reinterpret_cast<uint32_t*>(pt + r0 * LDP + c) =
-            pack_bf16(p[jj][0], p[jj][1]);
-        *reinterpret_cast<uint32_t*>(pt + (r0 + 8) * LDP + c) =
-            pack_bf16(p[jj][2], p[jj][3]);
-      }
-      float ds[2 * NT][4];  // dp = g·vᵀ, then ds
-      tc_scores<NT, DT>(ds, gs, vs, zero_row, row0, N, ld);
-      float t0 = 0.f, t1 = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 2 * NT; ++jj) {
-        t0 = fmaf(ds[jj][0], p[jj][0], fmaf(ds[jj][1], p[jj][1], t0));
-        t1 = fmaf(ds[jj][2], p[jj][2], fmaf(ds[jj][3], p[jj][3], t1));
-      }
-      t0 = quad_sum(t0);
-      t1 = quad_sum(t1);
-#pragma unroll
-      for (int jj = 0; jj < 2 * NT; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float v = p[jj][e] * (ds[jj][e] - (e < 2 ? t0 : t1));
-          dbias[jj][e] += v;
-          dscale = fmaf(v, s_raw[jj][e], dscale);
-          ds[jj][e] = v * sc;
-        }
-        const int c = 8 * jj + c0;
-        *reinterpret_cast<uint32_t*>(dt + r0 * LDP + c) =
-            pack_bf16(ds[jj][0], ds[jj][1]);
-        *reinterpret_cast<uint32_t*>(dt + (r0 + 8) * LDP + c) =
-            pack_bf16(ds[jj][2], ds[jj][3]);
-      }
-      uint32_t da[NT][4];
-      tc_to_operand<NT>(da, ds);
-      float dq[2 * DT][4] = {};
-      tc_times_tile<NT, DT>(dq, da, kn, zero_row, N, ld);
-      tc_norm_backward<DT>(dq, qs, rn, act, row0, N, hd, ld);
-      tc_store_rows<DT>(dq, dqkv, true, C3, head_off, row0, N, hd, w, rows);
-    }
-    __syncthreads();
-    {  // keys row0..row0+15
-      uint32_t a[NT][4];
-      tc_load_transposed<NT>(a, pt, warp);
-      float acc[2 * DT][4] = {};
-      tc_times_tile<NT, DT>(acc, a, gs, zero_row, N, ld);
-      tc_store_rows<DT>(acc, dqkv, true, C3,
-                        2 * static_cast<size_t>(C) + head_off, row0, N, hd, w,
-                        rows);
-      tc_load_transposed<NT>(a, dt, warp);
-#pragma unroll
-      for (int nd = 0; nd < 2 * DT; ++nd)
-        acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-      tc_times_tile<NT, DT>(acc, a, qn, zero_row, N, ld);
-      tc_norm_backward<DT>(acc, ks, rn + N, act + N, row0, N, hd, ld);
-      tc_store_rows<DT>(acc, dqkv, true, C3, static_cast<size_t>(C) + head_off,
-                        row0, N, hd, w, rows);
-    }
+    tc_bwd_window<NT, DT>(dbias, dscale, qs, ks, vs, gs, qn, kn, pt, dt,
+                          zero_row, rn, act, bias_s, mask_s, sc, dqkv, C, C3,
+                          head_off, warp, row0, r0, c0, N, hd, w, rows);
     __syncthreads();  // the stage and the tiles are refilled
   }
 
   // this CTA's partial: dbias from the warps' own rows, then Σ ds·s_raw
-  float* pblk = partial + static_cast<size_t>(blockIdx.x) * (N * N + 1);
-#pragma unroll
-  for (int jj = 0; jj < 2 * NT; ++jj) {
-    const int c = 8 * jj + c0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + (e < 2 ? 0 : 8);
-      const int cc = c + (e & 1);
-      if (r < N && cc < N) pblk[r * N + cc] = dbias[jj][e];
-    }
-  }
-  dscale = warp_sum(dscale);
-  if (lane == 0) red[warp] = dscale;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.f;
-    for (int i = 0; i < NT; ++i) total += red[i];
-    pblk[N * N] = total;
-  }
+  tc_store_partial<NT>(dbias, dscale,
+                       partial + static_cast<size_t>(blockIdx.x) * (N * N + 1),
+                       red, warp, r0, c0, N);
 }
 
 // Checks shared by the tensor-core entries: bf16 tiles of at most 64 × 64

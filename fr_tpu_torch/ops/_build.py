@@ -141,6 +141,8 @@ def load_library() -> ctypes.CDLL:
         "window_attn_qkv_fwd_tc": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
                                    i32, i32, i32, i32, i32, vp],
         "window_attn_qkv_tc_occupancy": [i32, i32, i32, i32, i32],
+        "window_attn_qkv_bwd_tc": [*[vp] * 14, i64, *[i32] * 7, vp],
+        "window_attn_qkv_bwd_tc_occupancy": [i32, i32, i32, i32, i32],
         "window_attn_qkv_bwd": [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                 vp, vp, i64, i32, i32, i32, i32, i32, i32,
                                 i32, vp],

@@ -35,9 +35,28 @@ opts in, as swin_common.WindowAttention does for a listed (window, dim)
             row-2 recompute backward kernel, then dx and dW with
             torch.matmul, as fr_tpu does with XLA dots; db sums the
             compute-dtype dqkv;
-          False, the all-in-kernel backward (csrc/window_attn_qkv.cu): dx,
-            dW and db from hand-written kernels; db sums the unrounded f32
-            dqkv, so the routes differ in bf16 (fr_tpu's do too).
+          False, the all-in-kernel backward (csrc/window_attn_qkv.cu,
+            fr_tpu's _pkx_bwd program, pallas_call :835): dx, dW and db
+            from hand-written kernels; db sums the unrounded f32 dqkv, so
+            the routes differ in bf16 (fr_tpu's do too). Two bodies, picked
+            by ``_qkv_bwd_tc_route`` as the forward's:
+              tensor cores  bf16 on the same tile with the backward's
+                            one-lane CTA (_qkv_bwd_tc_smem_bytes) within
+                            227 KB, every AlterNet50 site:
+                            window_attn_qkv_bwd_tc. The scalar projection
+                            bounded the CUDA-core body (two shared-memory
+                            reads per FMA); here a CTA per (run of windows,
+                            head) holds the head's bf16 slice of W, recomputes
+                            q, k, v by mma.sync and runs the row-2 kernel's
+                            recompute backward in window lanes, sums db from
+                            the f32 dq, dk, dv and writes them once rounded
+                            to a bf16 dqkv; dx and dW are mma.sync products
+                            of that dqkv (dW in row chunks that fill the
+                            card, qkv_dw_chunk_rows), every sum in a fixed
+                            order;
+              CUDA cores    f32, bf16 off that tile, or TENSOR_CORES off:
+                            window_attn_qkv_bwd, the f32 dqkv through
+                            device memory and 64×64 f32 FMA products.
 
 The weight is nn.Linear's (3C, C) f32, the module's own parameter: the
 transpose of fr_tpu's (C, 3C) w. The kernels read that layout, so no copy is
@@ -52,8 +71,9 @@ Launch counters (ROADMAP §2 rows):
     row 18  fused_window_attention_packed_qkv.launches (forward; each
             launch also counts on fused_window_attn.route_launches,
             "fwd_tensor_cores" or "fwd_cuda_cores" by body),
-            .backward_launches (the all-in-kernel backward, CUDA cores, not
-            on route_launches); the hybrid backward counts on
+            .backward_launches (the all-in-kernel backward, row 18b; each
+            launch also counts on route_launches, "bwd_tensor_cores" or
+            "bwd_cuda_cores" by body); the hybrid backward counts on
             window_attention_backward.launches (row 2) and on
             route_launches as the row-2 kernel does
 
@@ -80,8 +100,14 @@ from fr_tpu_torch.ops.fused_window_attn import (
 # the hybrid backward, False the all-in-kernel one.
 _PKX_HYBRID_BWD = True
 
-# token rows per dW/db partial of the all-in-kernel backward
+# token rows per dW/db partial of the all-in-kernel backward's CUDA-core body
 _QKV_CHUNK_ROWS = 2048
+# the tensor-core backward's products (window_attn_qkv.cu): CTA tiles of
+# kMmaBM × kMmaBN outputs, k staged kMmaBK deep; the dW product's row chunks
+# are sized so that its grid holds about _QKV_DW_CTAS CTAs (two for each of
+# an H100's 132 SMs)
+_MMA_BM, _MMA_BN, _MMA_BK = 128, 64, 32
+_QKV_DW_CTAS = 264
 _PROJ_CHUNK = 32   # csrc/window_attn_qkv.cu's kProjChunk
 # window lanes of the tensor-core forward: at most 32 warps a CTA (1,024
 # threads) and 15 lanes (its named barriers 1..15)
@@ -400,22 +426,59 @@ def _qkv_tc_smem_bytes(N: int, C: int, hd: int, masked: bool,
         3 * N * ld + N * (C + 8)))
 
 
-def _qkv_tc_route(x: torch.Tensor, num_heads: int, masked: bool) -> bool:
-    """Whether an entry-fused forward takes the tensor-core body: bf16 on
-    the row-1 kernel's tile (tensor_core_route, which reads TENSOR_CORES),
-    C a multiple of 16 (whole k-steps of the projection, 16-byte copies of
-    x) and a one-lane CTA within the card's 227 KB of shared memory. Every
-    other call takes the CUDA-core kernel."""
+def _qkv_bwd_tc_smem_bytes(N: int, C: int, hd: int, masked: bool,
+                           lanes: int) -> int:
+    """Dynamic shared memory of a tensor-core backward CTA
+    (window_attn_qkv.cu's qkv_bwd_tc_smem_bytes): the forward's shared part
+    (bias and mask tiles, the head's b, a zero row, W's slice) and per lane
+    f32 the norms and flags of the q and k rows (4·NP), the warps' column
+    sums of one window's dq, dk, dv (NT·3·HDP) and the lane's db (3·HDP);
+    bf16 q̂, k̂, the raw q, k, v and two g tiles (N, HDP + 8), the round(p)
+    and round(ds·scale) tiles (NP, NP + 8) and one x window (N, C + 8)."""
+    nt = -(-N // 16)
+    np_ = 16 * nt
+    hdp = 16 * -(-hd // 16)
+    ld = hdp + 8
+    bias = N * (np_ + 8) * (2 if masked else 1)
+    lane_f32 = 4 * np_ + (nt + 1) * 3 * hdp
+    lane_bf16 = 7 * N * ld + 2 * np_ * (np_ + 8) + N * (C + 8)
+    return 4 * (bias + 3 * hdp + lanes * lane_f32) + 2 * (
+        ld + 3 * hdp * (C + 8) + lanes * lane_bf16)
+
+
+def _qkv_tc_fits(x: torch.Tensor, num_heads: int, masked: bool,
+                 smem_bytes) -> bool:
+    """bf16 on the row-1 kernel's tile (tensor_core_route, which reads
+    TENSOR_CORES), C a multiple of 16 (whole k-steps of the projection,
+    16-byte copies of x) and a one-lane CTA, ``smem_bytes(N, C, hd, masked,
+    1)``, within the card's 227 KB of shared memory."""
     if x.dim() != 3 or x.shape[2] % num_heads:
         return False
     _, N, C = x.shape
     hd = C // num_heads
     return (C % 16 == 0 and tensor_core_route(x.dtype, N, hd)
-            and _qkv_tc_smem_bytes(N, C, hd, masked, 1) <= _BWD_SMEM_LIMIT)
+            and smem_bytes(N, C, hd, masked, 1) <= _BWD_SMEM_LIMIT)
 
 
-def qkv_tc_lanes(N: int, C: int, hd: int, masked: bool, ctas_per_sm) -> int:
-    """The window lanes per CTA of the tensor-core forward: of the lane
+def _qkv_tc_route(x: torch.Tensor, num_heads: int, masked: bool) -> bool:
+    """Whether an entry-fused forward takes the tensor-core body
+    (_qkv_tc_fits with the forward's CTA). Every other call takes the
+    CUDA-core kernel."""
+    return _qkv_tc_fits(x, num_heads, masked, _qkv_tc_smem_bytes)
+
+
+def _qkv_bwd_tc_route(x: torch.Tensor, num_heads: int, masked: bool
+                      ) -> bool:
+    """Whether an all-in-kernel backward takes the tensor-core body
+    (_qkv_tc_fits with the backward's CTA). Every other call takes the
+    CUDA-core kernels."""
+    return _qkv_tc_fits(x, num_heads, masked, _qkv_bwd_tc_smem_bytes)
+
+
+def qkv_tc_lanes(N: int, C: int, hd: int, masked: bool, ctas_per_sm,
+                 smem_bytes=_qkv_tc_smem_bytes) -> int:
+    """The window lanes per CTA of a tensor-core entry-fused kernel (the
+    forward's CTA by default, ``smem_bytes`` the backward's): of the lane
     counts whose CTA fits 227 KB (at most _QKV_MAX_WARPS warps and
     _QKV_MAX_LANES lanes), the one that keeps the most warps resident on an
     SM, ctas_per_sm(lanes)·lanes·NT (the card's occupancy API, which counts
@@ -424,7 +487,7 @@ def qkv_tc_lanes(N: int, C: int, hd: int, masked: bool, ctas_per_sm) -> int:
     nt = -(-N // 16)
     best, most = 1, -1
     for lanes in range(1, min(_QKV_MAX_LANES, _QKV_MAX_WARPS // nt) + 1):
-        if _qkv_tc_smem_bytes(N, C, hd, masked, lanes) > _BWD_SMEM_LIMIT:
+        if smem_bytes(N, C, hd, masked, lanes) > _BWD_SMEM_LIMIT:
             break
         warps = ctas_per_sm(lanes) * lanes * nt
         if warps >= most:
@@ -434,25 +497,28 @@ def qkv_tc_lanes(N: int, C: int, hd: int, masked: bool, ctas_per_sm) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _qkv_tc_launch(index: int, N: int, C: int, num_heads: int,
-                   masked: bool):
+                   masked: bool, backward: bool = False):
     """(window lanes, CTAs that card ``index`` holds at once) of the
-    tensor-core forward at these shapes, from
-    window_attn_qkv_tc_occupancy."""
+    tensor-core forward (or backward) at these shapes, from
+    window_attn_qkv_tc_occupancy (window_attn_qkv_bwd_tc_occupancy)."""
     from fr_tpu_torch.ops._build import check_launch, load_library
 
     lib = load_library()
+    entry = ("window_attn_qkv_bwd_tc_occupancy" if backward
+             else "window_attn_qkv_tc_occupancy")
 
     def per_sm(lanes):
         with torch.cuda.device(index):
-            n = lib.window_attn_qkv_tc_occupancy(N, C, num_heads, int(masked),
-                                                 lanes)
-        check_launch(lib, -n if n < 0 else 0, "window_attn_qkv_tc_occupancy")
+            n = getattr(lib, entry)(N, C, num_heads, int(masked), lanes)
+        check_launch(lib, -n if n < 0 else 0, entry)
         return n
-    lanes = qkv_tc_lanes(N, C, C // num_heads, masked, per_sm)
+    lanes = qkv_tc_lanes(N, C, C // num_heads, masked, per_sm,
+                         _qkv_bwd_tc_smem_bytes if backward
+                         else _qkv_tc_smem_bytes)
     ctas = per_sm(lanes)
     if ctas == 0:
-        raise RuntimeError(f"window_attn_qkv_fwd_tc: no CTA fits on an SM "
-                           f"at N={N}, C={C}, {num_heads} heads")
+        raise RuntimeError(f"{entry}: no CTA fits on an SM at N={N}, "
+                           f"C={C}, {num_heads} heads")
     return lanes, ctas * torch.cuda.get_device_properties(
         index).multi_processor_count
 
@@ -545,38 +611,89 @@ def _launch_qkv(x, w, b, scale, bias16, num_heads, n_win_per_img, mask,
     return out
 
 
+def qkv_dw_chunk_rows(rows: int, C: int) -> int:
+    """Token rows per dW partial of the tensor-core backward: the dW
+    product's (3C, C) output is ⌈3C / 128⌉·⌈C / 64⌉ CTA tiles, and the rows
+    are cut into enough chunks (whole k steps of 32) that the grid holds
+    about _QKV_DW_CTAS CTAs. A function of the shapes alone, so the sum
+    order, and with it dW's bits, does not depend on the card."""
+    tiles = -(-3 * C // _MMA_BM) * -(-C // _MMA_BN)
+    chunks = max(1, -(-_QKV_DW_CTAS // tiles))
+    return _MMA_BK * max(1, -(-rows // (chunks * _MMA_BK)))
+
+
 def _launch_qkv_bwd(x, w, b, scale, bias16, g, num_heads, n_win_per_img,
                     mask):
     from fr_tpu_torch.ops._build import check_launch, load_library
 
+    masked = mask is not None
+    tc = _qkv_bwd_tc_route(x, num_heads, masked)
+    if tc:
+        C = x.shape[2]
+
+        def smem(N, hd):
+            return _qkv_bwd_tc_smem_bytes(N, C, hd, masked, 1)
+    else:
+        def smem(N, hd):
+            return _qkv_smem_bytes(N, hd, True)
     (B_, N, C), x, w, b, scale, bias16, mask = _qkv_operands(
-        x, w, b, scale, bias16, num_heads, n_win_per_img, mask,
-        lambda N, hd: _qkv_smem_bytes(N, hd, True))
+        x, w, b, scale, bias16, num_heads, n_win_per_img, mask, smem)
     g = _checked_cotangent(g, x, B_, N, C)
     dev = x.device
     rows = B_ * N
-    chunks = -(-rows // _QKV_CHUNK_ROWS)
+    hd = C // num_heads
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
-    dqkv32 = torch.empty((rows, 3 * C), **f32)
-    partial = torch.empty((B_ * num_heads, N * N + 1), **f32)
-    sums = torch.empty((num_heads, N * N + 1), **f32)
-    wpartial = torch.empty((chunks, 3 * C, C + 1), **f32)
-    wsums = torch.empty((3 * C, C + 1), **f32)
     lib = load_library()
-    with torch.cuda.device(dev):
-        err = lib.window_attn_qkv_bwd(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
-            bias16.data_ptr(), mask.data_ptr() if mask is not None else None,
-            g.data_ptr(), dx.data_ptr(), dqkv32.data_ptr(),
-            partial.data_ptr(), sums.data_ptr(), wpartial.data_ptr(),
-            wsums.data_ptr(), B_, N, C, num_heads, n_win_per_img,
-            _DTYPE_CODE[x.dtype], _BWD_THREADS, _QKV_CHUNK_ROWS,
-            _stream(dev))
-    check_launch(lib, err, "window_attn_qkv_bwd")
+    if tc:
+        x, w, g = _aligned16(x), _aligned16(w), _aligned16(g)
+        lanes, slots = _qkv_tc_launch(dev.index or 0, N, C, num_heads,
+                                      masked, True)
+        wpc, ctas = tensor_core_plan(B_, n_win_per_img, num_heads, masked,
+                                     slots)
+        chunk = qkv_dw_chunk_rows(rows, C)
+        cols = N * N + 1 + 3 * hd
+        dqkv = torch.empty((rows, 3 * C), dtype=torch.bfloat16, device=dev)
+        w16 = torch.empty((3 * C, C), dtype=torch.bfloat16, device=dev)
+        partial = torch.empty((ctas * lanes * num_heads, cols), **f32)
+        sums = torch.empty((num_heads, cols), **f32)
+        wpartial = torch.empty((-(-rows // chunk), 3 * C, C), **f32)
+        wsums = torch.empty((3 * C, C), **f32)
+        with torch.cuda.device(dev):
+            err = lib.window_attn_qkv_bwd_tc(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                bias16.data_ptr(), mask.data_ptr() if masked else None,
+                g.data_ptr(), dx.data_ptr(), dqkv.data_ptr(), w16.data_ptr(),
+                partial.data_ptr(), sums.data_ptr(), wpartial.data_ptr(),
+                wsums.data_ptr(), B_, N, C, num_heads, n_win_per_img, wpc,
+                lanes, chunk, _stream(dev))
+        check_launch(lib, err, "window_attn_qkv_bwd_tc")
+        # each head's db columns of q, k and v, in b's order
+        db = sums[:, N * N + 1:].reshape(num_heads, 3, hd).transpose(
+            0, 1).reshape(3 * C)
+        dw = wsums
+    else:
+        chunks = -(-rows // _QKV_CHUNK_ROWS)
+        dqkv32 = torch.empty((rows, 3 * C), **f32)
+        partial = torch.empty((B_ * num_heads, N * N + 1), **f32)
+        sums = torch.empty((num_heads, N * N + 1), **f32)
+        wpartial = torch.empty((chunks, 3 * C, C + 1), **f32)
+        wsums = torch.empty((3 * C, C + 1), **f32)
+        with torch.cuda.device(dev):
+            err = lib.window_attn_qkv_bwd(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                bias16.data_ptr(), mask.data_ptr() if masked else None,
+                g.data_ptr(), dx.data_ptr(), dqkv32.data_ptr(),
+                partial.data_ptr(), sums.data_ptr(), wpartial.data_ptr(),
+                wsums.data_ptr(), B_, N, C, num_heads, n_win_per_img,
+                _DTYPE_CODE[x.dtype], _BWD_THREADS, _QKV_CHUNK_ROWS,
+                _stream(dev))
+        check_launch(lib, err, "window_attn_qkv_bwd")
+        db = wsums[:, C].contiguous()
+        dw = wsums[:, :C].contiguous()
+    route_launches["bwd_tensor_cores" if tc else "bwd_cuda_cores"] += 1
     dbias = sums[:, :N * N].reshape(num_heads, N, N).contiguous()
-    return (dx, wsums[:, :C].contiguous(), wsums[:, C].contiguous(),
-            sums[:, N * N].contiguous(), dbias)
+    return dx, dw, db, sums[:, N * N].contiguous(), dbias
 
 
 def qkv_attention_backward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -586,8 +703,8 @@ def qkv_attention_backward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                            mask: Optional[torch.Tensor] = None):
     """(dx, dw, db, dscale, dbias) of the all-in-kernel backward: the
     kernels of csrc/window_attn_qkv.cu on a CUDA tensor (counted on
-    fused_window_attention_packed_qkv.backward_launches), the plain version
-    on a CPU tensor."""
+    fused_window_attention_packed_qkv.backward_launches and on
+    route_launches by body), the plain version on a CPU tensor."""
     if _device(x) == "cpu":
         return window_attention_qkv_backward_reference(
             x, w, b, scale, bias16, g, num_heads, mask)

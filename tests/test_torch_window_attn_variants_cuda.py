@@ -111,9 +111,9 @@ def test_spatial_kernels_match_plain_versions(cuda_device, shape, masked,
                       qkv, scale, bias16, g, heads, ws, mask), dtype)
 
 
-def _entry_inputs(res, ws, heads, masked, dt, dev, seed):
+def _entry_inputs(res, ws, heads, masked, dt, dev, seed, hd=32):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    N, C = ws * ws, heads * 32
+    N, C = ws * ws, heads * hd
     nw = (res // ws) ** 2
     x = torch.randn(128 * nw, N, C, device=dev, generator=gen).to(dt)
     # qkv ~ N(0, 1), the scale rows 1/2 are held at: the bf16 tolerance is
@@ -135,7 +135,8 @@ def _entry_inputs(res, ws, heads, masked, dt, dev, seed):
 def test_entry_fused_kernels_match_plain_versions(cuda_device, shape, masked,
                                                   dtype):
     """x (B·nW, N, C) at the AlterNet50 shapes: the forward and the
-    all-in-kernel backward (dx, dW, db, dscale, dbias)."""
+    all-in-kernel backward (dx, dW, db, dscale, dbias); the backward takes
+    the tensor-core body in bf16 and the CUDA-core one in f32."""
     res, ws, heads = shape
     dt = DTYPES[dtype]
     x, w, b, scale, bias16, g, mask, nw = _entry_inputs(
@@ -144,9 +145,11 @@ def test_entry_fused_kernels_match_plain_versions(cuda_device, shape, masked,
               V.fused_window_attention_packed_qkv.backward_launches)
     out = V.fused_window_attention_packed_qkv(x, w, b, scale, bias16, heads,
                                               nw, mask, out_dtype=dt)
-    grads = V.qkv_attention_backward(x, w, b, scale, bias16, g, heads, nw,
-                                     mask)
+    grads, moved = routes_moved(lambda: V.qkv_attention_backward(
+        x, w, b, scale, bias16, g, heads, nw, mask))
     torch.cuda.synchronize()
+    assert moved == {"bwd_tensor_cores" if dtype == "bf16"
+                     else "bwd_cuda_cores": 1}
     assert (V.fused_window_attention_packed_qkv.launches,
             V.fused_window_attention_packed_qkv.backward_launches) == (
                 before[0] + 1, before[1] + 1)
@@ -156,6 +159,59 @@ def test_entry_fused_kernels_match_plain_versions(cuda_device, shape, masked,
     _assert_grads(("dx", "dw", "db", "dscale", "dbias"), grads,
                   V.window_attention_qkv_backward_reference(
                       x, w, b, scale, bias16, g, heads, mask), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_entry_fused_backward_at_an_odd_head_dim(cuda_device, masked):
+    """Head dim 38 (N 49, C 304, 8 heads): the tensor-core backward with
+    padded head columns and 4-byte copies of g, against the plain
+    version."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(38)
+    N, C, heads, nw = 49, 304, 8, 4
+    x = torch.randn(32 * nw, N, C, device=dev, generator=gen).to(
+        torch.bfloat16)
+    w = torch.randn(3 * C, C, device=dev, generator=gen) / C ** 0.5
+    b = 0.1 * torch.randn(3 * C, device=dev, generator=gen)
+    scale, bias16 = _params(heads, N, dev, gen)
+    g = torch.randn(32 * nw, N, C, device=dev, generator=gen).to(
+        torch.bfloat16)
+    mask = _mask(14, 7, masked, dev)
+    grads, moved = routes_moved(lambda: V.qkv_attention_backward(
+        x, w, b, scale, bias16, g, heads, nw if masked else 1, mask))
+    torch.cuda.synchronize()
+    assert moved == {"bwd_tensor_cores": 1}
+    _assert_grads(("dx", "dw", "db", "dscale", "dbias"), grads,
+                  V.window_attention_qkv_backward_reference(
+                      x, w, b, scale, bias16, g, heads, mask), "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", ALTERNET50 + [(12, 6, 4, 18)],
+                         ids=lambda s: f"r{s[0]}ws{s[1]}h{s[2]}"
+                         + (f"hd{s[3]}" if len(s) > 3 else ""))
+def test_entry_fused_backward_cuda_cores_bf16(cuda_device, shape, masked,
+                                              monkeypatch):
+    """The bf16 all-in-kernel backward on the CUDA-core body, one launch on
+    route_launches["bwd_cuda_cores"], against the plain version: at the
+    AlterNet50 shapes with TENSOR_CORES off, and at C = 72 (N 36, head dim
+    18: C % 16 != 0, off the tensor-core tile) with it on."""
+    res, ws, heads, *hd = shape
+    x, w, b, scale, bias16, g, mask, nw = _entry_inputs(
+        res, ws, heads, masked, torch.bfloat16, cuda_device,
+        seed=3 * res + heads, hd=hd[0] if hd else 32)
+    if not hd:
+        monkeypatch.setattr(F, "TENSOR_CORES", False)
+    grads, moved = routes_moved(lambda: V.qkv_attention_backward(
+        x, w, b, scale, bias16, g, heads, nw, mask))
+    torch.cuda.synchronize()
+    assert moved == {"bwd_cuda_cores": 1}
+    assert grads[0].dtype == torch.bfloat16
+    _assert_grads(("dx", "dw", "db", "dscale", "dbias"), grads,
+                  V.window_attention_qkv_backward_reference(
+                      x, w, b, scale, bias16, g, heads, mask), "bf16")
 
 
 @pytest.mark.cuda
