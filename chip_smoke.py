@@ -24,8 +24,12 @@ Phases; any failure exits non-zero and prints no result:
     plan (one wave of the CTAs the card holds) against two waves and a
     fixed plan, interleaved, at four main-path shapes;
     [kernel_stats] the stored-stats forward and
-    backward at the N=49 and AlterNet50 shapes, against their plain
-    versions and the recompute kernels, with bitwise repeatable sums;
+    backward at the N=49 and AlterNet50 shapes, bf16 on the tensor cores
+    and with TENSOR_CORES off on the CUDA cores, f32 and an odd head dim on
+    the CUDA cores, each call's route checked: against their plain versions
+    and the recompute kernels (on the tensor cores out and dqkv equal to
+    the row-1/row-2 kernels' bits), p and the sums bitwise repeatable;
+    times beside both bodies, the recompute kernels and SDPA;
  4. [main] drive the serving path once through the CLI (--mode test,
     AlterNet50 at full width: 192 px, emd 512, bf16; 256 synthetic pairs,
     64 pairs per call): forward launches = 12 per encoder call, finite
@@ -46,18 +50,19 @@ Phases; any failure exits non-zero and prints no result:
  8. [train_golden] two SGD steps of full-width AlterNet50 in f32 (TF32 off)
     against fr_tpu's training golden (tests/data/alternet50_train_golden.npz);
     [alternet50] three training steps with FR_ATTN_STORED_STATS=1 against
-    =0: the packed entry's stats kernels launch, the losses agree to 1e-3;
-    one f32 encoder backward under each arm: every parameter's gradient
-    agrees norm-wise to 1e-3;
+    =0, body for body (tensor cores, then TENSOR_CORES off): the packed
+    entry's stats kernels launch, every launch on that body, the losses
+    agree to 1e-3; one f32 encoder backward under each arm: every
+    parameter's gradient agrees norm-wise to 1e-3;
  9. [swin50] and [effialter_m], each at full width (112 px, emd 512, bf16):
     the serving CLI (14 and 4 per-head launches per encoder call), the
     goldens (tests/data/{swin50,effialter_m}_golden.npz: f32 max-abs 1e-3,
     bf16 per-row cosine 0.99), the training CLI (b=128, 10 epochs: 14/14
     and 4/4 forward/backward launches per step, a finite loss whose last
     epoch is below the first), and three training steps with
-    FR_ATTN_STORED_STATS=1 against =0 (stats launches seen, losses within
-    1e-3 relative, f32 encoder gradients norm-wise within 1e-3; the
-    variable is restored);
+    FR_ATTN_STORED_STATS=1 against =0 on each body (stats launches seen,
+    every launch on that body, losses within 1e-3 relative, f32 encoder
+    gradients norm-wise within 1e-3; the variable is restored);
 10. [swin50_train_golden] two SGD steps of full-width Swin50 in f32 against
     tests/data/swin50_train_golden.npz;
 11. [kernel_sparse_rows] the grouped gather, SGD and AdamW kernels against
@@ -110,22 +115,26 @@ Phases; any failure exits non-zero and prints no result:
     serving CLI at --img_size 112 and the golden; [dw_taps] EffiAlter_m
     with DepthwiseTaps against the depthwise conv (f32, 1e-5);
 16. [profile] torch.profiler over 5 training steps of Swin50 and of
-    EffiAlter_m (bf16, b=128, the full ms1m head at sample_rate 0.3) and of
-    the webface42m step of phase 13 at sample_block 64 and 1: wall per
+    EffiAlter_m (bf16, b=128, the full ms1m head at sample_rate 0.3), of
+    AlterNet50 and Swin50 with FR_ATTN_STORED_STATS=1 (the stats arm on the
+    tensor cores), and of the webface42m step of phase 13 at sample_block
+    64 and 1: wall per
     step, device busy, idle share, launches per step, time by family, and
     the head's device time inside the step (the kernels launched in
     train/step.py's pfc_head:* ranges).
 
 Every kernel's launches in the JSON line are counted on its main path
 (phases 4, 6, 7, 8, 9 and 13; rows 15/16 on [kernel_variants]'s driven
-calls, rows 17/18 on [alternet50_spatial] and [alternet50_entry_fused]),
-each run with the counts set to 0 just before it. On those paths every
-launch of the attention forward and recompute backward must take the
+calls, rows 17/18 on [alternet50_spatial] and [alternet50_entry_fused],
+rows 3/4 and 7/8 on the stats switch of phases 8 and 9, each body on its
+own arm), each run with the counts set to 0 just before it. On those
+paths every launch of the attention forward and backward must take the
 tensor-core kernels (fused_window_attn.route_launches, set to 0 with the
 counts): 12 + 12 per AlterNet50 step, 14 + 14 per Swin50 step, 4 + 4 per
-EffiAlter_m step; on the entry-fused route 12 + 12 with the hybrid
-backward and 12 + 0 with the all-in-kernel one (its backward is a
-CUDA-core kernel of its own).
+EffiAlter_m step, the stats arm's too; on the entry-fused route 12 + 12
+with the hybrid backward and 12 + 0 with the all-in-kernel one (its
+backward is a CUDA-core kernel of its own). The stats switch's arm with
+TENSOR_CORES off must take the CUDA-core kernels alone.
 
 The last three lines are the kernel JSON line, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -323,6 +332,8 @@ def phase_build():
           f"{_build.library_path().relative_to(ROOT)}")
     table = _ptxas_table(_build.build_log_path().read_text())
     for kernel in ("window_attn_fwd_tc_kernel", "window_attn_bwd_tc_kernel",
+                   "window_attn_fwd_stats_tc_kernel",
+                   "window_attn_bwd_stats_tc_kernel",
                    "window_attn_qkv_fwd_tc_kernel",
                    "window_attn_qkv_bwd_tc_kernel",
                    "window_attn_qkv_grad_mma_kernel"):
@@ -1099,105 +1110,172 @@ def phase_kernel_plan():
         F.tensor_core_plan, F._TC_WAVES = shipped
 
 
-def phase_kernel_stats():
-    """Rows 3-4 and 7-8: the stored-stats kernels against their plain
-    versions and against the recompute kernels, at the N=49 shapes and the
-    AlterNet50 packed shapes; bitwise repeatable sums. Returns (max error
-    fwd, max error bwd, {shape: bf16 times})."""
+def _stats_case(tag, qkv, scale, bias16, g, mask, nw, dt):
+    """One shape of [kernel_stats] on the body of its dtype (the tensor
+    cores for bf16, the CUDA cores for f32 and under TENSOR_CORES off):
+    the route of both launches, out and p against the plain version, out
+    against the recompute forward's and dq/dk/dv against the recompute
+    backward's (bit for bit on the tensor cores: the same helpers in the
+    same order), the gradients against the plain version and the
+    recompute kernel, p, dscale and dbias bitwise repeatable. Returns
+    (body, out, p, grads, forward error, backward error)."""
     import torch
     from fr_tpu_torch.ops import fused_window_attn as F
 
+    heads = scale.shape[0]
+    bf16 = dt == torch.bfloat16
+    tol = BF16_TOL if bf16 else F32_TOL
+    body, (out, p) = _route_of(lambda: F.window_attention_forward_stats(
+        qkv, scale, bias16, heads, nw, mask, out_dtype=dt))
+    want = ("tensor_cores" if F.tensor_core_route(
+        dt, qkv.shape[1], qkv.shape[2] // 3 // heads) else "cuda_cores")
+    check(body == want, f"[kernel_stats] {tag} forward took {body}")
+    route, grads = _route_of(lambda: F.window_attention_backward_stats(
+        qkv, scale, p, g, heads))
+    check(route == want, f"[kernel_stats] {tag} backward took {route}")
+    torch.cuda.synchronize()
+    ref_out, ref_p = F.window_attention_forward_stats_reference(
+        qkv, scale, bias16, heads, mask, dt)
+    recompute_out = F.fused_window_attention(qkv, scale, bias16, heads, nw,
+                                             mask, out_dtype=dt)
+    err_f = 0.0
+    for other in (ref_out, recompute_out):
+        err = (out.float() - other.float()).abs().max().item()
+        check(err <= tol, f"[kernel_stats] {tag} out: {err} > {tol}")
+        err_f = max(err_f, err)
+    # bf16: a q̂ or k̂ element can round to the neighbouring bf16 value where
+    # the card's rsqrt and the plain version's differ in the last f32 digit
+    # (tests/test_torch_window_attn_stats_cuda)
+    p_err = (p - ref_p).norm().item() / ref_p.norm().item()
+    check(p_err <= (1e-6 if dt == torch.float32 else 1e-3),
+          f"[kernel_stats] {tag} p: norm-wise {p_err}")
+    plain = F.window_attention_backward_stats_reference(qkv, scale, ref_p, g,
+                                                        heads)
+    recompute = F.window_attention_backward(qkv, scale, bias16, g, heads, nw,
+                                            mask)
+    torch.cuda.synchronize()
+    if dt == torch.float32:
+        err_b = _check_grads(f"[kernel_stats] {tag}", grads, plain, dt)
+        _check_grads(f"[kernel_stats] {tag} vs recompute", grads, recompute,
+                     dt)
+    else:
+        # bf16 norm-wise 1e-2; dscale from the row-sum identity over
+        # bf16-rounded ds·scale, 3e-2·max(|ref|, 1) as fr_tpu's own
+        # stored-stats test holds it
+        for other in (plain, recompute):
+            for t_name, a, b in zip(("dqkv", "dscale", "dbias"), grads,
+                                    other):
+                a, b = a.float(), b.float()
+                check(bool(torch.isfinite(a).all()),
+                      f"[kernel_stats] {tag} {t_name} not finite")
+                if t_name == "dscale":
+                    err = (a - b).abs().max().item()
+                    ok = err <= 3e-2 * max(b.abs().max().item(), 1.0)
+                else:
+                    err = ((a - b).norm() / b.norm()).item()
+                    ok = err <= 1e-2
+                check(ok, f"[kernel_stats] {tag} {t_name}: {err}")
+        err_b = max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(grads, plain))
+    if body == "tensor_cores":
+        check(torch.equal(out, recompute_out), f"[kernel_stats] {tag} out "
+              f"differs from the row-1 kernel's bits")
+        check(torch.equal(grads[0], recompute[0]), f"[kernel_stats] {tag} "
+              f"dqkv differs from the row-2 kernel's bits")
+    again_out, again_p = F.window_attention_forward_stats(
+        qkv, scale, bias16, heads, nw, mask, out_dtype=dt)
+    again = F.window_attention_backward_stats(qkv, scale, p, g, heads)
+    check(torch.equal(again_p, p) and torch.equal(again_out, out),
+          f"[kernel_stats] {tag}: out or p changed between runs")
+    check(torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2]),
+          f"[kernel_stats] {tag}: dscale/dbias changed between runs")
+    dbias_rel = ((grads[2] - recompute[2]).norm()
+                 / recompute[2].norm()).item()
+    print(f"[kernel_stats] {tag:30s} ({body}) out err {err_f:.2e}, p "
+          f"norm-wise {p_err:.1e}, grads max-abs {err_b:.2e}; against the "
+          f"recompute kernel: dbias norm-wise {dbias_rel:.1e}, dscale "
+          f"{(grads[1] - recompute[1]).abs().max().item():.2e}"
+          + ("; out and dqkv its bits" if body == "tensor_cores" else "")
+          + "; p, dscale, dbias repeat bitwise")
+    return body, out, p, grads, err_f, err_b
+
+
+def phase_kernel_stats():
+    """Rows 3-4 and 7-8: the stored-stats kernels at the N=49 shapes and
+    the AlterNet50 packed shapes (_stats_case): bf16 on the tensor cores,
+    again with TENSOR_CORES off on the CUDA cores, f32 on the CUDA cores,
+    and an odd head dim (33, bf16) beyond the tensor-core tile. Times, bf16:
+    both bodies, the plain versions, the recompute kernels (rows 1/2 and
+    5/6) and SDPA's forward and backward. Returns ({body: max error fwd},
+    {body: max error bwd}, {shape: bf16 times})."""
+    import torch
+    from fr_tpu_torch.ops import fused_window_attn as F
+
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(5)
-    worst_f = worst_b = 0.0
+    worst_f = {"tensor_cores": 0.0, "cuda_cores": 0.0}
+    worst_b = dict(worst_f)
     times = {}
     cases = ([(s, _perhead_inputs) for s in PERHEAD_SHAPES]
              + [(s, _packed_inputs) for s in SHAPES])
     for shape, make in cases:
         name = shape[0]
-        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        for dt in (torch.bfloat16, torch.float32):
             qkv, scale, bias16, g, mask, nw = make(shape, dt, gen)
             heads = scale.shape[0]
             tag = f"{name} {str(dt).split('.')[-1]}"
-            out, p = F.window_attention_forward_stats(
-                qkv, scale, bias16, heads, nw, mask, out_dtype=dt)
-            grads = F.window_attention_backward_stats(qkv, scale, p, g, heads)
-            torch.cuda.synchronize()
-            ref_out, ref_p = F.window_attention_forward_stats_reference(
-                qkv, scale, bias16, heads, mask, dt)
-            recompute_out = F.fused_window_attention(qkv, scale, bias16,
-                                                     heads, nw, mask,
-                                                     out_dtype=dt)
-            for other in (ref_out, recompute_out):
-                err = (out.float() - other.float()).abs().max().item()
-                check(err <= tol, f"[kernel_stats] {tag} out: {err} > {tol}")
-                worst_f = max(worst_f, err)
-            # bf16: a q̂ or k̂ element can round to the neighbouring bf16
-            # value where the card's rsqrt and the plain version's differ
-            # in the last f32 digit (tests/test_torch_window_attn_stats_cuda)
-            p_err = (p - ref_p).norm().item() / ref_p.norm().item()
-            check(p_err <= (1e-6 if dt == torch.float32 else 1e-3),
-                  f"[kernel_stats] {tag} p: norm-wise {p_err}")
-            plain = F.window_attention_backward_stats_reference(
-                qkv, scale, ref_p, g, heads)
-            recompute = F.window_attention_backward(qkv, scale, bias16, g,
-                                                    heads, nw, mask)
-            torch.cuda.synchronize()
-            if dt == torch.float32:
-                worst_b = max(worst_b, _check_grads(
-                    f"[kernel_stats] {tag}", grads, plain, dt))
-                _check_grads(f"[kernel_stats] {tag} vs recompute", grads,
-                             recompute, dt)
-            else:
-                # bf16 norm-wise 1e-2; dscale from the row-sum identity over
-                # bf16-rounded ds·scale, 3e-2·max(|ref|, 1) as fr_tpu's own
-                # stored-stats test holds it
-                for other in (plain, recompute):
-                    for t_name, a, b in zip(("dqkv", "dscale", "dbias"),
-                                            grads, other):
-                        a, b = a.float(), b.float()
-                        check(bool(torch.isfinite(a).all()),
-                              f"[kernel_stats] {tag} {t_name} not finite")
-                        if t_name == "dscale":
-                            err = (a - b).abs().max().item()
-                            ok = err <= 3e-2 * max(b.abs().max().item(), 1.0)
-                        else:
-                            err = ((a - b).norm() / b.norm()).item()
-                            ok = err <= 1e-2
-                        check(ok, f"[kernel_stats] {tag} {t_name}: {err}")
-                worst_b = max(worst_b, max(
-                    (a.float() - b.float()).abs().max().item()
-                    for a, b in zip(grads, plain)))
-            again = F.window_attention_backward_stats(qkv, scale, p, g, heads)
-            check(torch.equal(again[1], grads[1])
-                  and torch.equal(again[2], grads[2]),
-                  f"[kernel_stats] {tag}: dscale/dbias changed between runs")
-            if dt == torch.bfloat16:
-                t = {"fwd": time_ms(lambda: F.window_attention_forward_stats(
-                         qkv, scale, bias16, heads, nw, mask, out_dtype=dt)),
-                     "fwd_plain": time_ms(
-                         lambda: F.window_attention_forward_stats_reference(
-                             qkv, scale, bias16, heads, mask, dt)),
-                     "bwd": time_ms(lambda: F.window_attention_backward_stats(
+            bodies = [True, False] if dt == torch.bfloat16 else [True]
+            for tensor_cores in bodies:
+                with _Body(tensor_cores):
+                    body, out, p, grads, ef, eb = _stats_case(
+                        tag + ("" if tensor_cores else " TENSOR_CORES off"),
+                        qkv, scale, bias16, g, mask, nw, dt)
+                worst_f[body] = max(worst_f[body], ef)
+                worst_b[body] = max(worst_b[body], eb)
+            if dt != torch.bfloat16:
+                continue
+
+            def fwd():
+                return F.window_attention_forward_stats(
+                    qkv, scale, bias16, heads, nw, mask, out_dtype=dt)
+
+            def bwd():
+                return F.window_attention_backward_stats(qkv, scale, p, g,
+                                                         heads)
+            t = {"fwd": time_ms(fwd), "bwd": time_ms(bwd),
+                 "fwd_cc": _cuda_core_ms(fwd), "bwd_cc": _cuda_core_ms(bwd),
+                 "fwd_plain": time_ms(
+                     lambda: F.window_attention_forward_stats_reference(
+                         qkv, scale, bias16, heads, mask, dt)),
+                 "bwd_plain": time_ms(
+                     lambda: F.window_attention_backward_stats_reference(
                          qkv, scale, p, g, heads)),
-                     "bwd_plain": time_ms(
-                         lambda: F.window_attention_backward_stats_reference(
-                             qkv, scale, ref_p, g, heads)),
-                     "bwd_recompute": time_ms(
-                         lambda: F.window_attention_backward(
-                             qkv, scale, bias16, g, heads, nw, mask))}
-                t["fwd_lib"] = _library_fwd_ms(qkv, scale, bias16, mask,
-                                               heads)
-                t["bwd_lib"] = _library_bwd_ms(qkv, scale, bias16, mask,
-                                               heads, g)
-                times[name] = t
-                print(f"[kernel_stats] {tag:22s} {tuple(qkv.shape)} h{heads}"
-                      f" fwd_stats {t['fwd']:.4f} (plain {t['fwd_plain']:.4f})"
-                      f" bwd_stats {t['bwd']:.4f} (plain {t['bwd_plain']:.4f},"
-                      f" recompute kernel {t['bwd_recompute']:.4f}) ms")
-            else:
-                print(f"[kernel_stats] {tag:22s} out, p, grads within "
-                      f"tolerance; sums bitwise repeatable")
+                 "fwd_recompute": time_ms(lambda: F.fused_window_attention(
+                     qkv, scale, bias16, heads, nw, mask, out_dtype=dt)),
+                 "bwd_recompute": time_ms(lambda: F.window_attention_backward(
+                     qkv, scale, bias16, g, heads, nw, mask))}
+            t["fwd_lib"] = _library_fwd_ms(qkv, scale, bias16, mask, heads)
+            t["bwd_lib"] = _library_bwd_ms(qkv, scale, bias16, mask, heads,
+                                           g)
+            times[name] = t
+            print(f"[kernel_stats] {tag:22s} {tuple(qkv.shape)} h{heads} ms: "
+                  f"fwd_stats {t['fwd']:.4f} (CUDA-core {t['fwd_cc']:.4f}, "
+                  f"plain {t['fwd_plain']:.4f}, recompute fwd "
+                  f"{t['fwd_recompute']:.4f}, sdpa {t['fwd_lib']:.4f}); "
+                  f"bwd_stats {t['bwd']:.4f} (CUDA-core {t['bwd_cc']:.4f}, "
+                  f"plain {t['bwd_plain']:.4f}, recompute bwd "
+                  f"{t['bwd_recompute']:.4f}, sdpa {t['bwd_lib']:.4f})")
+    # bf16 beyond the tile: head dim 33 is odd, so the CUDA-core bodies
+    qkv, scale, bias16, g, mask, nw = _attention_inputs(
+        64, 36, 4, 12, 6, True, torch.bfloat16, gen)
+    qkv = torch.randn(64, 36, 3 * 132, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    g = torch.randn(64, 36, 132, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    _stats_case("N36 hd33 bf16", qkv, scale, bias16, g, mask, nw,
+                torch.bfloat16)
+    print(f"[kernel_stats] {time.perf_counter() - t0:.1f} s")
     return worst_f, worst_b, times
 
 
@@ -1357,26 +1435,27 @@ class _Body:
 
 def phase_stats_switch(network, steps: int = 3):
     """Three training_steps with FR_ATTN_STORED_STATS=1 against =0 from one
-    seed (b=128, bf16, the CLI's synthetic head): the stats kernels launch
-    once per attention site and step, and the losses agree to 1e-3
-    relative with the recompute arm on the CUDA-core body (TENSOR_CORES
-    off), whose forward arithmetic the stats kernels share bit for bit.
-    The recompute arm on its default tensor-core body runs too and is
-    printed: bf16 training at init parts from any change of rounding within
-    two steps, so that body is held by its bf16 gradients instead
-    (_bf16_body_grads). Then the arms' f32 encoder gradients
-    (``_stats_switch_grads``). The variable and the switch are restored.
-    Returns the stats kernels' launches."""
+    seed (b=128, bf16, the CLI's synthetic head), body for body: on the
+    tensor cores (the default) and with TENSOR_CORES off on the CUDA cores.
+    Each body's stats arm shares its recompute arm's forward arithmetic
+    bit for bit, so per body the stats kernels launch once per attention
+    site and step, every launch on that body (route_launches), and the
+    losses agree to 1e-3 relative. Then the arms' f32 encoder gradients
+    (``_stats_switch_grads``) and the bf16 bodies against f32
+    (_bf16_body_grads). The variable and the switch are restored. Returns
+    {body: [stats forward launches, stats backward launches]}."""
     import os
     import torch
     from fr_tpu_torch.cli.main import build_conf, parse_args
     from fr_tpu_torch.ops import fused_window_attn as F
     from fr_tpu_torch.train.task import FaceRecognitionTask
 
+    t0 = time.perf_counter()
     tag = f"[{network.lower()}]"
     entry = (F.fused_window_attention_packed if network == "AlterNet50"
              else F.fused_window_attention)
     counters = [(entry, "stats_launches"), (entry, "stats_backward_launches")]
+    per_call = NET_LAUNCHES[network]
     args = parse_args(_net_args(network, "train"))
     conf = build_conf(args)
     conf.n_classes = args.synthetic_classes
@@ -1387,39 +1466,51 @@ def phase_stats_switch(network, steps: int = 3):
     labels = torch.randint(0, conf.n_classes, (steps, conf.b),
                            device="cuda", generator=gen)
     saved = os.environ.get("FR_ATTN_STORED_STATS")
-    losses, launches = {}, None
+    losses, launches = {}, {}
     try:
-        for arm, stats, tensor_cores in (("0", "0", False), ("1", "1", True),
-                                         ("0 tensor cores", "0", True)):
+        for body, stats in (("tensor_cores", "0"), ("tensor_cores", "1"),
+                            ("cuda_cores", "1"), ("cuda_cores", "0")):
             os.environ["FR_ATTN_STORED_STATS"] = stats
-            with _Body(tensor_cores):
+            with _Body(body == "tensor_cores"):
                 task = FaceRecognitionTask(conf, stage="train",
                                            device="cuda", seed=0)
                 _reset(counters)
-                losses[arm] = [task.training_step((images[i], labels[i]))[
-                    "loss"].item() for i in range(steps)]
-            counts = [getattr(f, a) for f, a in counters]
-            if arm == "1":
-                launches = counts
-            del task
+                _reset_routes()
+                losses[(body, stats)] = [
+                    task.training_step((images[i], labels[i]))[
+                        "loss"].item() for i in range(steps)]
+                del task
+            routes = dict(_routes())
+            n = per_call * steps
+            check(routes == {f"fwd_{b}": n if b == body else 0
+                             for b in ("tensor_cores", "cuda_cores")}
+                  | {f"bwd_{b}": n if b == body else 0
+                     for b in ("tensor_cores", "cuda_cores")},
+                  f"{tag} FR_ATTN_STORED_STATS={stats} on the {body}: "
+                  f"launches by route {routes}, expected {n} forward and "
+                  f"{n} backward on the {body}")
+            if stats == "1":
+                launches[body] = [getattr(f, a) for f, a in counters]
     finally:
         if saved is None:
             os.environ.pop("FR_ATTN_STORED_STATS", None)
         else:
             os.environ["FR_ATTN_STORED_STATS"] = saved
-    per_call = NET_LAUNCHES[network]
     _stats_switch_grads(network, tag)
     _bf16_body_grads(network, tag)
-    print(f"{tag} FR_ATTN_STORED_STATS=0 (CUDA-core body) losses "
-          f"{[round(x, 5) for x in losses['0']]}, =1 "
-          f"{[round(x, 5) for x in losses['1']]}; =0 on the tensor cores "
-          f"{[round(x, 5) for x in losses['0 tensor cores']]}; stats "
-          f"launches {launches}")
-    check(launches == [per_call * steps] * 2,
-          f"{tag} stats launches {launches}, expected {per_call * steps}")
-    for a, b in zip(losses["0"], losses["1"]):
-        check(abs(a - b) <= 1e-3 * abs(a), f"{tag} stats-arm loss {b} vs "
-              f"recompute {a}: beyond 1e-3 relative")
+    for body in ("tensor_cores", "cuda_cores"):
+        recompute, stats = losses[(body, "0")], losses[(body, "1")]
+        print(f"{tag} on the {body}: FR_ATTN_STORED_STATS=0 losses "
+              f"{[round(x, 5) for x in recompute]}, =1 "
+              f"{[round(x, 5) for x in stats]}; stats launches "
+              f"{launches[body]}; every launch on that body")
+        check(launches[body] == [per_call * steps] * 2,
+              f"{tag} {body} stats launches {launches[body]}, expected "
+              f"{per_call * steps}")
+        for a, b in zip(recompute, stats):
+            check(abs(a - b) <= 1e-3 * abs(a), f"{tag} {body}: stats-arm "
+                  f"loss {b} vs recompute {a}: beyond 1e-3 relative")
+    print(f"{tag} stats switch: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3075,6 +3166,29 @@ def phase_profile(network, warmup: int = 3, steps: int = 5, conf=None):
     return head_ms
 
 
+def phase_stats_profile():
+    """[profile] of the AlterNet50 and Swin50 training steps with
+    FR_ATTN_STORED_STATS=1, the stats arm on its tensor-core body, beside
+    the recompute arm's profiles of the same run ([alternet50_windows],
+    phase_profile("Swin50")). The variable is restored."""
+    import os
+    t0 = time.perf_counter()
+    saved = os.environ.get("FR_ATTN_STORED_STATS")
+    os.environ["FR_ATTN_STORED_STATS"] = "1"
+    try:
+        for network in ("AlterNet50", "Swin50"):
+            print(f"[profile] {network}: the stats arm "
+                  f"(FR_ATTN_STORED_STATS=1)")
+            phase_profile(network)
+    finally:
+        if saved is None:
+            os.environ.pop("FR_ATTN_STORED_STATS", None)
+        else:
+            os.environ["FR_ATTN_STORED_STATS"] = saved
+    print(f"[profile] the stats arm's two profiles: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def _family(name):
     n = name.lower()
     for fam, keys in (("port attention kernels", ("window_attn", "window_sum",
@@ -3189,12 +3303,13 @@ def main() -> None:
     packed_stats = phase_stats_switch("AlterNet50")
     launches_routes, _ = phase_alternet50_routes()
     perhead = {"fwd": 0, "bwd": 0}
-    perhead_stats = [0, 0]
+    perhead_stats = {"tensor_cores": [0, 0], "cuda_cores": [0, 0]}
     for network in ("Swin50", "EffiAlter_m"):
         counts, stats = phase_network(network)
         perhead["fwd"] += counts["serve"] + counts["train_fwd"]
         perhead["bwd"] += counts["train_bwd"]
-        perhead_stats = [a + b for a, b in zip(perhead_stats, stats)]
+        perhead_stats = {body: [a + b for a, b in zip(v, stats[body])]
+                         for body, v in perhead_stats.items()}
     phase_swin50_train_golden()
     phase_alternet_sep50()
     phase_alternet_v1_50()
@@ -3205,6 +3320,7 @@ def main() -> None:
     phase_resume()
     for network in ("Swin50", "EffiAlter_m"):
         phase_profile(network)
+    phase_stats_profile()
     head_block = phase_profile("ResNet100", conf=_webface_conf())
     head_row = phase_profile("ResNet100", conf=_webface_conf(sample_block=1))
     print(f"[profile] ResNet100 webface42m, the head inside the step at "
@@ -3225,6 +3341,19 @@ def main() -> None:
                   (1, 2, 5, 6), (fwd["ms"], bwd["ms"],
                                  _perhead_mix(times_ph, "fwd"),
                                  _perhead_mix(times_ph, "bwd")), cc)))
+    stats = {k: (sum(times_st[name][k] * (n_unmasked + n_masked)
+                     for name, *_, n_unmasked, n_masked in SHAPES),
+                 _perhead_mix(times_st, k))
+             for k in ("fwd", "fwd_cc", "fwd_lib", "fwd_recompute", "bwd",
+                       "bwd_cc", "bwd_lib", "bwd_recompute")}
+    print("[summary] the stats pair, bf16, tensor cores against the "
+          "CUDA-core body, SDPA and the recompute kernel (rows 1/2, 5/6): "
+          + "; ".join(f"row {row} {stats[kind][i]:.4f} vs "
+                      f"{stats[kind + '_cc'][i]:.4f}, sdpa "
+                      f"{stats[kind + '_lib'][i]:.4f}, recompute "
+                      f"{stats[kind + '_recompute'][i]:.4f} ms"
+                      for row, kind, i in ((3, "fwd", 0), (4, "bwd", 0),
+                                           (7, "fwd", 1), (8, "bwd", 1))))
     qkv = {k: sum(count * times_v["qkv"][(name, masked)][k]
                   for name, *_, n_unmasked, n_masked in SHAPES
                   for masked, count in ((False, n_unmasked),
@@ -3279,16 +3408,23 @@ def main() -> None:
     packed_mix = {k: sum(times_st[name][k] * (n_unmasked + n_masked)
                          for name, *_, n_unmasked, n_masked in SHAPES)
                   for k in stats_mix}
-    for kind, i, err in (("fwd", 0, worst_st_f), ("bwd", 1, worst_st_b)):
-        for entry, lines, counts, mix, bound in (
+    # rows 3-4, 7-8: each on its tensor-core body (the models' bf16 path
+    # under FR_ATTN_STORED_STATS=1) and its CUDA-core body (TENSOR_CORES
+    # off), launches from the stats switch's arm of that body
+    for kind, i, errs in (("fwd", 0, worst_st_f), ("bwd", 1, worst_st_b)):
+        for entry, lines, counts, mix, bound, rows in (
                 ("per-head", (731, 790), perhead_stats, stats_mix,
-                 _perhead_bound(f"{kind}_stats")),
+                 _perhead_bound(f"{kind}_stats"), (7, 8)),
                 ("packed", (1298, 1367), packed_stats, packed_mix,
-                 _packed_bound(f"{kind}_stats"))):
-            kernels.append(_entry(
-                f"window_attn_{kind}_stats ({entry} entry)",
-                "window_attn_stats.cu", f"{attn}:{lines[i]}", counts[i], err,
-                mix[kind], mix[f"{kind}_plain"], bound, mix[f"{kind}_lib"]))
+                 _packed_bound(f"{kind}_stats"), (3, 4))):
+            for body, suffix, key in (("tensor_cores", "_tc", kind),
+                                      ("cuda_cores", "", f"{kind}_cc")):
+                kernels.append(_entry(
+                    f"window_attn_{kind}_stats{suffix} ({entry} entry, row "
+                    f"{rows[i]})", "window_attn_stats.cu",
+                    f"{attn}:{lines[i]}", counts[body][i], errs[body],
+                    mix[key], mix[f"{kind}_plain"], bound,
+                    mix[f"{kind}_lib"]))
     for (name, line), count in zip(
             (("grouped_gather", 70), ("grouped_update_sgd", 99),
              ("grouped_update_adamw", 151)), launches_rows):

@@ -125,6 +125,9 @@ def load_library() -> ctypes.CDLL:
                                   i32, i32, i32, i32, vp],
         "window_attn_bwd_stats": [vp, vp, vp, vp, vp, vp, vp, i64, i32, i32,
                                   i32, i32, i32, vp],
+        "window_attn_fwd_stats_tc": [*[vp] * 6, i64, *[i32] * 7, vp],
+        "window_attn_bwd_stats_tc": [*[vp] * 7, i64, *[i32] * 5, vp],
+        "window_attn_stats_tc_occupancy": [i32, i32, i32, i32, i32],
         "window_attn_spatial_fwd": [vp, vp, vp, vp, vp, i64, i32, i32, i32,
                                     i32, i32, i32, i32, i32, vp],
         "window_attn_spatial_bwd": [vp, vp, vp, vp, vp, vp, vp, vp, i64, i32,

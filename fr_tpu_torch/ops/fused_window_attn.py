@@ -22,19 +22,25 @@ both entries:
     csrc/window_attn_stats.cu  forward storing p   rows 3, 7; _fwd_body_stats
                                backward from p     rows 4, 8; _bwd_body_stats
 
-(rows of ROADMAP §2). The forward and the recompute backward have two
-bodies each, and the wrapper picks one by dtype and shape
-(``tensor_core_route``), with no fallback from one to the other:
+(rows of ROADMAP §2). Each of the four has two bodies, and the wrapper
+picks one by dtype and shape (``tensor_core_route``), with no fallback
+from one to the other:
 
     tensor cores  bf16, N ≤ 64, an even head dim ≤ 64 (every shape of the
                   models' path: N 9, 36, 49; head dims 32, 38):
-                  window_attn_fwd_tc, window_attn_bwd_tc (window_attn_tc.cuh)
+                  window_attn_fwd_tc, window_attn_bwd_tc (window_attn_tc.cuh);
+                  window_attn_fwd_stats_tc, window_attn_bwd_stats_tc
+                  (window_attn_stats.cu, on the same building blocks)
     CUDA cores    f32 (TF32 would break the f32 tolerance and goldens), and
                   bf16 beyond that tile, or with ``TENSOR_CORES`` off:
-                  window_attn_fwd, window_attn_bwd
+                  window_attn_fwd, window_attn_bwd; window_attn_fwd_stats,
+                  window_attn_bwd_stats
 
-Every launch of the two bodies, from any entry or route of this module and
-of fused_window_attn_variants.py, also counts on ``route_launches``.
+Every launch of the bodies, from any entry or route of this module and of
+fused_window_attn_variants.py, also counts on ``route_launches``: the
+forwards (the stats forward too) on "fwd_tensor_cores" or
+"fwd_cuda_cores", the backwards (the stats backward too) on
+"bwd_tensor_cores" or "bwd_cuda_cores".
 
 Under autograd an entry takes one of two arms, chosen as fr_tpu chooses:
 the recompute arm saves qkv, scale, bias16 and the mask and its backward
@@ -96,16 +102,15 @@ _TC_MAX = 64
 # per SM, times the SMs), each walking an equal run of windows.
 _TC_WAVES = 1
 
-# launches of the forward and recompute-backward kernels by body
+# launches of the forward and backward kernels by body, either arm
 route_launches = {"fwd_tensor_cores": 0, "fwd_cuda_cores": 0,
                   "bwd_tensor_cores": 0, "bwd_cuda_cores": 0}
 
 # The bf16 body switch, read at every call: True (the default) puts bf16
 # calls within the tile on the tensor cores; False puts every call on the
-# CUDA-core kernels, whose arithmetic the stored-stats and entry-fused
-# kernels share. chip_smoke.py turns it off only to hold those against the
-# recompute arm bit for bit in the forward (bf16 training at init amplifies
-# any change of rounding; PERF.md §6).
+# CUDA-core kernels. chip_smoke.py's stats switch runs both arms on each
+# body, so that the arms share their forward's arithmetic bit for bit
+# (bf16 training at init amplifies any change of rounding; PERF.md §6).
 TENSOR_CORES = True
 
 
@@ -169,11 +174,27 @@ def _tc_smem_bytes(N: int, hd: int, masked: bool, backward: bool) -> int:
     return bias + 2 * (ld + 6 * N * ld)
 
 
-def _tc_check(backward: bool, masked: bool):
+def _tc_stats_smem_bytes(N: int, hd: int, masked: bool,
+                         backward: bool) -> int:
+    """Dynamic shared memory of a tensor-core stats CTA
+    (window_attn_stats.cu's tc_fwd_stats_smem_bytes,
+    tc_bwd_stats_smem_bytes), p's f32 (N, N) tile padded to 16-byte words:
+    the forward is the row-1 CTA and one p tile; the backward reads no bias
+    or mask, so it is the row-2 CTA less its bias tile, plus two stages of
+    p."""
+    pf = 4 * -(-N * N // 4)
+    if not backward:
+        return _tc_smem_bytes(N, hd, masked, False) + 4 * pf
+    np_ = 16 * -(-N // 16)
+    return (_tc_smem_bytes(N, hd, False, True) - 4 * N * (np_ + 8)
+            + 4 * 2 * pf)
+
+
+def _tc_check(backward: bool, masked: bool, stats: bool = False):
     """The shared-memory size and limit _checked_operands holds a
     tensor-core call to."""
-    return (lambda N, hd: _tc_smem_bytes(N, hd, masked, backward),
-            _BWD_SMEM_LIMIT)
+    size = _tc_stats_smem_bytes if stats else _tc_smem_bytes
+    return (lambda N, hd: size(N, hd, masked, backward), _BWD_SMEM_LIMIT)
 
 
 @functools.lru_cache(maxsize=None)
@@ -645,45 +666,40 @@ def _launch(qkv, scale, bias16, num_heads, n_win_per_img, mask, out_dtype,
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"qkv {qkv.dtype} / out {out_dtype}: the kernel "
                         f"takes float32 or bfloat16")
-    tc = p_out is None and _windows_route(qkv, num_heads)
+    tc = _windows_route(qkv, num_heads)
+    stats = p_out is not None
+    masked = mask is not None
     (B_, N, C), qkv, scale, bias16, mask = _checked_operands(
         qkv, scale, bias16, num_heads, n_win_per_img, mask,
-        *(_tc_check(False, mask is not None) if tc
+        *(_tc_check(False, masked, stats) if tc
           else (_smem_bytes, _SMEM_LIMIT)))
     out = torch.empty((B_, N, C), dtype=out_dtype, device=qkv.device)
     if B_ == 0:
         return out
     lib = load_library()
+    args = [qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
+            mask.data_ptr() if masked else None, out.data_ptr()]
+    if stats:
+        args.append(p_out.data_ptr())
+    name = "window_attn_fwd_stats" if stats else "window_attn_fwd"
     if tc:
         vec, (qkv,) = _tc_operands(C // num_heads, C, qkv)
-        masked = mask is not None
+        args[0] = qkv.data_ptr()
+        occupancy, *flags = (
+            ("window_attn_stats_tc_occupancy", int(masked), 0) if stats
+            else ("window_attn_fwd_tc_occupancy", int(masked)))
         wpc, _ = tensor_core_plan(B_, n_win_per_img, num_heads, masked,
-                                  _tc_slots("window_attn_fwd_tc_occupancy",
-                                            qkv.device.index or 0, N, C,
-                                            num_heads, int(masked)))
-        with torch.cuda.device(qkv.device):
-            err = lib.window_attn_fwd_tc(
-                qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
-                mask.data_ptr() if mask is not None else None,
-                out.data_ptr(), B_, N, C, num_heads, n_win_per_img,
-                _DTYPE_CODE[out_dtype], wpc, vec, _stream(qkv.device))
-        check_launch(lib, err, "window_attn_fwd_tc")
-        route_launches["fwd_tensor_cores"] += 1
-        return out
-    args = [qkv.data_ptr(), scale.data_ptr(), bias16.data_ptr(),
-            mask.data_ptr() if mask is not None else None, out.data_ptr()]
-    name = "window_attn_fwd"
-    if p_out is not None:
-        args.append(p_out.data_ptr())
-        name = "window_attn_fwd_stats"
+                                  _tc_slots(occupancy, qkv.device.index or 0,
+                                            N, C, num_heads, *flags))
+        name += "_tc"
+        tail = (_DTYPE_CODE[out_dtype], wpc, vec)
+    else:
+        tail = (_DTYPE_CODE[qkv.dtype], _DTYPE_CODE[out_dtype], _THREADS)
     with torch.cuda.device(qkv.device):
-        err = getattr(lib, name)(
-            *args, B_, N, C, num_heads, n_win_per_img,
-            _DTYPE_CODE[qkv.dtype], _DTYPE_CODE[out_dtype], _THREADS,
-            _stream(qkv.device))
+        err = getattr(lib, name)(*args, B_, N, C, num_heads, n_win_per_img,
+                                 *tail, _stream(qkv.device))
     check_launch(lib, err, name)
-    if p_out is None:
-        route_launches["fwd_cuda_cores"] += 1
+    route_launches["fwd_tensor_cores" if tc else "fwd_cuda_cores"] += 1
     return out
 
 
@@ -768,9 +784,11 @@ def _launch_bwd(qkv, scale, bias16, g, num_heads, n_win_per_img, mask):
 def _launch_bwd_stats(qkv, scale, p, g, num_heads):
     from fr_tpu_torch.ops._build import check_launch, load_library
 
+    tc = _windows_route(qkv, num_heads)
     (B_, N, C), qkv, scale, _, _ = _checked_operands(
-        qkv, scale, None, num_heads, 1, None, _bwd_stats_smem_bytes,
-        _BWD_SMEM_LIMIT)
+        qkv, scale, None, num_heads, 1, None,
+        *(_tc_check(True, False, True) if tc
+          else (_bwd_stats_smem_bytes, _BWD_SMEM_LIMIT)))
     g = _checked_cotangent(g, qkv, B_, N, C)
     dev = qkv.device
     if (tuple(p.shape) != (B_, num_heads, N, N) or p.dtype != torch.float32
@@ -781,16 +799,30 @@ def _launch_bwd_stats(qkv, scale, p, g, num_heads):
     p = p.contiguous()
     cols = N * N + 1
     dqkv = torch.empty_like(qkv)
-    partial = torch.empty((B_ * num_heads, cols), dtype=torch.float32,
-                          device=dev)
     sums = torch.empty((num_heads, cols), dtype=torch.float32, device=dev)
     lib = load_library()
+    if tc:
+        # the stats backward reads no mask: one run of windows per CTA
+        # over all of them, as an unmasked call plans it
+        vec, (qkv, g) = _tc_operands(C // num_heads, C, qkv, g)
+        wpc, ctas = tensor_core_plan(
+            B_, 1, num_heads, False,
+            _tc_slots("window_attn_stats_tc_occupancy", dev.index or 0, N, C,
+                      num_heads, 0, 1))
+        partial = torch.empty((ctas * num_heads, cols), dtype=torch.float32,
+                              device=dev)
+        name, tail = "window_attn_bwd_stats_tc", (wpc, vec)
+    else:
+        partial = torch.empty((B_ * num_heads, cols), dtype=torch.float32,
+                              device=dev)
+        name = "window_attn_bwd_stats"
+        tail = (_DTYPE_CODE[qkv.dtype], _BWD_THREADS)
     with torch.cuda.device(dev):
-        err = lib.window_attn_bwd_stats(
+        err = getattr(lib, name)(
             qkv.data_ptr(), scale.data_ptr(), p.data_ptr(), g.data_ptr(),
             dqkv.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-            B_, N, C, num_heads, _DTYPE_CODE[qkv.dtype], _BWD_THREADS,
-            _stream(dev))
-    check_launch(lib, err, "window_attn_bwd_stats")
+            B_, N, C, num_heads, *tail, _stream(dev))
+    check_launch(lib, err, name)
+    route_launches["bwd_tensor_cores" if tc else "bwd_cuda_cores"] += 1
     dbias = sums[:, :N * N].reshape(num_heads, N, N).contiguous()
     return dqkv, sums[:, N * N].contiguous(), dbias

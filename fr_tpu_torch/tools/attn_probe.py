@@ -12,10 +12,12 @@ GROUPED_SHAPES, SPATIAL_SHAPES), CUDA events (chip_smoke.time_ms).
     python3 fr_tpu_torch/tools/attn_probe.py sass [--root DIR]
 
 rows    each tensor-core and entry-fused row's time over its main-path mix
-        (rows 1, 2, 17, 17b, 18, 18b: the 12 AlterNet50 sites of one call;
-        5, 6: one Swin50 plus one EffiAlter_m call; 15, 16: one Swin50 call
-        on the grouped route), from the checkout at --root (default: this
-        one), and a SHA-256 of each row's outputs on its seeded inputs. To
+        (rows 1-4, 17, 17b, 18, 18b: the 12 AlterNet50 sites of one call;
+        5-8: one Swin50 plus one EffiAlter_m call; 15, 16: one Swin50 call
+        on the grouped route; rows 3, 4, 7, 8 are the stats pair, the
+        backward fed the forward's p), from the checkout at --root
+        (default: this one), and a SHA-256 of each row's outputs on its
+        seeded inputs. To
         compare two trees on one card, run them in turns in one call:
         parent, change, change, parent; equal digests show that they
         compute the same bits. With --device a row's time is its kernels'
@@ -105,8 +107,8 @@ def rows(torch, cs, device=False):
 
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(21)
-    t = {k: 0.0 for k in ("1", "2", "5", "6", "15", "16", "17", "17b", "18",
-                          "18b")}
+    t = {k: 0.0 for k in ("1", "2", "3", "4", "5", "6", "7", "8", "15", "16",
+                          "17", "17b", "18", "18b")}
     digest = {k: hashlib.sha256() for k in t}
 
     def timed(key, call):
@@ -124,6 +126,12 @@ def rows(torch, cs, device=False):
             qkv, scale, bias16, heads, nw, mask, out_dtype=bf))
         t["2"] += count * timed("2", lambda: F.window_attention_backward(
             qkv, scale, bias16, g, heads, nw, mask))
+        t["3"] += count * timed("3", lambda: F.window_attention_forward_stats(
+            qkv, scale, bias16, heads, nw, mask, out_dtype=bf))
+        p = F.window_attention_forward_stats(qkv, scale, bias16, heads, nw,
+                                             mask, out_dtype=bf)[1]
+        t["4"] += count * timed("4", lambda: F.window_attention_backward_stats(
+            qkv, scale, p, g, heads))
         t["18"] += count * timed("18", lambda: (
             V.fused_window_attention_packed_qkv(
                 x, w, b, scale, bias16, heads, nw, mask, out_dtype=bf)))
@@ -139,6 +147,14 @@ def rows(torch, cs, device=False):
         t["6"] += (n_swin + n_effi) * timed(
             "6", lambda: F.window_attention_backward(qkv, scale, bias16, g,
                                                      heads, nw, mask))
+        t["7"] += (n_swin + n_effi) * timed(
+            "7", lambda: F.window_attention_forward_stats(
+                qkv, scale, bias16, heads, nw, mask, out_dtype=bf))
+        p = F.window_attention_forward_stats(qkv, scale, bias16, heads, nw,
+                                             mask, out_dtype=bf)[1]
+        t["8"] += (n_swin + n_effi) * timed(
+            "8", lambda: F.window_attention_backward_stats(qkv, scale, p, g,
+                                                           heads))
     for name, bw, heads, nw, sites in cs.GROUPED_SHAPES:
         qkv, scale, bias16, g, mask, nw = cs._perhead_inputs(
             (name, bw, heads, 32, nw, False), bf, gen)
@@ -360,7 +376,8 @@ def sass(torch, cs):
     out = {}
     for part in re.split(r"\n\s*Function : ", anon.sub(r"ANON_\1", text))[1:]:
         name, body = part.split("\n", 1)
-        if re.search(r"window_attn_(fwd|bwd|qkv_fwd|qkv_bwd)_tc_kernel", name):
+        if re.search(r"window_attn_(fwd|bwd|qkv_fwd|qkv_bwd)(_stats)?"
+                     r"_tc_kernel", name):
             # the instruction lines only (each carries a /* */ comment)
             code = "\n".join(ln for ln in body.splitlines() if "/*" in ln)
             out[name.strip()] = hashlib.sha256(code.encode()).hexdigest()[:16]

@@ -4,7 +4,10 @@ _pk_fwd_stats_pallas / _pk_bwd_stats_pallas) on the card: against their
 plain PyTorch versions and against the recompute kernels' outputs, at the
 Swin50 / EffiAlter_m shapes and the AlterNet50 packed shapes; their sums are
 the same bit for bit on every run; both entries' stats arms launch them.
-Imports no jax:
+Both bodies: bf16 on the tensor cores (window_attn_{fwd,bwd}_stats_tc),
+whose out and dq/dk/dv are the row-1 and row-2 tensor-core kernels' bits;
+f32, an odd head dim and TENSOR_CORES off on the CUDA cores. Imports no
+jax:
 
     python -m pytest tests/test_torch_window_attn_stats_cuda.py --noconftest -q
 
@@ -15,6 +18,7 @@ import torch
 
 from fr_tpu_torch.models.swin_common import shifted_window_mask
 from fr_tpu_torch.ops import fused_window_attn as F
+from test_torch_window_attn_cuda import routes_moved
 from test_torch_window_attn_perhead_cuda import (CARD_SHAPES, DTYPES,
                                                  attention_inputs, tolerance)
 
@@ -146,3 +150,103 @@ def test_both_entries_stats_arms_launch_the_stats_kernels(cuda_device,
     assert (entry.stats_launches, entry.stats_backward_launches) == \
         (before[0] + 1, before[1] + 1)
     assert torch.isfinite(qkv.grad.float()).all()
+
+
+def _body_of(moved):
+    """The one body a stats call's launch took, from routes_moved."""
+    assert len(moved) == 1 and list(moved.values()) == [1], moved
+    return next(iter(moved)).split("_", 1)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(CARD_SHAPES) + list(PACKED_SHAPES))
+def test_tensor_core_stats_pair_is_the_recompute_kernels_bits(cuda_device,
+                                                              shape):
+    """bf16 at every model shape (N 49 with head dims 32 and 38, masked and
+    not; the AlterNet50 packed shapes, masked): both stats kernels run on
+    the tensor cores and stay within the plain versions' tolerances; out
+    equals the row-1 kernel's bits and dq/dk/dv the row-2 kernel's, which
+    take p, round(p), dp and ds through the same helpers in the same
+    order; dbias sums in another order across CTAs (norm-wise 1e-5) and
+    dscale comes from the row-sum identity (3e-2·max); p, dscale and dbias
+    repeat bit for bit."""
+    dt = torch.bfloat16
+    qkv, scale, bias16, g, mask, nw = _inputs(shape, dt, cuda_device)
+    heads = scale.shape[0]
+    (out, p), moved = routes_moved(lambda: F.window_attention_forward_stats(
+        qkv, scale, bias16, heads, nw, mask, out_dtype=dt))
+    assert _body_of(moved) == "tensor_cores"
+    grads, moved = routes_moved(lambda: F.window_attention_backward_stats(
+        qkv, scale, p, g, heads))
+    assert _body_of(moved) == "tensor_cores"
+    row1 = F.fused_window_attention(qkv, scale, bias16, heads, nw, mask,
+                                    out_dtype=dt)
+    row2 = F.window_attention_backward(qkv, scale, bias16, g, heads, nw,
+                                       mask)
+    again_out, again_p = F.window_attention_forward_stats(
+        qkv, scale, bias16, heads, nw, mask, out_dtype=dt)
+    again = F.window_attention_backward_stats(qkv, scale, p, g, heads)
+    torch.cuda.synchronize()
+    ref_out, ref_p = F.window_attention_forward_stats_reference(
+        qkv, scale, bias16, heads, mask, dt)
+    assert (out.float() - ref_out.float()).abs().max().item() <= \
+        tolerance("bf16", ref_out.float())
+    assert_p_close(p, ref_p, "bf16")
+    plain = F.window_attention_backward_stats_reference(qkv, scale, ref_p,
+                                                        g, heads)
+    for name, a, r in zip(("dqkv", "dscale", "dbias"), grads, plain):
+        assert torch.isfinite(a.float()).all(), name
+        assert_grad_close(name, a, r, "bf16")
+    assert torch.equal(out, row1)
+    assert torch.equal(grads[0], row2[0])
+    assert ((grads[2] - row2[2]).norm() / row2[2].norm()).item() <= 1e-5
+    assert_grad_close("dscale", grads[1], row2[1], "bf16")
+    assert torch.equal(again_out, out) and torch.equal(again_p, p)
+    assert torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2])
+
+
+# (N, heads, head dim, dtype, TENSOR_CORES): the calls that keep the
+# CUDA-core stats kernels
+CUDA_CORE_CALLS = {"f32": (49, 8, 32, torch.float32, True),
+                   "bf16_odd_head_dim": (36, 4, 33, torch.bfloat16, True),
+                   "bf16_switch_off": (49, 8, 38, torch.bfloat16, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CUDA_CORE_CALLS))
+def test_cuda_core_stats_pair_still_serves_its_calls(cuda_device,
+                                                     monkeypatch, case):
+    """f32, bf16 beyond the tensor-core tile (an odd head dim) and bf16
+    with TENSOR_CORES off launch the CUDA-core stats kernels, which stay
+    within their tolerances of the plain versions (f32 max-abs, bf16
+    norm-wise) and repeat their sums bit for bit."""
+    n, heads, hd, dt, tensor_cores = CUDA_CORE_CALLS[case]
+    monkeypatch.setattr(F, "TENSOR_CORES", tensor_cores)
+    dtype = "f32" if dt == torch.float32 else "bf16"
+    gen = torch.Generator(device=cuda_device).manual_seed(n + hd)
+    c = heads * hd
+    qkv = torch.randn(64, n, 3 * c, device=cuda_device, generator=gen).to(dt)
+    scale = torch.empty(heads, device=cuda_device).uniform_(5.0, 20.0,
+                                                           generator=gen)
+    bias16 = 16 * torch.sigmoid(torch.randn(heads, n, n, device=cuda_device,
+                                            generator=gen))
+    g = torch.randn(64, n, c, device=cuda_device, generator=gen).to(dt)
+    (out, p), moved = routes_moved(lambda: F.window_attention_forward_stats(
+        qkv, scale, bias16, heads, 1, None, out_dtype=dt))
+    assert _body_of(moved) == "cuda_cores"
+    grads, moved = routes_moved(lambda: F.window_attention_backward_stats(
+        qkv, scale, p, g, heads))
+    assert _body_of(moved) == "cuda_cores"
+    again = F.window_attention_backward_stats(qkv, scale, p, g, heads)
+    torch.cuda.synchronize()
+    ref_out, ref_p = F.window_attention_forward_stats_reference(
+        qkv, scale, bias16, heads, None, dt)
+    assert (out.float() - ref_out.float()).abs().max().item() <= \
+        tolerance(dtype, ref_out.float())
+    assert_p_close(p, ref_p, dtype)
+    plain = F.window_attention_backward_stats_reference(qkv, scale, ref_p,
+                                                        g, heads)
+    for name, a, r in zip(("dqkv", "dscale", "dbias"), grads, plain):
+        assert torch.isfinite(a.float()).all(), name
+        assert_grad_close(name, a, r, dtype)
+    assert torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2])
