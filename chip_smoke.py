@@ -14,10 +14,15 @@ Phases; any failure exits non-zero and prints no result:
     on the tensor-core kernels, f32 on the CUDA-core ones, each call's
     route checked; the CUDA-core body timed on the bf16 inputs beside them;
     the backward's sums bitwise equal over two runs); the
-    three margin-softmax CE kernels at the ms1m_arcface_122 head (128 rows,
+    margin-softmax CE kernels at the ms1m_arcface_122 head (128 rows,
     emd 512, 26,007 sampled columns), ArcFace and CosFace, bf16 and f32,
-    and at the webface42m head (205,952 columns, the labels and the column
-    mask made as its step makes them);
+    at the webface42m head (205,952 columns, the labels and the column
+    mask made as its step makes them) and at small ragged shapes: the
+    backward pair's bf16 calls on the tensor cores (each call's body
+    checked, two calls bitwise equal) and again with
+    fused_pfc.TENSOR_CORES off on the CUDA cores, f32 and D = 40 on the
+    CUDA cores; rows 10 and 11 timed at both heads on each body beside
+    their plain versions and the cuBLAS products they contain;
     [kernel_perhead] the same forward and backward kernels at the Swin50
     and EffiAlter_m N=49 shapes (112 px, 128 images; head dims 32 and 38)
     and a shift-masked one; [kernel_plan] the tensor-core kernels' launch
@@ -44,9 +49,12 @@ Phases; any failure exits non-zero and prints no result:
     encoder snapshot;
  7. [train_full_head] FaceRecognitionTask.training_step at the full
     ms1m_arcface_122 head (86,690 classes, sample_rate 0.3, b=128, random
-    images and labels), use_fused off and then on from the same seed: each
-    margin-CE kernel launches once per fused step, the first 3 losses agree
-    to 2e-2 relative; ms per step and images/s for both;
+    images and labels) from one seed: use_fused off, on (the margin-CE
+    backward on the tensor cores) and on with fused_pfc.TENSOR_CORES off
+    (on the CUDA cores): each margin-CE kernel launches once per fused
+    step, every backward launch on its arm's body, the first 3 losses
+    agree to 2e-2 relative, the two bodies' step-1 head gradients to
+    1e-2 norm-wise; ms per step and images/s for each arm;
  8. [train_golden] two SGD steps of full-width AlterNet50 in f32 (TF32 off)
     against fr_tpu's training golden (tests/data/alternet50_train_golden.npz);
     [alternet50] three training steps with FR_ATTN_STORED_STATS=1 against
@@ -72,18 +80,22 @@ Phases; any failure exits non-zero and prints no result:
     rtol 1e-5 / atol 1e-6 (fused multiply-adds), unsampled rows bitwise
     unchanged, the same bits on two runs, on inputs that make every term
     of both rules larger than the tolerance; times, byte bounds, and
-    torch.index_select as the gather's library call;
+    torch.index_select as the gather's library call, timed against the
+    gather in 7 alternating turns (medians and spreads);
 12. [resnet100] the serving CLI of webface42m at full width (IR-ResNet100,
     112 px, emd 512, bf16), the embedding golden
     (tests/data/resnet100_golden.npz) and the embed throughput;
 13. [webface42m] FaceRecognitionTask.training_step of the webface42m config
     (ResNet100, 2,059,906 classes, sample_rate 0.1, sample_block 64, b=128,
-    bf16, SGD, random images and labels), use_fused off then on from one
-    seed: finite losses, the first three within 2e-2 relative, one gather
-    and one grouped SGD update per step, every label's group among the
-    drawn groups and only drawn rows changed, ms per step, images/s, peak
-    memory; three steps with AdamW; then sample_block 1 (per-row sampling
-    of the same head) timed beside it;
+    bf16, SGD, random images and labels), in the three margin-CE arms of
+    phase 7 from one seed (the switch-off arm untimed): finite losses, the
+    fused arms' first three within 2e-2 relative of the plain CE's, the
+    two bodies' step-1 head gradients within 1e-2 norm-wise, every
+    backward launch on its arm's body, one gather and one grouped SGD
+    update per step, every label's group among the drawn groups and only
+    drawn rows changed, ms per step, images/s, peak memory; three steps
+    with AdamW; then sample_block 1 (per-row sampling of the same head)
+    timed beside it;
 14. [resnet100_train_golden] two SGD steps of ResNet100 under a
     block-sampled head in f32 against tests/data/resnet100_train_golden.npz,
     the stored groups fed through sample_gidx;
@@ -118,7 +130,8 @@ Phases; any failure exits non-zero and prints no result:
     EffiAlter_m (bf16, b=128, the full ms1m head at sample_rate 0.3), of
     AlterNet50 and Swin50 with FR_ATTN_STORED_STATS=1 (the stats arm on the
     tensor cores), and of the webface42m step of phase 13 at sample_block
-    64 and 1: wall per
+    64 and 1, and with use_fused on (that step at 64, and AlterNet50's at
+    the full ms1m head), the margin-CE backward on each body: wall per
     step, device busy, idle share, launches per step, time by family, and
     the head's device time inside the step (the kernels launched in
     train/step.py's pfc_head:* ranges).
@@ -127,7 +140,8 @@ Every kernel's launches in the JSON line are counted on its main path
 (phases 4, 6, 7, 8, 9 and 13; rows 15/16 on [kernel_variants]'s driven
 calls, rows 17/18 on [alternet50_spatial] and [alternet50_entry_fused],
 rows 3/4 and 7/8 on the stats switch of phases 8 and 9, each body on its
-own arm), each run with the counts set to 0 just before it. On those
+own arm; rows 10/11 on phase 7's fused arms, each body on its own arm),
+each run with the counts set to 0 just before it. On those
 paths every launch of the attention forward and backward must take the
 tensor-core kernels (fused_window_attn.route_launches, set to 0 with the
 counts): 12 + 12 per AlterNet50 step, 14 + 14 per Swin50 step, 4 + 4 per
@@ -274,11 +288,11 @@ def _route_of(call):
     return moved[0].split("_", 1)[1], out
 
 
-def _cuda_core_ms(call):
-    """call() timed on the CUDA-core body (TENSOR_CORES off): the one the
-    bf16 main-path shapes took before the tensor-core kernels, and still
-    the body of bf16 shapes beyond their tile."""
-    with _Body(False):
+def _cuda_core_ms(call, module="fused_window_attn"):
+    """call() timed on the CUDA-core body (the module's TENSOR_CORES off):
+    the one the bf16 main-path shapes took before the tensor-core kernels,
+    and still the body of bf16 shapes beyond their tile."""
+    with _Body(False, module):
         return time_ms(call)
 
 
@@ -336,7 +350,9 @@ def phase_build():
                    "window_attn_bwd_stats_tc_kernel",
                    "window_attn_qkv_fwd_tc_kernel",
                    "window_attn_qkv_bwd_tc_kernel",
-                   "window_attn_qkv_grad_mma_kernel"):
+                   "window_attn_qkv_grad_mma_kernel",
+                   "margin_ce_grad_emb_tc_kernel",
+                   "margin_ce_grad_w_tc_kernel"):
         check(any(k == kernel for k, *_ in table),
               f"the build log lists no {kernel}")
     for kernel, args, regs, st, ld in table:
@@ -503,19 +519,45 @@ def _webface_ce_columns(gen):
     return cols, cv
 
 
+CE_BWD = ("margin_ce_grad_emb", "margin_ce_grad_w")
+
+
+def _ce_launches(tc):
+    """route_launches of the margin-CE backward on one body, in CE_BWD
+    order."""
+    from fr_tpu_torch.ops.fused_pfc import route_launches
+    body = "tensor_cores" if tc else "cuda_cores"
+    return [route_launches[f"{k[len('margin_ce_'):]}_{body}"] for k in CE_BWD]
+
+
+def _reset_ce_routes():
+    from fr_tpu_torch.ops.fused_pfc import route_launches
+    for key in route_launches:
+        route_launches[key] = 0
+
+
 def phase_margin_ce():
     """The three margin-CE kernels vs their plain versions at the
     ms1m_arcface_122 head, at the webface42m head (205,952 columns, the
-    step's own labels and column mask) and at one small odd shape; returns
-    ({kernel: max abs error}, {kernel: (ms, plain ms)} in bf16 ArcFace at
-    the ms1m head)."""
+    step's own labels and column mask) and at small ragged shapes. Every
+    backward call's body is checked (bf16 with D % 16 == 0 on the tensor
+    cores, f32 and D = 40 on the CUDA cores); each bf16 call also runs on
+    the CUDA-core body (fused_pfc.TENSOR_CORES off), which passes the same
+    check and sits within CE_GRAD_RTOL of the tensor-core results, and the
+    tensor-core results repeat bit for bit. Timed at both heads, bf16
+    ArcFace: rows 10 and 11 on each body, their plain versions and the
+    cuBLAS products they contain (not the same function: no margin,
+    softmax or coeff), and row 9. Returns ({kernel: max abs error},
+    {(kernel, K): {"ms", "plain_ms", and for rows 10/11 "cc_ms",
+    "cublas_ms"}}); the tensor-core kernels carry the suffix _tc."""
     import torch
     from fr_tpu_torch.heads.partial_fc import PFCConfig
     from fr_tpu_torch.ops import fused_pfc as F
 
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = {"margin_ce_stats": 0.0, "margin_ce_grad_emb": 0.0,
-             "margin_ce_grad_w": 0.0}
+    worst = dict.fromkeys(("margin_ce_stats", *CE_BWD,
+                           *(f"{k}_tc" for k in CE_BWD)), 0.0)
     times = {}
     for margin, (n, d, k), dt in (
             ("ArcFace", CE_SHAPE, torch.bfloat16),
@@ -523,6 +565,9 @@ def phase_margin_ce():
             ("CosFace", CE_SHAPE, torch.bfloat16),
             ("ArcFace", CE_WEBFACE_SHAPE, torch.bfloat16),
             ("ArcFace", CE_WEBFACE_SHAPE, torch.float32),
+            ("CosFace", (130, 512, 131), torch.bfloat16),
+            ("ArcFace", (10, 48, 300), torch.bfloat16),
+            ("ArcFace", (10, 40, 131), torch.bfloat16),
             ("ArcFace", (10, 40, 131), torch.float32)):
         def unit(*shape):
             x = torch.randn(*shape, device="cuda", generator=gen)
@@ -535,6 +580,7 @@ def phase_margin_ce():
                                    generator=gen)
             cv = torch.arange(k, device="cuda") < k - 3
         g = torch.rand(n, device="cuda", generator=gen) + 0.5
+        g[5] = 0.0   # a row under the 1e-30 clamp
         cfg = PFCConfig(num_classes=k, embedding_size=d, margin=margin,
                         s=30.0, m=0.35,
                         mixed_precision=dt == torch.bfloat16)
@@ -548,52 +594,95 @@ def phase_margin_ce():
         loss = lambda mdt: -torch.log(torch.clamp_min(  # noqa: E731
             mdt[2] / mdt[1], 1e-30))
         stats_err = (loss(stats) - loss(ref)).abs().max().item()
+        worst["margin_ce_stats"] = max(worst["margin_ce_stats"], stats_err)
         m, dd, _ = ref
-        ge = F.margin_ce_grad_emb(*args, m, dd, g, cfg)
-        gw = F.margin_ce_grad_w(*args, m, dd, g, cfg)
         rge, rgw = F.margin_ce_backward_reference(*args, m, dd, g, cfg)
-        torch.cuda.synchronize()
         tol = CE_GRAD_RTOL[str(dt).split(".")[-1]]
-        errs, rels = {"margin_ce_stats": stats_err}, {}
-        for name, a, b in (("margin_ce_grad_emb", ge, rge),
-                           ("margin_ce_grad_w", gw, rgw)):
-            check(bool(torch.isfinite(a).all()), f"{name} is not finite")
-            rel = ((a - b).norm() / b.norm()).item()
-            check(rel <= tol, f"{margin} {dt} {name}: norm-wise {rel} > {tol}")
-            errs[name], rels[name] = (a - b).abs().max().item(), rel
-        for name, err in errs.items():
-            worst[name] = max(worst[name], err)
         tag = f"{margin} ({n},{d},{k}) {str(dt).split('.')[-1]}"
-        print(f"[margin_ce] {tag:32s} loss err {stats_err:.2e}, grad_emb "
-              f"{errs['margin_ce_grad_emb']:.2e}, grad_w "
-              f"{errs['margin_ce_grad_w']:.2e} (max abs; norm-wise "
-              f"{rels['margin_ce_grad_emb']:.1e}, "
-              f"{rels['margin_ce_grad_w']:.1e} against {tol:g})")
+        tc = F.tensor_core_route(dt, d)
+        results, rels = {}, {}
+        for body in ((True, False) if dt == torch.bfloat16 else (True,)):
+            with _Body(body, "fused_pfc"):
+                _reset_ce_routes()
+                out = (F.margin_ce_grad_emb(*args, m, dd, g, cfg),
+                       F.margin_ce_grad_w(*args, m, dd, g, cfg))
+                torch.cuda.synchronize()
+                on_tc = body and tc
+                check(_ce_launches(on_tc) == [1, 1]
+                      and _ce_launches(not on_tc) == [0, 0],
+                      f"[margin_ce] {tag}: TENSOR_CORES={body} took "
+                      f"{dict(F.route_launches)}")
+                suffix = "_tc" if on_tc else ""
+                if on_tc:
+                    again = (F.margin_ce_grad_emb(*args, m, dd, g, cfg),
+                             F.margin_ce_grad_w(*args, m, dd, g, cfg))
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                          f"[margin_ce] {tag}: two tensor-core calls differ")
+                    del again
+            for name, a, b in zip(CE_BWD, out, (rge, rgw)):
+                check(bool(torch.isfinite(a).all()),
+                      f"{name}{suffix} is not finite")
+                rel = ((a - b).norm() / b.norm()).item()
+                check(rel <= tol, f"{tag} {name}{suffix}: norm-wise {rel} > "
+                      f"{tol}")
+                worst[name + suffix] = max(worst[name + suffix],
+                                           (a - b).abs().max().item())
+                rels[name + suffix] = rel
+            results[on_tc] = out
+        if len(results) == 2:
+            for name, a, b in zip(CE_BWD, results[True], results[False]):
+                rel = ((a - b).norm() / b.norm()).item()
+                check(rel <= tol, f"{tag} {name}: tensor cores against CUDA "
+                      f"cores norm-wise {rel} > {tol}")
+                rels[f"{name} tc-cc"] = rel
+        print(f"[margin_ce] {tag:32s} loss err {stats_err:.2e}; norm-wise "
+              f"against the plain version (tol {tol:g}): " + ", ".join(
+                  f"{key} {v:.1e}" for key, v in rels.items()))
         if (n, d, k) in (CE_SHAPE, CE_WEBFACE_SHAPE) \
                 and dt == torch.bfloat16 and margin == "ArcFace":
-            def plain_emb():
-                c = F.margin_ce_coeff_reference(*args, m, dd, g, cfg)
-                return c.to(dt).float() @ w.float()
+            coeff = F.margin_ce_coeff_reference(*args, m, dd, g, cfg).to(dt)
 
-            def plain_w():
-                c = F.margin_ce_coeff_reference(*args, m, dd, g, cfg)
-                return c.to(dt).float().t() @ emb.float()
-            pairs = {
-                "margin_ce_stats": (lambda: F.margin_ce_stats(*args, cfg),
-                                    lambda: F.margin_ce_stats_reference(
-                                        *args, cfg)),
-                "margin_ce_grad_emb": (lambda: F.margin_ce_grad_emb(
-                    *args, m, dd, g, cfg), plain_emb),
-                "margin_ce_grad_w": (lambda: F.margin_ce_grad_w(
-                    *args, m, dd, g, cfg), plain_w)}
-            for name, (kern, plain) in pairs.items():
-                ms = (time_ms(kern), time_ms(plain))
-                if (n, d, k) == CE_SHAPE:   # the kernels line's shape
-                    times[name] = ms
-                print(f"[margin_ce] {name:20s} K={k:,} kernel {ms[0]:.4f} "
-                      f"ms  plain {ms[1]:.4f} ms")
-        del emb, w, stats, ref, ge, gw, rge, rgw
+            def plain(name):
+                c = F.margin_ce_coeff_reference(*args, m, dd, g, cfg).to(
+                    dt).float()
+                return (c @ w.float() if name == "margin_ce_grad_emb"
+                        else c.t() @ emb.float())
+            cublas = {"margin_ce_grad_emb": lambda: (emb @ w.t(), coeff @ w),
+                      "margin_ce_grad_w": lambda: (emb @ w.t(),
+                                                   coeff.t() @ emb)}
+            kern = {"margin_ce_grad_emb": F.margin_ce_grad_emb,
+                    "margin_ce_grad_w": F.margin_ce_grad_w}
+            times[("margin_ce_stats", k)] = {
+                "ms": time_ms(lambda: F.margin_ce_stats(*args, cfg)),
+                "plain_ms": time_ms(lambda: F.margin_ce_stats_reference(
+                    *args, cfg))}
+            for name in CE_BWD:
+                call = lambda f=kern[name]: f(  # noqa: E731
+                    *args, m, dd, g, cfg)
+                times[(name, k)] = {
+                    "ms": time_ms(call), "cc_ms": _cuda_core_ms(
+                        call, "fused_pfc"),
+                    "plain_ms": time_ms(lambda nm=name: plain(nm)),
+                    "cublas_ms": time_ms(cublas[name])}
+            del coeff
+        del emb, w, stats, ref, rge, rgw, results
         torch.cuda.empty_cache()
+
+    def bound(name, k):
+        return "bound {:.4f} ({})".format(*_ce_bound(name, (128, 512, k)))
+    print("[margin_ce] row 9 margin_ce_stats, bf16 ArcFace: " + "; ".join(
+        f"K={k:,} kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
+        f"{bound(nm, k)}" for (nm, k), t in times.items()
+        if nm == "margin_ce_stats"))
+    print("[margin_ce] rows 10/11, bf16 ArcFace, tensor cores against the "
+          "CUDA cores, the plain version and the cuBLAS products (not the "
+          "same function): " + "; ".join(
+              f"row {10 + CE_BWD.index(nm)} K={k:,} {t['ms']:.4f} ms vs "
+              f"{t['cc_ms']:.4f}, plain {t['plain_ms']:.4f}, cuBLAS "
+              f"{t['cublas_ms']:.4f}, {bound(nm, k)}"
+              for (nm, k), t in times.items() if nm in CE_BWD))
+    print(f"[margin_ce] {time.perf_counter() - t0:.1f} s")
     return worst, times
 
 
@@ -768,10 +857,52 @@ def phase_train():
     return launches[0], launches[1], steps
 
 
+def _head_grad(task, w0, wd):
+    """The gradient of the head's sampled rows in the first SGD step: the
+    momentum then holds g + wd·w0 on those rows and 0 elsewhere."""
+    mom = task.state.pfc.slots["momentum"]
+    rows = (mom != 0).any(dim=1)
+    return mom[rows] - wd * w0[rows]
+
+
+# the margin-CE arms of the training phases: (name, use_fused,
+# fused_pfc.TENSOR_CORES)
+CE_ARMS = (("plain", False, True), ("tensor_cores", True, True),
+           ("cuda_cores", True, False))
+
+
+def _check_ce_arms(tag, losses, grads, launches, steps):
+    """Each fused arm launched every backward kernel once per step (of its
+    ``steps[arm]``) on its own body and none on the other, its losses sit
+    within 2e-2 of the plain CE's, and the two bodies' step-1 head
+    gradients within CE_GRAD_RTOL (bf16) norm-wise."""
+    for arm in ("tensor_cores", "cuda_cores"):
+        expect = {body: [steps[arm]] * 2 if body == arm else [0, 0]
+                  for body in ("tensor_cores", "cuda_cores")}
+        check(launches[arm] == expect, f"{tag} the {arm} arm's backward "
+              f"launches by body {launches[arm]} over {steps[arm]} steps")
+        for a, b in zip(losses["plain"], losses[arm]):
+            check(abs(a - b) <= 2e-2 * abs(a), f"{tag} fused loss on the "
+                  f"{arm} {b} vs plain {a}: beyond 2e-2 relative")
+    a, b = grads["tensor_cores"], grads["cuda_cores"]
+    rel = ((a - b).norm() / b.norm()).item()
+    print(f"{tag} step-1 head gradient ({a.shape[0]:,} sampled rows), "
+          f"tensor cores against CUDA cores: norm-wise {rel:.2e}; losses "
+          + ", ".join(f"{arm} {[round(x, 4) for x in v]}"
+                      for arm, v in losses.items()))
+    check(rel <= CE_GRAD_RTOL["bfloat16"], f"{tag} step-1 head gradients "
+          f"of the two bodies: norm-wise {rel} > {CE_GRAD_RTOL['bfloat16']}")
+
+
 def phase_train_full_head(steps: int = 3, timed: int = 10):
-    """training_step at the full ms1m_arcface_122 head, use_fused off then
-    on from the same seed; returns the margin-CE launches of the fused
-    run."""
+    """training_step at the full ms1m_arcface_122 head from one seed, in
+    three arms (CE_ARMS): use_fused off; on, the backward pair on the
+    tensor cores; on with fused_pfc.TENSOR_CORES off, on the CUDA cores.
+    Each margin-CE kernel launches once per fused step, every backward
+    launch on the arm's body; losses and step-1 head gradients as
+    _check_ce_arms says; ms per step. Returns the fused arms' launches:
+    {kernel: count}, the tensor-core kernels (suffix _tc) from the default
+    arm and the CUDA-core ones from the switch-off arm."""
     import torch
     from fr_tpu_torch.cli.main import build_conf, parse_args
     from fr_tpu_torch.ops import fused_pfc as F
@@ -791,34 +922,51 @@ def phase_train_full_head(steps: int = 3, timed: int = 10):
     labels = torch.randint(0, conf.n_classes, (n, conf.b), device=dev,
                            generator=gen)
     kernels = (F.margin_ce_stats, F.margin_ce_grad_emb, F.margin_ce_grad_w)
-    losses, launches = {}, None
-    for fused in (False, True):
+    losses, grads, routes, launches = {}, {}, {}, {}
+    for arm, fused, tc in CE_ARMS:
         conf.use_fused = fused
-        task = FaceRecognitionTask(conf, stage="train", device=dev, seed=0)
-        for k in kernels:
-            k.launches = 0
-        losses[fused] = [task.training_step((images[i], labels[i]))[
-            "loss"].item() for i in range(steps)]
-        counts = [k.launches for k in kernels]
-        t0 = time.perf_counter()
-        for i in range(steps, n):
-            out = task.training_step((images[i], labels[i]))
-        out["loss"].item()
-        ms = (time.perf_counter() - t0) * 1e3 / timed
-        print(f"[train_full_head] use_fused={fused}: {conf.n_classes:,} "
-              f"classes, {task.pfc_cfg.num_sample:,} sampled, b={conf.b}: "
-              f"losses {[round(x, 4) for x in losses[fused]]}; {ms:.2f} ms "
-              f"per step, {conf.b * 1e3 / ms:.1f} imgs/s (host clock over "
-              f"{timed} steps); margin-CE launches {counts}")
+        with _Body(tc, "fused_pfc"):
+            task = FaceRecognitionTask(conf, stage="train", device=dev,
+                                       seed=0)
+            for k in kernels:
+                k.launches = 0
+            _reset_ce_routes()
+            w0 = task.state.pfc.weight.clone()
+            losses[arm] = [task.training_step((images[0], labels[0]))[
+                "loss"].item()]
+            if fused:
+                grads[arm] = _head_grad(task, w0, conf.wd)
+            del w0
+            losses[arm] += [task.training_step((images[i], labels[i]))[
+                "loss"].item() for i in range(1, steps)]
+            counts = [k.launches for k in kernels]
+            if fused:
+                routes[arm] = {body: _ce_launches(body == "tensor_cores")
+                               for body in ("tensor_cores", "cuda_cores")}
+            t0 = time.perf_counter()
+            for i in range(steps, n):
+                out = task.training_step((images[i], labels[i]))
+            out["loss"].item()
+            ms = (time.perf_counter() - t0) * 1e3 / timed
+        print(f"[train_full_head] use_fused={fused}" + (
+            f", backward on the {arm}" if fused else "") + f": "
+              f"{conf.n_classes:,} classes, {task.pfc_cfg.num_sample:,} "
+              f"sampled, b={conf.b}: losses "
+              f"{[round(x, 4) for x in losses[arm]]}; {ms:.2f} ms per step, "
+              f"{conf.b * 1e3 / ms:.1f} imgs/s (host clock over {timed} "
+              f"steps); margin-CE launches {counts}")
         check(counts == ([steps] * 3 if fused else [0, 0, 0]),
               f"margin-CE launches {counts} over {steps} steps with "
               f"use_fused={fused}")
         if fused:
-            launches = counts
+            suffix = "_tc" if arm == "tensor_cores" else ""
+            launches["margin_ce_stats"] = launches.get(
+                "margin_ce_stats", 0) + counts[0]
+            launches.update({k + suffix: c for k, c in zip(
+                CE_BWD, routes[arm][arm])})
         del task
-    for a, b in zip(losses[False], losses[True]):
-        check(abs(a - b) <= 2e-2 * abs(a),
-              f"fused loss {b} vs plain {a}: beyond 2e-2 relative")
+    _check_ce_arms("[train_full_head]", losses, grads, routes,
+                   dict.fromkeys(routes, steps))
     return launches
 
 
@@ -1416,20 +1564,21 @@ def phase_network(network):
 
 
 class _Body:
-    """Sets fused_window_attn.TENSOR_CORES for a ``with`` block and restores
-    it after."""
+    """Sets a kernel module's TENSOR_CORES switch (fused_window_attn's, or
+    fused_pfc's for the margin-CE backward) for a ``with`` block and
+    restores it after."""
 
-    def __init__(self, tensor_cores):
-        self.on = tensor_cores
+    def __init__(self, tensor_cores, module="fused_window_attn"):
+        self.on, self.module = tensor_cores, module
 
     def __enter__(self):
-        from fr_tpu_torch.ops import fused_window_attn as F
-        self.saved, F.TENSOR_CORES = F.TENSOR_CORES, self.on
+        import importlib
+        self.mod = importlib.import_module(f"fr_tpu_torch.ops.{self.module}")
+        self.saved, self.mod.TENSOR_CORES = self.mod.TENSOR_CORES, self.on
         return self
 
     def __exit__(self, *exc):
-        from fr_tpu_torch.ops import fused_window_attn as F
-        F.TENSOR_CORES = self.saved
+        self.mod.TENSOR_CORES = self.saved
         return False
 
 
@@ -1698,6 +1847,33 @@ def _rows_bound(name, ng, block, d):
                                        else "operations"), nbytes
 
 
+def _alternate(kernel, library, turns: int = 7):
+    """Row 12 against torch.index_select, timed in turns (kernel, library,
+    library, kernel, ...) so that both see the same state of the card:
+    prints each one's median, its spread (max − min over the turns) and
+    whether the kernel is slower by more than the larger spread; returns
+    the two medians."""
+    import statistics
+    runs = {"grouped_gather": [], "index_select": []}
+    for turn in range(turns):
+        order = (("grouped_gather", kernel), ("index_select", library))
+        for name, call in (order if turn % 2 == 0 else order[::-1]):
+            runs[name].append(time_ms(call))
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    spread = {k: max(v) - min(v) for k, v in runs.items()}
+    gap = med["grouped_gather"] - med["index_select"]
+    print(f"[kernel_sparse_rows] row 12 against torch.index_select, {turns} "
+          f"turns in alternation: grouped_gather median "
+          f"{med['grouped_gather']:.4f} ms (spread "
+          f"{spread['grouped_gather']:.4f}), index_select "
+          f"{med['index_select']:.4f} ms (spread "
+          f"{spread['index_select']:.4f}); the kernel is "
+          + ("slower beyond the spread" if gap > max(spread.values())
+             else "not slower beyond the spread")
+          + f" (median gap {gap:+.4f} ms)")
+    return med["grouped_gather"], med["index_select"]
+
+
 def phase_kernel_sparse_rows():
     """Rows 12-14 against their plain versions; returns ({kernel: max abs
     error}, {kernel: (ms, plain ms, library ms or None)}, {kernel: bound})
@@ -1743,10 +1919,12 @@ def phase_kernel_sparse_rows():
               f"[kernel_sparse_rows] {tag}: the gather is not bit-exact")
         del out
         if timed:
+            gather, select = _alternate(
+                lambda: R.grouped_gather(w, gidx, block),
+                lambda: torch.index_select(w, 0, idx))
             times["grouped_gather"] = (
-                time_ms(lambda: R.grouped_gather(w, gidx, block)),
-                time_ms(lambda: R.grouped_gather_reference(w, gidx, block)),
-                time_ms(lambda: torch.index_select(w, 0, idx)))
+                gather, time_ms(lambda: R.grouped_gather_reference(
+                    w, gidx, block)), select)
 
         for optimizer, name, start in (
                 ("SGD", "grouped_update_sgd", {"weight": w, "momentum": a}),
@@ -1928,8 +2106,10 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
     def run(conf, tag, n_steps, n_timed, expect):
         """n_steps checked steps, then n_timed on the host clock; expect:
         launches per step of the three grouped kernels. Returns (losses, ms
-        per step)."""
+        per step, the step-1 head gradient of a fused block-sampled SGD run
+        or None)."""
         torch.cuda.reset_peak_memory_stats()
+        head_grad = None
         before = [k.launches for k in rows]
         task = FaceRecognitionTask(conf, stage="train", device="cuda", seed=0)
         cfg = task.pfc_cfg
@@ -1968,6 +2148,8 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
             check(not bool(stayed[~drawn].any()),
                   f"[webface42m] {tag}: a weight row outside the drawn "
                   f"groups changed")
+            head_grad = _head_grad(task, w0, conf.wd) if conf.use_fused \
+                else None
             del w0, moved, stayed
         losses += [task.training_step((images[i], labels[i]))["loss"].item()
                    for i in range(1, n_steps)]
@@ -1995,32 +2177,47 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
               + f"; peak memory {peak:.2f} GB; grouped launches {counts}")
         del task
         torch.cuda.empty_cache()
-        return losses, ms
+        return losses, ms, head_grad
 
-    results = {}
-    for fused in (False, True):
+    results, routes, ce_launches, arm_steps = {}, {}, {}, {}
+    for arm, fused, tc in CE_ARMS:
+        # the switch-off arm runs its checked steps only
+        n_timed = 0 if arm == "cuda_cores" else timed
+        arm_steps[arm] = steps + n_timed
         conf.use_fused = fused
         before = [k.launches for k in ce]
-        results[fused] = run(conf, f"SGD use_fused={fused}", steps, timed,
-                             (1, 1, 0))
+        _reset_ce_routes()
+        with _Body(tc, "fused_pfc"):
+            results[arm] = run(conf, f"SGD use_fused={fused}" + (
+                f", backward on the {arm}" if fused else ""), steps, n_timed,
+                (1, 1, 0))
+        if fused:
+            routes[arm] = {body: _ce_launches(body == "tensor_cores")
+                           for body in ("tensor_cores", "cuda_cores")}
         counts = [k.launches - b for k, b in zip(ce, before)]
-        check(counts == ([n] * 3 if fused else [0, 0, 0]),
-              f"[webface42m] margin-CE launches {counts} over {n} steps with "
-              f"use_fused={fused}")
-    for a, b in zip(results[False][0], results[True][0]):
-        check(abs(a - b) <= 2e-2 * abs(a),
-              f"[webface42m] fused loss {b} vs plain {a}: beyond 2e-2 "
-              f"relative")
+        check(counts == ([steps + n_timed] * 3 if fused else [0, 0, 0]),
+              f"[webface42m] margin-CE launches {counts} over "
+              f"{steps + n_timed} steps with use_fused={fused}")
+        if fused:
+            suffix = "_tc" if arm == "tensor_cores" else ""
+            ce_launches["margin_ce_stats"] = ce_launches.get(
+                "margin_ce_stats", 0) + counts[0]
+            ce_launches.update({k + suffix: c for k, c in zip(
+                CE_BWD, routes[arm][arm])})
+    _check_ce_arms("[webface42m]", {a: r[0] for a, r in results.items()},
+                   {a: r[2] for a, r in results.items() if r[2] is not None},
+                   routes, arm_steps)
     run(_webface_conf(optimizer="AdamW"), "AdamW use_fused=False", steps, 0,
         (1, 0, 1))
-    _, ms_row = run(_webface_conf(sample_block=1), "SGD sample_block=1 "
-                    "(per-row sampling)", steps, timed, (0, 0, 0))
-    _, ms_block = results[False]
+    _, ms_row, _ = run(_webface_conf(sample_block=1), "SGD sample_block=1 "
+                       "(per-row sampling)", steps, timed, (0, 0, 0))
+    ms_block = results["plain"][1]
     print(f"[webface42m] sample_block {WEBFACE_BLOCK} against 1, use_fused "
           f"off: {ms_block:.2f} vs {ms_row:.2f} ms per step on the host "
-          f"clock ({ms_row / ms_block:.2f}x); the device's side of it is in "
-          f"[profile]")
-    return [k.launches for k in rows], [k.launches for k in ce]
+          f"clock ({ms_row / ms_block:.2f}x); use_fused on, the backward on "
+          f"the tensor cores: {results['tensor_cores'][1]:.2f} ms; the "
+          f"device's side of it is in [profile]")
+    return [k.launches for k in rows], ce_launches
 
 
 def phase_resnet100_train_golden():
@@ -3166,6 +3363,29 @@ def phase_profile(network, warmup: int = 3, steps: int = 5, conf=None):
     return head_ms
 
 
+def phase_profile_fused_ce():
+    """[profile] of the AlterNet50 step at the full ms1m_arcface_122 head
+    (sample_rate 0.3) and of the webface42m step, use_fused on, the
+    margin-CE backward on each body (fused_pfc.TENSOR_CORES on, then off):
+    the head's pfc_head:* device time. Returns {(network, body): head ms
+    per step}."""
+    from fr_tpu_torch.cli.main import build_conf, parse_args
+    heads = {}
+    for network in ("AlterNet50", "ResNet100"):
+        for body in ("tensor_cores", "cuda_cores"):
+            if network == "ResNet100":
+                conf = _webface_conf()
+            else:
+                conf = build_conf(parse_args(_net_args(network, "train")))
+                conf.sample_rate = FULL_HEAD_SAMPLE_RATE
+            conf.use_fused = True
+            print(f"[profile] {network}, use_fused on, the margin-CE "
+                  f"backward on the {body}")
+            with _Body(body == "tensor_cores", "fused_pfc"):
+                heads[(network, body)] = phase_profile(network, conf=conf)
+    return heads
+
+
 def phase_stats_profile():
     """[profile] of the AlterNet50 and Swin50 training steps with
     FR_ATTN_STORED_STATS=1, the stats arm on its tensor-core body, beside
@@ -3237,12 +3457,12 @@ def _packed_bound(kind):
     return total, by
 
 
-def _ce_bound(kind):
-    """The margin-CE kernels at CE_SHAPE in bf16: stats reads emb, W,
-    labels (int64), col_valid and writes m, d, t; the two gradients also
+def _ce_bound(kind, shape=CE_SHAPE):
+    """The margin-CE kernels at shape (N, D, K) in bf16: stats reads emb,
+    W, labels (int64), col_valid and writes m, d, t; the two gradients also
     read m, d and g and write (N, D) or (K, D) f32. Products: the logits
     (2·N·K·D), and for a gradient also coeff·W or coeffᵀ·emb."""
-    n, d, k = CE_SHAPE
+    n, d, k = shape
     inputs = n * d * 2 + k * d * 2 + n * 8 + k
     nbytes = {"margin_ce_stats": inputs + 3 * n * 4,
               "margin_ce_grad_emb": inputs + 3 * n * 4 + n * d * 4,
@@ -3327,6 +3547,7 @@ def main() -> None:
           f"sample_block {WEBFACE_BLOCK} against 1: {head_block:.3f} vs "
           f"{head_row:.3f} ms of device time per step "
           f"({head_row / head_block:.2f}x)")
+    head_fused = phase_profile_fused_ce()
 
     fwd = _mix(times_fwd, torch.bfloat16)
     bwd = _mix(times_bwd, torch.bfloat16)
@@ -3388,12 +3609,21 @@ def main() -> None:
                "window_attn_tc.cuh", f"{attn}:1717", launches_bwd,
                worst_bwd, bwd["ms"], bwd["plain_ms"], _packed_bound("bwd"),
                bwd["library_ms"])]
-    for name, line, count in zip(
-            ("margin_ce_stats", "margin_ce_grad_emb", "margin_ce_grad_w"),
-            (308, 406, 425), launches_ce):
-        kernels.append(_entry(name, "margin_ce.cu", f"fused_pfc.py:{line}",
-                              count, worst_ce[name], times_ce[name][0],
-                              times_ce[name][1], _ce_bound(name), None))
+    # rows 9-11 at the ms1m head; rows 10/11 on each body, the tensor-core
+    # kernels' launches from [train_full_head]'s default fused arm, the
+    # CUDA-core ones' from its switch-off arm
+    for name, line, label, key in (
+            ("margin_ce_stats", 308, "margin_ce_stats", "ms"),
+            ("margin_ce_grad_emb_tc", 406, "margin_ce_grad_emb_tc (row 10)",
+             "ms"),
+            ("margin_ce_grad_w_tc", 425, "margin_ce_grad_w_tc (row 11)", "ms"),
+            ("margin_ce_grad_emb", 406, "margin_ce_grad_emb", "cc_ms"),
+            ("margin_ce_grad_w", 425, "margin_ce_grad_w", "cc_ms")):
+        kernel = name.removesuffix("_tc")
+        t = times_ce[(kernel, CE_SHAPE[2])]
+        kernels.append(_entry(label, "margin_ce.cu", f"fused_pfc.py:{line}",
+                              launches_ce[name], worst_ce[name], t[key],
+                              t["plain_ms"], _ce_bound(kernel), None))
     for kind, line, count, err, row in (
             ("fwd", 1909, perhead["fwd"], worst_ph_f, 5),
             ("bwd", 2002, perhead["bwd"], worst_ph_b, 6)):
@@ -3435,8 +3665,15 @@ def main() -> None:
                               bounds_rows[name], lib))
     kernels += _variant_entries(errs_v, times_v,
                                 dict(launches_routes, grouped=launches_grouped))
-    check(all(c > 0 for c in launches_ce_webface),
+    check(all(c > 0 for c in launches_ce_webface.values()),
           f"[webface42m] margin-CE launches {launches_ce_webface}")
+    print("[summary] the head inside the step, use_fused on, the margin-CE "
+          "backward on the tensor cores against the CUDA cores (ms of "
+          "device time per step): " + "; ".join(
+              f"{net} {head_fused[(net, 'tensor_cores')]:.3f} vs "
+              f"{head_fused[(net, 'cuda_cores')]:.3f}"
+              for net in ("AlterNet50", "ResNet100"))
+          + f"; ResNet100 with use_fused off {head_block:.3f}")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its "
               f"main path")

@@ -30,10 +30,11 @@
 //   grad_W   gives each block a class tile: it computes coeff for every row
 //            into shared memory, then coeffᵀ·emb for its classes, and owns
 //            its output rows, so it needs no second pass.
-// The results do not depend on the schedule. This first version runs the
+// The results do not depend on the schedule. These first versions run the
 // products as register-tiled f32 FMAs on the CUDA cores (16×16 threads, a
-// small micro-tile each); tensor cores (mma.sync/wgmma) and TMA are later
-// steps.
+// small micro-tile each). The bf16 backward pair also has a tensor-core
+// body (margin_ce_grad_emb_tc, margin_ce_grad_w_tc; its note is above the
+// kernels), which the wrapper picks for bf16 with D % 16 == 0, D ≤ 512.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -170,7 +171,22 @@ __device__ __forceinline__ float half_sum(float v) {
   return v;
 }
 
-// coeff of one element (_coeff_tile), rounded to T; 0 outside the matrix.
+// coeff of one element (_coeff_tile) from its row's m, d and g, rounded to
+// T; valid: the element lies in the matrix and its column is valid.
+template <typename T>
+__device__ __forceinline__ float coeff_of(float raw, bool valid, bool onehot,
+                                          float m, float d, float g,
+                                          const Margin& mg) {
+  const bool clamp_pass = raw >= -1.f && raw <= 1.f;
+  if (!valid || !clamp_pass) return 0.f;
+  const float z = fminf(fmaxf(raw, -1.f), 1.f);
+  const float y = apply_margin(z, onehot, mg);
+  const float p = expf(y - m) / d;
+  const float dy = p - (onehot ? 1.f : 0.f);
+  return round_to<T>(g * dy * margin_deriv(z, onehot, mg));
+}
+
+// coeff of one element, rounded to T; 0 outside the matrix.
 template <typename T>
 __device__ __forceinline__ float coeff_at(float raw, int row, int col, int N,
                                           int K, const int* labels,
@@ -179,16 +195,9 @@ __device__ __forceinline__ float coeff_at(float raw, int row, int col, int N,
                                           const float* d_row,
                                           const float* g_row,
                                           const Margin& mg) {
-  if (row >= N || col >= K) return 0.f;
-  const bool valid = col_valid[col] != 0;
-  const bool clamp_pass = raw >= -1.f && raw <= 1.f;
-  if (!valid || !clamp_pass) return 0.f;
-  const float z = fminf(fmaxf(raw, -1.f), 1.f);
-  const bool onehot = col == labels[row];
-  const float y = apply_margin(z, onehot, mg);
-  const float p = expf(y - m_row[row]) / d_row[row];
-  const float dy = p - (onehot ? 1.f : 0.f);
-  return round_to<T>(g_row[row] * dy * margin_deriv(z, onehot, mg));
+  if (row >= N || col >= K || col_valid[col] == 0) return 0.f;
+  return coeff_of<T>(raw, true, col == labels[row], m_row[row], d_row[row],
+                     g_row[row], mg);
 }
 
 // ---- stats -----------------------------------------------------------------
@@ -479,6 +488,382 @@ __global__ void __launch_bounds__(kThreads) margin_ce_grad_w_kernel(
   }
 }
 
+// ---- the backward pair on the tensor cores (bf16) --------------------------
+// margin_ce_grad_emb_tc_kernel replaces the TPU kernel of _bwd_rule's first
+// pallas_call (fr_tpu/ops/fused_pfc.py:406, _bwd_emb_kernel) and
+// margin_ce_grad_w_tc_kernel its second (:425, _bwd_w_kernel), on bf16
+// operands with D a multiple of 16, at most 512; f32 and every other D keep
+// the CUDA-core kernels above. The element arithmetic is theirs (coeff_of:
+// apply_margin, margin_deriv, expf and the division, in that order); only
+// the three products move to mma.sync.m16n8k16 bf16 → f32: the logits
+// emb·Wᵀ with f32 sums, and coeff·W or coeffᵀ·emb from the bf16 coeff,
+// which is exactly the A operand the mma takes.
+//
+// What bounds them: bytes. Each reads emb, W (bf16), the labels and
+// col_valid once: 26.8 MB at the ms1m_arcface_122 head (N 128, D 512, K
+// 26,007), 211.2 MB at webface42m's (K 205,952). grad_W also writes its
+// (K, D) f32 result, its largest term: 53.3 MB and 421.8 MB, so 0.024 and
+// 0.189 ms at 3.35 TB/s against grad_emb's 0.008 and 0.063; the 4·N·K·D
+// flops take 0.007 and 0.055 ms at 989 TFLOP/s.
+//
+// Design: a CTA of 8 warps keeps a 64 × D f32 accumulator in registers (D/4
+// floats a thread at D 512), so one CTA an SM, and holds one operand's tile
+// resident in shared memory while the other streams through two stages by
+// 16-byte cp.async:
+//   grad_emb: a 64-row tile of emb resident, a contiguous range of 64-class
+//     tiles of W streamed (a split); for each class tile the logits by mma,
+//     the bf16 coeff tile, and acc += coeff·W_tile from the W tile already
+//     held, so W crosses from device memory once per row tile. The row
+//     tiles of a split are neighbours in the grid, so the second read of a
+//     W tile is an L2 hit. Each split writes its partial; split_sum_kernel
+//     adds them in split order.
+//   grad_W: a 64-class tile of W resident, the emb row tiles streamed;
+//     acc += coeffᵀ·emb_tile, and the CTA writes its 64 rows of grad_W,
+//     which it alone owns.
+// Warp (wr, wc) of the 4 × 2 grid takes rows 16·wr.. and classes 32·wc.. of
+// the logits; of the product, output rows 16·wr.. and the 16-wide D chunks
+// ch ≡ wc (mod 2). Every tile row is D + 8 bf16 (an odd multiple of 16
+// bytes), so ldmatrix reads it without bank conflicts. W·coeff reads W
+// through ldmatrix.trans, coeffᵀ·emb reads the coeff tile and emb through
+// it; no transposed copy goes to device memory. Rows past N and classes
+// past K are zero in shared memory and have coeff 0. Every sum runs in a
+// fixed order (D, then class tiles or row tiles, then splits), with no
+// atomics: both results repeat bit for bit.
+constexpr int kTcTile = 64;     // rows of a tile (emb rows or W classes)
+constexpr int kTcMaxD = 512;    // the widest accumulator a CTA holds
+constexpr int kTcThreads = 256;
+constexpr int kTcChunks = kTcMaxD / 32;  // 16-wide D chunks per warp
+constexpr int kTcLdc = kTcTile + 8;      // row stride of the coeff tile
+
+using bf16 = __nv_bfloat16;
+
+// Shared memory of either kernel: three (64, D + 8) bf16 tiles (the
+// resident one and two stages) and the (64, 72) coeff tile. The Python
+// wrapper computes the same size (fused_pfc.tc_smem_bytes).
+__host__ __device__ inline size_t tc_smem_bytes(int D) {
+  return 2 * (3 * static_cast<size_t>(kTcTile) * (D + 8) +
+              static_cast<size_t>(kTcTile) * kTcLdc);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a·b, m16n8k16, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issues the copies of rows [g0, g0 + 64) of the (rows, D) matrix src into
+// the (64, D + 8) tile dst; rows past `rows` are zeroed.
+__device__ __forceinline__ void tc_load_tile(bf16* dst, const bf16* src,
+                                             int g0, int rows, int D) {
+  const int cpr = D / 8;  // 16-byte copies per row
+  for (int e = threadIdx.x; e < kTcTile * cpr; e += kTcThreads) {
+    const int r = e / cpr;
+    const int c = 8 * (e - r * cpr);
+    bf16* d = dst + r * (D + 8) + c;
+    if (g0 + r < rows)
+      cp_async16(d, src + static_cast<size_t>(g0 + r) * D + c);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The warp's logits, 16 emb rows × 32 classes: raw[j] is the 16 × 8 tile of
+// classes 32·wc + 8j, summed over D from the emb tile e and the W tile w.
+__device__ __forceinline__ void tc_logits(float (&raw)[4][4], const bf16* e,
+                                          const bf16* w, int wr, int wc,
+                                          int D) {
+  const int lane = threadIdx.x & 31;
+  const int ld = D + 8;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    raw[j][0] = raw[j][1] = raw[j][2] = raw[j][3] = 0.f;
+  const bf16* ap = e + (16 * wr + (lane & 15)) * ld + (lane >> 4) * 8;
+  const bf16* bp = w + (32 * wc + (lane & 7) + ((lane >> 4) << 3)) * ld +
+                   ((lane >> 3) & 1) * 8;
+#pragma unroll 4
+  for (int k = 0; k < D; k += 16) {
+    uint32_t a[4], b0[4], b1[4];
+    ldsm_x4(a, ap + k);
+    ldsm_x4(b0, bp + k);
+    ldsm_x4(b1, bp + 16 * ld + k);
+    mma_bf16(raw[0], a, b0[0], b0[1]);
+    mma_bf16(raw[1], a, b0[2], b0[3]);
+    mma_bf16(raw[2], a, b1[0], b1[1]);
+    mma_bf16(raw[3], a, b1[2], b1[3]);
+  }
+}
+
+// One logit row of this thread (rows lane/4 and lane/4 + 8 of the warp's
+// 16): what coeff_of needs of it.
+struct TcRow {
+  bool in;  // row < N
+  int label;
+  float m, d, g;
+};
+
+__device__ __forceinline__ TcRow tc_row(int row, int N, const int* labels,
+                                        const float* m_row,
+                                        const float* d_row,
+                                        const float* g_row) {
+  if (row >= N) return TcRow{false, -1, 0.f, 1.f, 0.f};
+  return TcRow{true, labels[row], m_row[row], d_row[row], g_row[row]};
+}
+
+// The bf16 coeff of the warp's logits into the (64, 72) tile cs[row][class]
+// (local row 16·wr + lane/4 + 8h, class 32·wc + 8j + 2·(lane % 4) + i);
+// c0 is the tile's first class.
+__device__ __forceinline__ void tc_coeff_tile(bf16* cs,
+                                              const float (&raw)[4][4],
+                                              const TcRow (&rows)[2], int c0,
+                                              int K,
+                                              const uint8_t* col_valid,
+                                              int wr, int wc,
+                                              const Margin& mg) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int lc = 32 * wc + 8 * j + 2 * (lane & 3);
+    bool valid[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      valid[i] = c0 + lc + i < K && col_valid[c0 + lc + i] != 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const TcRow& r = rows[h];
+      float v[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        v[i] = coeff_of<bf16>(raw[j][2 * h + i], r.in && valid[i],
+                              c0 + lc + i == r.label, r.m, r.d, r.g, mg);
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(v[0], v[1]);
+      *reinterpret_cast<__nv_bfloat162*>(
+          cs + (16 * wr + (lane >> 2) + 8 * h) * kTcLdc + lc) = pair;
+    }
+  }
+}
+
+// acc += A·B for the warp's output rows and D chunks ch = 2q + wc: A's
+// 16 × 16 fragment a (k = 16·kk..), B the (64, D + 8) tile b read
+// transposed (its rows are k).
+__device__ __forceinline__ void tc_times(float (&acc)[kTcChunks][2][4],
+                                         const uint32_t (&a)[4],
+                                         const bf16* b, int kk, int wc,
+                                         int D) {
+  const int lane = threadIdx.x & 31;
+  const int n_chunks = D / 16;
+  const bf16* bp = b + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                           (D + 8) +
+                   (lane >> 4) * 8;
+#pragma unroll
+  for (int q = 0; q < kTcChunks; ++q) {
+    const int ch = 2 * q + wc;
+    if (ch < n_chunks) {
+      uint32_t f[4];
+      ldsm_x4_t(f, bp + 16 * ch);
+      mma_bf16(acc[q][0], a, f[0], f[1]);
+      mma_bf16(acc[q][1], a, f[2], f[3]);
+    }
+  }
+}
+
+// Writes the warp's accumulator: output rows out_row0 + 16·wr.. (those
+// below `rows`) of the (·, D) f32 matrix out.
+__device__ __forceinline__ void tc_store(const float (&acc)[kTcChunks][2][4],
+                                         float* out, int out_row0, int rows,
+                                         int wr, int wc, int D) {
+  const int lane = threadIdx.x & 31;
+  const int n_chunks = D / 16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = out_row0 + 16 * wr + (lane >> 2) + 8 * h;
+    if (row >= rows) continue;
+    float* o = out + static_cast<size_t>(row) * D + 2 * (lane & 3);
+#pragma unroll
+    for (int q = 0; q < kTcChunks; ++q) {
+      const int ch = 2 * q + wc;
+      if (ch < n_chunks) {
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          *reinterpret_cast<float2*>(o + 16 * ch + 8 * t) =
+              make_float2(acc[q][t][2 * h], acc[q][t][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// grid (row tiles, splits): split s takes class tiles [s·T/S, (s+1)·T/S)
+// of the T tiles. Writes partial[split][row][d] for rows < N.
+__global__ void __launch_bounds__(kTcThreads, 1) margin_ce_grad_emb_tc_kernel(
+    const bf16* __restrict__ emb, const bf16* __restrict__ w,
+    const int* __restrict__ labels, const uint8_t* __restrict__ col_valid,
+    const float* __restrict__ m_row, const float* __restrict__ d_row,
+    const float* __restrict__ g_row, int N, int K, int D, Margin mg,
+    float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int ld = D + 8;
+  bf16* es = reinterpret_cast<bf16*>(tc_smem);
+  bf16* ws = es + kTcTile * ld;  // two stages
+  bf16* cs = ws + 2 * kTcTile * ld;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wr = warp >> 1;
+  const int wc = warp & 1;
+  const int r0 = blockIdx.x * kTcTile;
+  const int n_tiles = (K + kTcTile - 1) / kTcTile;
+  const int t_begin = static_cast<int>(
+      static_cast<long long>(blockIdx.y) * n_tiles / gridDim.y);
+  const int t_end = static_cast<int>(
+      static_cast<long long>(blockIdx.y + 1) * n_tiles / gridDim.y);
+
+  TcRow rows[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    rows[h] = tc_row(r0 + 16 * wr + (lane >> 2) + 8 * h, N, labels, m_row,
+                     d_row, g_row);
+  float acc[kTcChunks][2][4];
+#pragma unroll
+  for (int q = 0; q < kTcChunks; ++q)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+      acc[q][t][0] = acc[q][t][1] = acc[q][t][2] = acc[q][t][3] = 0.f;
+
+  if (t_begin < t_end) {
+    tc_load_tile(es, emb, r0, N, D);
+    tc_load_tile(ws, w, t_begin * kTcTile, K, D);
+    cp_async_commit();
+  }
+  for (int t = t_begin; t < t_end; ++t) {
+    const int stage = (t - t_begin) & 1;
+    const bf16* wt = ws + stage * kTcTile * ld;
+    if (t + 1 < t_end) {
+      tc_load_tile(ws + (stage ^ 1) * kTcTile * ld, w, (t + 1) * kTcTile, K,
+                   D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float raw[4][4];
+    tc_logits(raw, es, wt, wr, wc, D);
+    tc_coeff_tile(cs, raw, rows, t * kTcTile, K, col_valid, wr, wc, mg);
+    __syncthreads();
+    // acc += coeff·W_tile: A = coeff rows 16·wr.., k = the tile's classes
+#pragma unroll
+    for (int kk = 0; kk < kTcTile / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, cs + (16 * wr + (lane & 15)) * kTcLdc + 16 * kk +
+                     (lane >> 4) * 8);
+      tc_times(acc, a, wt, kk, wc, D);
+    }
+    __syncthreads();  // the next tile overwrites cs and this stage's twin
+  }
+  tc_store(acc, partial + static_cast<size_t>(blockIdx.y) * N * D, r0, N, wr,
+           wc, D);
+}
+
+// grid (class tiles): CTA c owns classes [64c, 64c + 64) of grad_W.
+__global__ void __launch_bounds__(kTcThreads, 1) margin_ce_grad_w_tc_kernel(
+    const bf16* __restrict__ emb, const bf16* __restrict__ w,
+    const int* __restrict__ labels, const uint8_t* __restrict__ col_valid,
+    const float* __restrict__ m_row, const float* __restrict__ d_row,
+    const float* __restrict__ g_row, int N, int K, int D, Margin mg,
+    float* __restrict__ gw) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int ld = D + 8;
+  bf16* ws = reinterpret_cast<bf16*>(tc_smem);
+  bf16* es = ws + kTcTile * ld;  // two stages
+  bf16* cs = es + 2 * kTcTile * ld;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wr = warp >> 1;
+  const int wc = warp & 1;
+  const int c0 = blockIdx.x * kTcTile;
+  const int n_row_tiles = (N + kTcTile - 1) / kTcTile;
+
+  float acc[kTcChunks][2][4];
+#pragma unroll
+  for (int q = 0; q < kTcChunks; ++q)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+      acc[q][t][0] = acc[q][t][1] = acc[q][t][2] = acc[q][t][3] = 0.f;
+
+  tc_load_tile(ws, w, c0, K, D);
+  tc_load_tile(es, emb, 0, N, D);
+  cp_async_commit();
+  for (int rt = 0; rt < n_row_tiles; ++rt) {
+    const int stage = rt & 1;
+    const bf16* et = es + stage * kTcTile * ld;
+    if (rt + 1 < n_row_tiles) {
+      tc_load_tile(es + (stage ^ 1) * kTcTile * ld, emb, (rt + 1) * kTcTile,
+                   N, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    TcRow rows[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      rows[h] = tc_row(rt * kTcTile + 16 * wr + (lane >> 2) + 8 * h, N,
+                       labels, m_row, d_row, g_row);
+    float raw[4][4];
+    tc_logits(raw, et, ws, wr, wc, D);
+    tc_coeff_tile(cs, raw, rows, c0, K, col_valid, wr, wc, mg);
+    __syncthreads();
+    // acc += coeffᵀ·emb_tile: A = coeffᵀ, classes 16·wr.. by the tile's
+    // rows, read from cs[row][class] through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kTcTile / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4_t(a, cs + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * kTcLdc +
+                       16 * wr + ((lane >> 3) & 1) * 8);
+      tc_times(acc, a, et, kk, wc, D);
+    }
+    __syncthreads();  // the next row tile overwrites cs and this stage's twin
+  }
+  tc_store(acc, gw, c0, K, wr, wc, D);
+}
+
 Margin make_margin(int kind, float s, float cos_m, float sin_m, float theta,
                    float sinmm, float m) {
   return Margin{kind, s, cos_m, sin_m, theta, sinmm, m};
@@ -495,6 +880,12 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// The tensor-core kernels take bf16 with D a multiple of 16, at most kTcMaxD.
+bool tc_shape_ok(int N, int K, int D, int dtype, int kind) {
+  return !bad_shape(N, K, D, dtype, kind) && dtype == 1 && D % 16 == 0 &&
+         D <= kTcMaxD;
 }
 
 template <typename T>
@@ -556,6 +947,42 @@ cudaError_t grad_w(const void* emb, const void* w, const int* labels,
                                stream>>>(
       static_cast<const T*>(emb), static_cast<const T*>(w), labels, cv, m, d,
       g, N, K, D, mg, out);
+  return cudaGetLastError();
+}
+
+cudaError_t grad_emb_tc(const void* emb, const void* w, const int* labels,
+                        const uint8_t* cv, const float* m, const float* d,
+                        const float* g, int N, int K, int D, Margin mg,
+                        int splits, float* partial, float* out,
+                        cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(D);
+  cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(margin_ce_grad_emb_tc_kernel), smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kTcTile - 1) / kTcTile, splits);
+  margin_ce_grad_emb_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(emb), static_cast<const bf16*>(w), labels, cv,
+      m, d, g, N, K, D, mg, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t count = static_cast<size_t>(N) * D;
+  split_sum_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0,
+                     stream>>>(partial, count, splits, out);
+  return cudaGetLastError();
+}
+
+cudaError_t grad_w_tc(const void* emb, const void* w, const int* labels,
+                      const uint8_t* cv, const float* m, const float* d,
+                      const float* g, int N, int K, int D, Margin mg,
+                      float* out, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(D);
+  cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(margin_ce_grad_w_tc_kernel), smem);
+  if (err != cudaSuccess) return err;
+  margin_ce_grad_w_tc_kernel<<<(K + kTcTile - 1) / kTcTile, kTcThreads, smem,
+                               stream>>>(
+      static_cast<const bf16*>(emb), static_cast<const bf16*>(w), labels, cv,
+      m, d, g, N, K, D, mg, out);
   return cudaGetLastError();
 }
 
@@ -638,4 +1065,66 @@ extern "C" int margin_ce_grad_w(const void* emb, const void* w,
     return grad_w<float>(emb, w, lab, cv, mr, dr, gr, N, K, D, mg, o, st);
   return grad_w<__nv_bfloat16>(emb, w, lab, cv, mr, dr, gr, N, K, D, mg, o,
                                st);
+}
+
+// The tensor-core twins of margin_ce_grad_emb and margin_ce_grad_w: the
+// same arguments, bf16 only (dtype 1), D a multiple of 16 and at most 512;
+// emb and w 16-byte aligned. grad_emb's partial: splits·N·D floats, split
+// s taking class tiles [s·T/S, (s+1)·T/S) of the T = ⌈K/64⌉.
+extern "C" int margin_ce_grad_emb_tc(const void* emb, const void* w,
+                                     const void* labels,
+                                     const void* col_valid, const void* m_row,
+                                     const void* d_row, const void* g_row,
+                                     int N, int K, int D, int dtype, int kind,
+                                     float s, float cos_m, float sin_m,
+                                     float theta, float sinmm, float m,
+                                     int splits, void* partial, void* out,
+                                     void* stream) {
+  if (!tc_shape_ok(N, K, D, dtype, kind) || splits <= 0 || splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return grad_emb_tc(emb, w, static_cast<const int*>(labels),
+                     static_cast<const uint8_t*>(col_valid),
+                     static_cast<const float*>(m_row),
+                     static_cast<const float*>(d_row),
+                     static_cast<const float*>(g_row), N, K, D,
+                     make_margin(kind, s, cos_m, sin_m, theta, sinmm, m),
+                     splits, static_cast<float*>(partial),
+                     static_cast<float*>(out),
+                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int margin_ce_grad_w_tc(const void* emb, const void* w,
+                                   const void* labels, const void* col_valid,
+                                   const void* m_row, const void* d_row,
+                                   const void* g_row, int N, int K, int D,
+                                   int dtype, int kind, float s, float cos_m,
+                                   float sin_m, float theta, float sinmm,
+                                   float m, void* out, void* stream) {
+  if (!tc_shape_ok(N, K, D, dtype, kind))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return grad_w_tc(emb, w, static_cast<const int*>(labels),
+                   static_cast<const uint8_t*>(col_valid),
+                   static_cast<const float*>(m_row),
+                   static_cast<const float*>(d_row),
+                   static_cast<const float*>(g_row), N, K, D,
+                   make_margin(kind, s, cos_m, sin_m, theta, sinmm, m),
+                   static_cast<float*>(out),
+                   static_cast<cudaStream_t>(stream));
+}
+
+// CTAs of margin_ce_grad_emb_tc_kernel that one SM holds at once at this D
+// (the occupancy API; the wrapper sizes the splits to one wave of them), or
+// the negated CUDA error.
+extern "C" int margin_ce_grad_emb_tc_occupancy(int D) {
+  if (D <= 0 || D % 16 != 0 || D > kTcMaxD)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel =
+      reinterpret_cast<const void*>(margin_ce_grad_emb_tc_kernel);
+  const size_t smem = tc_smem_bytes(D);
+  cudaError_t err = allow_smem(kernel, smem);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                        kTcThreads, smem);
+  return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }

@@ -19,24 +19,64 @@ every product accumulates in f32; the gradients come back in the operands'
 dtype, as fr_tpu's do.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels or
-raises. Each wrapper counts its launches in ``.launches``. One shard only
+raises. Each wrapper counts its launches in ``.launches``. The backward pair
+has two bodies: bf16 with D a multiple of 16, at most 512, takes the
+tensor-core kernels (``margin_ce_grad_{emb,w}_tc``) while ``TENSOR_CORES``
+is on; f32, any other D and the switch off take the CUDA-core ones.
+``route_launches`` counts the backward's launches by body. One shard only
 (fr_tpu's model_axis=None); the class-sharded merge is ROADMAP §1,
 multi-GPU.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Tuple
 
 import torch
+
+from fr_tpu_torch.ops.fused_window_attn import _stream, _tc_slots
 
 MASK = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MARGIN_CODE = {"ArcFace": 0, "CosFace": 1}
 _TARGET_BLOCKS = 264   # two blocks per SM of an H100: the split heuristic
 _STATS_ROWS, _EMB_ROWS, _CLASS_TILE = 32, 16, 64   # the kernels' tiles
+# The tensor-core pair's tiles: 64 emb rows or W classes, a (64, D) f32
+# accumulator per CTA, so D at most 512.
+_TC_TILE, _TC_MAX_D = 64, 512
+
+# launches of the backward pair by body
+route_launches = {"grad_emb_tensor_cores": 0, "grad_emb_cuda_cores": 0,
+                  "grad_w_tensor_cores": 0, "grad_w_cuda_cores": 0}
+
+# The bf16 body switch of the backward pair, read at every call: True (the
+# default) puts bf16 calls with D % 16 == 0, D ≤ 512 on the tensor cores;
+# False puts every call on the CUDA-core kernels.
+TENSOR_CORES = True
+
+
+def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
+    """Whether a backward call in compute dtype ``dtype`` takes the
+    tensor-core kernels: bf16, D a multiple of 16 and at most 512, while
+    TENSOR_CORES is on."""
+    return (TENSOR_CORES and dtype == torch.bfloat16 and 0 < D <= _TC_MAX_D
+            and D % 16 == 0)
+
+
+def tc_smem_bytes(D: int) -> int:
+    """Shared memory of a tensor-core CTA (csrc/margin_ce.cu,
+    tc_smem_bytes): three (64, D + 8) bf16 tiles, the resident one and two
+    stages, and the (64, 72) bf16 coeff tile."""
+    return 2 * (3 * _TC_TILE * (D + 8) + _TC_TILE * (_TC_TILE + 8))
+
+
+def tc_splits(N: int, K: int, slots: int) -> int:
+    """Class splits of the tensor-core grad_emb: one wave of the ``slots``
+    CTAs the card holds (the occupancy API's count per SM times the SMs)
+    over the row tiles, no split without a class tile."""
+    row_tiles, class_tiles = -(-N // _TC_TILE), -(-K // _TC_TILE)
+    return max(1, min(class_tiles, slots // row_tiles, 65535))
 
 
 def margin_consts(margin: str, m: float, easy_margin: bool = False) -> dict:
@@ -284,16 +324,17 @@ def _launch_stats(emb, w, label_cols, col_valid, cfg):
     m, d, t = torch.empty((3, N), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.margin_ce_stats(
             emb.data_ptr(), w.data_ptr(), labels.data_ptr(), cv.data_ptr(),
             N, K, D, code, *_margin_args(cfg), splits, partial.data_ptr(),
-            m.data_ptr(), d.data_ptr(), t.data_ptr(), ctypes.c_void_p(stream))
+            m.data_ptr(), d.data_ptr(), t.data_ptr(), _stream(dev))
     check_launch(lib, err, "margin_ce_stats")
     return m, d, t
 
 
 def _launch_grad(emb, w, label_cols, col_valid, m_g, d_g, g, cfg, name):
+    """One launch of the backward kernel ``name`` on the body that
+    tensor_core_route picks, counted on route_launches."""
     from fr_tpu_torch.ops._build import check_launch, load_library
 
     emb, w, labels, cv, N, K, D, code = _operands(emb, w, label_cols,
@@ -303,21 +344,32 @@ def _launch_grad(emb, w, label_cols, col_valid, m_g, d_g, g, cfg, name):
             for t in (m_g, d_g, g)]
     if any(tuple(t.shape) != (N,) for t in rows):
         raise ValueError(f"m, d and g must be ({N},)")
+    tc = tensor_core_route(cfg.compute_dtype, D)
+    if tc:
+        # 16-byte cp.async: a view that starts off a 16-byte boundary is
+        # copied
+        emb, w = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (emb, w))
     lib = load_library()
+    entry = name + ("_tc" if tc else "")
     with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        stream = _stream(dev)
         common = (emb.data_ptr(), w.data_ptr(), labels.data_ptr(),
                   cv.data_ptr(), *(t.data_ptr() for t in rows), N, K, D,
                   code, *_margin_args(cfg))
         if name == "margin_ce_grad_emb":
-            splits = _splits(-(-N // _EMB_ROWS), -(-K // _CLASS_TILE))
+            splits = (tc_splits(N, K, _tc_slots(
+                "margin_ce_grad_emb_tc_occupancy", dev.index or 0, D)) if tc
+                else _splits(-(-N // _EMB_ROWS), -(-K // _CLASS_TILE)))
             partial = torch.empty((splits, N, D), dtype=torch.float32,
                                   device=dev)
             out = torch.empty((N, D), dtype=torch.float32, device=dev)
-            err = lib.margin_ce_grad_emb(*common, splits, partial.data_ptr(),
-                                         out.data_ptr(), stream)
+            err = getattr(lib, entry)(*common, splits, partial.data_ptr(),
+                                      out.data_ptr(), stream)
         else:
             out = torch.empty((K, D), dtype=torch.float32, device=dev)
-            err = lib.margin_ce_grad_w(*common, out.data_ptr(), stream)
-    check_launch(lib, err, name)
+            err = getattr(lib, entry)(*common, out.data_ptr(), stream)
+    check_launch(lib, err, entry)
+    route_launches[name[len("margin_ce_"):] + (
+        "_tensor_cores" if tc else "_cuda_cores")] += 1
     return out

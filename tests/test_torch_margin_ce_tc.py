@@ -1,0 +1,248 @@
+"""The margin-CE backward pair's two bodies (rows 10 and 11 of ROADMAP §2):
+which calls take the tensor-core kernels (margin_ce_grad_emb_tc,
+margin_ce_grad_w_tc in csrc/margin_ce.cu) and which the CUDA-core ones,
+the tensor-core CTA's shared memory, the launch each body makes (with the
+library replaced, so no card is needed) with the split count and partial
+buffer its plan gives at the ms1m_arcface_122 and webface42m heads, and the
+port's plain backward against fr_tpu's ``_bwd_jnp`` (what fr_tpu's own
+``_bwd_rule`` runs off the TPU) at the shapes the tensor-core route makes
+new: three 64-row tiles, ragged classes, D = 48, labels −1, masked columns,
+a zero cotangent row and logits beyond [−1, 1]. The kernels themselves are
+checked on the card by test_torch_pfc_cuda.py.
+
+Tolerances are those of tests/test_torch_pfc.py (bf16 operands; the f32
+products of both sides agree to rtol 2e-4 / atol 1e-6). About 10 s."""
+
+import contextlib
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fr_tpu.heads import partial_fc as jax_pfc
+from fr_tpu.ops import fused_pfc as jax_fused
+from fr_tpu_torch.heads.partial_fc import PFCConfig
+from fr_tpu_torch.ops import _build
+from fr_tpu_torch.ops import fused_pfc as F
+from test_torch_cpu_threads import one_torch_thread  # noqa: F401
+
+LIMIT = 227 * 1024
+SLOTS = 132   # the stand-in card: 132 SMs of one CTA
+# (N, D, K) of the ms1m_arcface_122 head (b 128, emd 512, int(0.3·86,690)
+# columns) and of the webface42m head at sample_block 64
+MS1M, WEBFACE = (128, 512, 26007), (128, 512, 205952)
+
+
+def test_route_takes_bf16_with_d_a_multiple_of_16(monkeypatch):
+    """bf16 with D % 16 == 0, 16 ≤ D ≤ 512, takes the tensor cores; f32,
+    D = 40, D beyond 512 and the switch off take the CUDA cores."""
+    for D in (16, 48, 512):
+        assert F.tensor_core_route(torch.bfloat16, D)
+    for dtype, D in ((torch.float32, 512), (torch.bfloat16, 40),
+                     (torch.bfloat16, 8), (torch.bfloat16, 528)):
+        assert not F.tensor_core_route(dtype, D)
+    monkeypatch.setattr(F, "TENSOR_CORES", False)
+    assert not F.tensor_core_route(torch.bfloat16, 512)
+
+
+def test_smem_fits_the_card_at_every_admitted_width():
+    """Three (64, D + 8) bf16 tiles and the (64, 72) coeff tile: 208,896
+    bytes at D = 512, the widest the route admits, within 227 KB."""
+    assert F.tc_smem_bytes(512) == 2 * (3 * 64 * 520 + 64 * 72) == 208896
+    admitted = [D for D in range(16, 1025, 16)
+                if F.tensor_core_route(torch.bfloat16, D)]
+    assert max(admitted) == 512
+    assert all(F.tc_smem_bytes(D) <= LIMIT for D in admitted)
+
+
+class _Library:
+    """Stands in for the kernels' library: records each entry called and
+    its arguments, and returns 0 (no CUDA error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Every tensor counts as a CUDA tensor and the library is _Library:
+    the wrappers' routing runs to the launch, and nothing launches. The
+    occupancy queries are recorded and answer SLOTS CTAs; every
+    torch.empty is recorded in ``lib.made``."""
+    lib = _Library()
+    lib.slots, lib.made = [], []
+
+    def slots(entry, index, *args):
+        lib.slots.append((entry, *args))
+        return SLOTS
+    empty = torch.empty
+
+    def spy(*shape, **kw):
+        one = len(shape) == 1 and isinstance(shape[0], (tuple, list))
+        lib.made.append((tuple(shape[0]) if one else shape, kw.get("dtype")))
+        return empty(*shape, **kw)
+    monkeypatch.setattr(F, "_route", lambda emb: True)
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(F, "_tc_slots", slots)
+    monkeypatch.setattr(F, "_stream", lambda dev: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch, "empty", spy)
+    for key in F.route_launches:
+        monkeypatch.setitem(F.route_launches, key, 0)
+    return lib
+
+
+def _cfg(dtype, margin="ArcFace", D=512):
+    return PFCConfig(num_classes=300000, embedding_size=D, margin=margin,
+                     s=30.0, m=0.35, mixed_precision=dtype == torch.bfloat16)
+
+
+def _backward_call(N, D, K, dtype):
+    """grad_emb then grad_W on the stand-in card. The operands are left
+    unwritten (torch.empty touches no page): nothing reads them."""
+    emb, w = torch.empty(N, D, dtype=dtype), torch.empty(K, D, dtype=dtype)
+    labels = torch.zeros(N, dtype=torch.int32)
+    cv = torch.ones(K, dtype=torch.bool)
+    m, d, g = torch.zeros(N), torch.ones(N), torch.ones(N)
+    cfg = _cfg(dtype, D=D)
+    ge = F.margin_ce_grad_emb(emb, w, labels, cv, m, d, g, cfg)
+    gw = F.margin_ce_grad_w(emb, w, labels, cv, m, d, g, cfg)
+    assert ge.shape == (N, D) and gw.shape == (K, D)
+
+
+# (N, D, K, dtype, tensor cores, grad_emb's splits)
+CALLS = [(*MS1M, torch.bfloat16, True, 66),
+         (*WEBFACE, torch.bfloat16, True, 66),
+         (130, 512, 131, torch.bfloat16, True, 3),
+         (10, 48, 300, torch.bfloat16, True, 5),
+         (128, 512, 64, torch.bfloat16, True, 1),
+         (*MS1M, torch.float32, False, 33),
+         (10, 40, 131, torch.bfloat16, False, 3)]
+
+
+@pytest.mark.parametrize("case", CALLS, ids=lambda c: (
+    f"{c[0]}x{c[1]}x{c[2]}-{str(c[3]).split('.')[-1]}"))
+def test_backward_call_takes_its_body_without_a_launch(fake_card, case):
+    """grad_emb and grad_W on a (stand-in) CUDA tensor reach the entries of
+    their body with the call's (N, K, D), count once each on
+    route_launches by body, and grad_emb gets its split count and an
+    (splits, N, D) f32 partial: on the tensor cores one wave of the
+    occupancy entry's CTAs over the 64-row tiles (66 at both heads), no
+    split without a 64-class tile; on the CUDA cores the 264-block
+    heuristic over 16-row tiles."""
+    N, D, K, dtype, tc, splits = case
+    _backward_call(N, D, K, dtype)
+    suffix = "_tc" if tc else ""
+    (emb_entry, emb_args), (w_entry, w_args) = fake_card.calls
+    assert (emb_entry, w_entry) == (f"margin_ce_grad_emb{suffix}",
+                                    f"margin_ce_grad_w{suffix}")
+    body = "tensor_cores" if tc else "cuda_cores"
+    other = "cuda_cores" if tc else "tensor_cores"
+    assert F.route_launches == {f"grad_emb_{body}": 1, f"grad_w_{body}": 1,
+                                f"grad_emb_{other}": 0, f"grad_w_{other}": 0}
+    # (emb, w, labels, col_valid, m, d, g, N, K, D, dtype, kind, s, ...)
+    code = F._DTYPE_CODE[dtype]
+    assert emb_args[7:11] == w_args[7:11] == (N, K, D, code)
+    assert emb_args[18] == splits
+    assert ((splits, N, D), torch.float32) in fake_card.made
+    assert ((K, D), torch.float32) in fake_card.made
+    if tc:
+        assert splits == F.tc_splits(N, K, SLOTS)
+        assert fake_card.slots == [("margin_ce_grad_emb_tc_occupancy", D)]
+    else:
+        assert splits == F._splits(-(-N // 16), -(-K // 64))
+        assert fake_card.slots == []
+
+
+def test_tensor_core_switch_moves_the_backward(fake_card, monkeypatch):
+    """fused_pfc.TENSOR_CORES off puts the bf16 pair on the CUDA-core
+    kernels at the ms1m head; switched on again, the next call counts on
+    the tensor cores: route_launches counts by body."""
+    monkeypatch.setattr(F, "TENSOR_CORES", False)
+    _backward_call(*MS1M, torch.bfloat16)
+    monkeypatch.setattr(F, "TENSOR_CORES", True)
+    _backward_call(*MS1M, torch.bfloat16)
+    assert [name for name, _ in fake_card.calls] == [
+        "margin_ce_grad_emb", "margin_ce_grad_w", "margin_ce_grad_emb_tc",
+        "margin_ce_grad_w_tc"]
+    assert F.route_launches == {"grad_emb_tensor_cores": 1,
+                                "grad_emb_cuda_cores": 1,
+                                "grad_w_tensor_cores": 1,
+                                "grad_w_cuda_cores": 1}
+
+
+def test_fused_function_backward_reaches_the_tensor_cores(fake_card):
+    """Under autograd the fused CE's bf16 backward calls the tensor-core
+    pair after the stats kernel, and each wrapper counts its launch."""
+    counts = [f.launches for f in (F.margin_ce_stats, F.margin_ce_grad_emb,
+                                   F.margin_ce_grad_w)]
+    N, D, K = 130, 48, 131
+    emb = torch.zeros(N, D, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.zeros(K, D, dtype=torch.bfloat16, requires_grad=True)
+    loss = F.fused_margin_softmax_ce(emb, w, torch.zeros(N, dtype=torch.long),
+                                     torch.ones(K, dtype=torch.bool),
+                                     _cfg(torch.bfloat16, D=D))
+    loss.sum().backward()
+    assert [name for name, _ in fake_card.calls] == [
+        "margin_ce_stats", "margin_ce_grad_emb_tc", "margin_ce_grad_w_tc"]
+    assert [f.launches for f in (F.margin_ce_stats, F.margin_ce_grad_emb,
+                                 F.margin_ce_grad_w)] == [
+        c + 1 for c in counts]
+
+
+def _edge_problem(n, k, d, seed):
+    """Unit rows ×1.5 (so that some logits leave [−1, 1] and take the
+    clamp's zero), labels with −1 rows, the last 3 columns masked, one zero
+    cotangent row (the 1e-30 clamp's)."""
+    rng = np.random.default_rng(seed)
+
+    def unit(rows):
+        x = rng.standard_normal((rows, d)).astype(np.float32)
+        return 1.5 * x / np.linalg.norm(x, axis=1, keepdims=True)
+    emb, w = unit(n), unit(k)
+    labels = rng.integers(-1, k - 3, n).astype(np.int32)
+    labels[:2] = -1
+    col_valid = np.arange(k) < k - 3
+    g = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    g[5] = 0.0
+    return emb, w, labels, col_valid, g
+
+
+@pytest.mark.parametrize("margin", ["ArcFace", "CosFace"])
+def test_plain_backward_matches_bwd_jnp_at_the_new_edges(margin):
+    """bf16, N = 130 (three 64-row tiles), K = 131 (ragged), D = 48: the
+    port's plain backward and the CPU wrappers (what the card's kernels
+    are held to) against fr_tpu's _bwd_jnp, fed fr_tpu's own m and d."""
+    N, K, D = 130, 131, 48
+    emb, w, labels, col_valid, g = _edge_problem(N, K, D, seed=11)
+    cfg = _cfg(torch.bfloat16, margin, D)
+    jcfg = jax_pfc.PFCConfig(model_size=1, **dataclasses.asdict(cfg))
+    je, jw = jnp.asarray(emb, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    jl, jc = jnp.asarray(labels), jnp.asarray(col_valid)
+    m, d, _ = jax_fused._stats_jnp(je, jw, jl, jc, jcfg)
+    ref = jax_fused._bwd_jnp(je, jw, jl, jc, m, d, jnp.asarray(g), jcfg)
+    te = torch.from_numpy(emb).bfloat16()
+    tw = torch.from_numpy(w).bfloat16()
+    args = (te, tw, torch.from_numpy(labels), torch.from_numpy(col_valid),
+            torch.from_numpy(np.array(m)), torch.from_numpy(np.array(d)),
+            torch.from_numpy(g))
+    raw = te.float() @ tw.float().t()
+    assert bool((raw.abs() > 1).any()), "no logit beyond [-1, 1]"
+    ours = F.margin_ce_backward_reference(*args, cfg)
+    wrappers = (F.margin_ce_grad_emb(*args, cfg),
+                F.margin_ce_grad_w(*args, cfg))
+    for a, b, c in zip(ours, wrappers, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=2e-4,
+                                   atol=1e-6)
+        torch.testing.assert_close(b, a, rtol=0, atol=0)
+    # the row whose cotangent the clamp zeroed has no gradient
+    assert not bool(ours[0][5].any())

@@ -18,11 +18,16 @@ import math
 import pytest
 import torch
 
-from fr_tpu_torch.heads.partial_fc import PFCConfig, shard_softmax_ce
+from fr_tpu_torch.heads.partial_fc import (PFCConfig, label_columns,
+                                           sample_groups, shard_group_masks,
+                                           shard_softmax_ce)
 from fr_tpu_torch.ops import fused_pfc
+from fr_tpu_torch.ops.sparse_rows import expand_group_index
 
 # ms1m_arcface_122: b = 128, emd 512, int(0.3·86,690) sampled columns
 FULL = (128, 512, 26007)
+# webface42m at sample_block 64: 3,218 groups of 64 drawn per step
+WEBFACE = (128, 512, 205952)
 
 
 @pytest.fixture
@@ -120,3 +125,102 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="no kernel for margin"):
         fused_pfc.margin_ce_stats(emb, w, labels, col_valid,
                                   _cfg("SphereFace", torch.float32))
+
+
+def _webface_columns(dev, gen):
+    """The labels' columns and the column mask of one webface42m step, made
+    as the step makes them: 128 labels over the 2,059,906 classes (one in
+    the partly padded last group, so that 62 columns are masked), the
+    groups drawn for them and the expanded index."""
+    cfg = PFCConfig(2059906, 512, sample_rate=0.1, sample_block=64)
+    labels = torch.randint(0, cfg.num_classes, (WEBFACE[0],), device=dev,
+                           generator=gen)
+    labels[0] = cfg.num_classes - 1
+    gidx = sample_groups(cfg, gen, *shard_group_masks(cfg, labels,
+                                                      labels >= 0))
+    idx = expand_group_index(gidx, cfg.sample_block)
+    return label_columns(cfg, labels, idx), idx < cfg.num_classes
+
+
+def _backward(emb, w, labels, col_valid, m, d, g, cfg):
+    """(grad_emb, grad_W) and the bodies their launches took."""
+    before = dict(fused_pfc.route_launches)
+    ge = fused_pfc.margin_ce_grad_emb(emb, w, labels, col_valid, m, d, g,
+                                      cfg)
+    gw = fused_pfc.margin_ce_grad_w(emb, w, labels, col_valid, m, d, g, cfg)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in fused_pfc.route_launches.items()
+             if v != before[k]}
+    return ge, gw, moved
+
+
+def _rel(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+# (N, D, K, scale): both heads; three 64-row tiles at ragged K; D = 48 with
+# logits beyond [−1, 1] (rows ×1.5); one class tile
+TC_SHAPES = [(*FULL, 1.0), (*WEBFACE, 1.0), (130, 512, 131, 1.0),
+             (10, 48, 300, 1.5), (128, 512, 64, 1.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("margin", ["ArcFace", "CosFace"])
+@pytest.mark.parametrize("shape", TC_SHAPES,
+                         ids=lambda c: "x".join(map(str, c[:3])))
+def test_tensor_core_pair_matches_plain_version_on_card(cuda_device, shape,
+                                                        margin, monkeypatch):
+    """bf16: margin_ce_grad_emb_tc and margin_ce_grad_w_tc against the
+    plain versions at 1e-2 norm-wise, each call on the tensor cores; two
+    calls give the same bits; the CUDA-core pair (TENSOR_CORES off) on the
+    same inputs passes the same check and sits within 1e-2 of the
+    tensor-core pair. Labels −1, masked columns and a zero cotangent row
+    (at the webface42m head: the step's own labels and column mask)."""
+    n, d, k, scale = shape
+    dt = torch.bfloat16
+    emb, w, labels, col_valid, g = _problem(n, d, k, torch.float32,
+                                            cuda_device, seed=7)
+    emb, w = (scale * emb).to(dt), (scale * w).to(dt)
+    if (n, d, k) == WEBFACE:
+        gen = torch.Generator(device=cuda_device).manual_seed(8)
+        labels, col_valid = _webface_columns(cuda_device, gen)
+    g[min(5, n - 1)] = 0.0
+    cfg = _cfg(margin, dt)
+    args = (emb, w, labels, col_valid)
+    m, dd, _ = fused_pfc.margin_ce_stats_reference(*args, cfg)
+    ge, gw, moved = _backward(*args, m, dd, g, cfg)
+    assert moved == {"grad_emb_tensor_cores": 1, "grad_w_tensor_cores": 1}
+    rge, rgw = fused_pfc.margin_ce_backward_reference(*args, m, dd, g, cfg)
+    for name, a, b in (("grad_emb", ge, rge), ("grad_w", gw, rgw)):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= 1e-2, (name, _rel(a, b))
+    ge2, gw2, _ = _backward(*args, m, dd, g, cfg)
+    assert torch.equal(ge, ge2) and torch.equal(gw, gw2)
+    monkeypatch.setattr(fused_pfc, "TENSOR_CORES", False)
+    cge, cgw, moved = _backward(*args, m, dd, g, cfg)
+    assert moved == {"grad_emb_cuda_cores": 1, "grad_w_cuda_cores": 1}
+    for name, a, b, tc in (("grad_emb", cge, rge, ge),
+                           ("grad_w", cgw, rgw, gw)):
+        assert _rel(a, b) <= 1e-2, (name, _rel(a, b))
+        assert _rel(tc, a) <= 1e-2, (name, _rel(tc, a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,d", [(torch.float32, 512),
+                                  (torch.bfloat16, 40)], ids=["f32", "d40"])
+def test_cuda_core_pair_takes_f32_and_other_widths_on_card(cuda_device, dt,
+                                                           d):
+    """f32 (its contract is f32 products, no TF32) and bf16 at D = 40 take
+    the CUDA-core pair with the switch on, and pass against the plain
+    versions (1e-4 and 1e-2 norm-wise)."""
+    n, k = 130, 300
+    emb, w, labels, col_valid, g = _problem(n, d, k, dt, cuda_device, seed=9)
+    cfg = _cfg("ArcFace", dt)
+    args = (emb, w, labels, col_valid)
+    m, dd, _ = fused_pfc.margin_ce_stats_reference(*args, cfg)
+    ge, gw, moved = _backward(*args, m, dd, g, cfg)
+    assert moved == {"grad_emb_cuda_cores": 1, "grad_w_cuda_cores": 1}
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    for a, b in zip((ge, gw), fused_pfc.margin_ce_backward_reference(
+            *args, m, dd, g, cfg)):
+        assert _rel(a, b) <= tol
