@@ -18,11 +18,12 @@ Phases; any failure exits non-zero and prints no result:
     emd 512, 26,007 sampled columns), ArcFace and CosFace, bf16 and f32,
     at the webface42m head (205,952 columns, the labels and the column
     mask made as its step makes them) and at small ragged shapes: the
-    backward pair's bf16 calls on the tensor cores (each call's body
-    checked, two calls bitwise equal) and again with
-    fused_pfc.TENSOR_CORES off on the CUDA cores, f32 and D = 40 on the
-    CUDA cores; rows 10 and 11 timed at both heads on each body beside
-    their plain versions and the cuBLAS products they contain;
+    bf16 calls of all three (the statistics, row 9, and the backward pair,
+    rows 10 and 11) on the tensor cores (each call's body checked, two
+    calls bitwise equal) and again with fused_pfc.TENSOR_CORES off on the
+    CUDA cores, f32 and D = 40 on the CUDA cores; rows 9-11 timed at both
+    heads on each body beside their plain versions and the cuBLAS products
+    they contain;
     [kernel_perhead] the same forward and backward kernels at the Swin50
     and EffiAlter_m N=49 shapes (112 px, 128 images; head dims 32 and 38)
     and a shift-masked one; [kernel_plan] the tensor-core kernels' launch
@@ -50,9 +51,9 @@ Phases; any failure exits non-zero and prints no result:
  7. [train_full_head] FaceRecognitionTask.training_step at the full
     ms1m_arcface_122 head (86,690 classes, sample_rate 0.3, b=128, random
     images and labels) from one seed: use_fused off, on (the margin-CE
-    backward on the tensor cores) and on with fused_pfc.TENSOR_CORES off
+    kernels on the tensor cores) and on with fused_pfc.TENSOR_CORES off
     (on the CUDA cores): each margin-CE kernel launches once per fused
-    step, every backward launch on its arm's body, the first 3 losses
+    step, every launch on its arm's body, the first 3 losses
     agree to 2e-2 relative, the two bodies' step-1 head gradients to
     1e-2 norm-wise; ms per step and images/s for each arm;
  8. [train_golden] two SGD steps of full-width AlterNet50 in f32 (TF32 off)
@@ -91,7 +92,7 @@ Phases; any failure exits non-zero and prints no result:
     phase 7 from one seed (the switch-off arm untimed): finite losses, the
     fused arms' first three within 2e-2 relative of the plain CE's, the
     two bodies' step-1 head gradients within 1e-2 norm-wise, every
-    backward launch on its arm's body, one gather and one grouped SGD
+    margin-CE launch on its arm's body, one gather and one grouped SGD
     update per step, every label's group among the drawn groups and only
     drawn rows changed, ms per step, images/s, peak memory; three steps
     with AdamW; then sample_block 1 (per-row sampling of the same head)
@@ -131,7 +132,7 @@ Phases; any failure exits non-zero and prints no result:
     AlterNet50 and Swin50 with FR_ATTN_STORED_STATS=1 (the stats arm on the
     tensor cores), and of the webface42m step of phase 13 at sample_block
     64 and 1, and with use_fused on (that step at 64, and AlterNet50's at
-    the full ms1m head), the margin-CE backward on each body: wall per
+    the full ms1m head), the three margin-CE kernels on each body: wall per
     step, device busy, idle share, launches per step, time by family, and
     the head's device time inside the step (the kernels launched in
     train/step.py's pfc_head:* ranges).
@@ -140,7 +141,7 @@ Every kernel's launches in the JSON line are counted on its main path
 (phases 4, 6, 7, 8, 9 and 13; rows 15/16 on [kernel_variants]'s driven
 calls, rows 17/18 on [alternet50_spatial] and [alternet50_entry_fused],
 rows 3/4 and 7/8 on the stats switch of phases 8 and 9, each body on its
-own arm; rows 10/11 on phase 7's fused arms, each body on its own arm),
+own arm; rows 9-11 on phase 7's fused arms, each body on its own arm),
 each run with the counts set to 0 just before it. On those
 paths every launch of the attention forward and backward must take the
 tensor-core kernels (fused_window_attn.route_launches, set to 0 with the
@@ -351,6 +352,7 @@ def phase_build():
                    "window_attn_qkv_fwd_tc_kernel",
                    "window_attn_qkv_bwd_tc_kernel",
                    "window_attn_qkv_grad_mma_kernel",
+                   "margin_ce_stats_tc_kernel",
                    "margin_ce_grad_emb_tc_kernel",
                    "margin_ce_grad_w_tc_kernel"):
         check(any(k == kernel for k, *_ in table),
@@ -520,14 +522,16 @@ def _webface_ce_columns(gen):
 
 
 CE_BWD = ("margin_ce_grad_emb", "margin_ce_grad_w")
+CE_KERNELS = ("margin_ce_stats", *CE_BWD)
 
 
 def _ce_launches(tc):
-    """route_launches of the margin-CE backward on one body, in CE_BWD
+    """route_launches of the margin-CE kernels on one body, in CE_KERNELS
     order."""
     from fr_tpu_torch.ops.fused_pfc import route_launches
     body = "tensor_cores" if tc else "cuda_cores"
-    return [route_launches[f"{k[len('margin_ce_'):]}_{body}"] for k in CE_BWD]
+    return [route_launches[f"{k[len('margin_ce_'):]}_{body}"]
+            for k in CE_KERNELS]
 
 
 def _reset_ce_routes():
@@ -540,24 +544,25 @@ def phase_margin_ce():
     """The three margin-CE kernels vs their plain versions at the
     ms1m_arcface_122 head, at the webface42m head (205,952 columns, the
     step's own labels and column mask) and at small ragged shapes. Every
-    backward call's body is checked (bf16 with D % 16 == 0 on the tensor
-    cores, f32 and D = 40 on the CUDA cores); each bf16 call also runs on
-    the CUDA-core body (fused_pfc.TENSOR_CORES off), which passes the same
-    check and sits within CE_GRAD_RTOL of the tensor-core results, and the
-    tensor-core results repeat bit for bit. Timed at both heads, bf16
-    ArcFace: rows 10 and 11 on each body, their plain versions and the
-    cuBLAS products they contain (not the same function: no margin,
-    softmax or coeff), and row 9. Returns ({kernel: max abs error},
-    {(kernel, K): {"ms", "plain_ms", and for rows 10/11 "cc_ms",
-    "cublas_ms"}}); the tensor-core kernels carry the suffix _tc."""
+    call's body is checked (bf16 with D % 16 == 0 on the tensor cores, f32
+    and D = 40 on the CUDA cores); each bf16 call also runs on the
+    CUDA-core body (fused_pfc.TENSOR_CORES off), which passes the same
+    check and sits within CE_GRAD_RTOL (the statistics within twice
+    CE_STATS_RTOL) of the tensor-core results, and the tensor-core results
+    repeat bit for bit. Timed at both heads, bf16 ArcFace: each row on each
+    body, its plain version and the cuBLAS products it contains (not the
+    same function: no margin, softmax or coeff). Returns ({kernel: max abs
+    error; the statistics' is the loss's}, {(kernel, K): {"ms", "cc_ms",
+    "plain_ms", "cublas_ms"}}); the tensor-core kernels carry the suffix
+    _tc."""
     import torch
     from fr_tpu_torch.heads.partial_fc import PFCConfig
     from fr_tpu_torch.ops import fused_pfc as F
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = dict.fromkeys(("margin_ce_stats", *CE_BWD,
-                           *(f"{k}_tc" for k in CE_BWD)), 0.0)
+    worst = dict.fromkeys((*CE_KERNELS, *(f"{k}_tc" for k in CE_KERNELS)),
+                          0.0)
     times = {}
     for margin, (n, d, k), dt in (
             ("ArcFace", CE_SHAPE, torch.bfloat16),
@@ -567,6 +572,7 @@ def phase_margin_ce():
             ("ArcFace", CE_WEBFACE_SHAPE, torch.float32),
             ("CosFace", (130, 512, 131), torch.bfloat16),
             ("ArcFace", (10, 48, 300), torch.bfloat16),
+            ("ArcFace", (10, 48, 65), torch.bfloat16),
             ("ArcFace", (10, 40, 131), torch.bfloat16),
             ("ArcFace", (10, 40, 131), torch.float32)):
         def unit(*shape):
@@ -585,31 +591,54 @@ def phase_margin_ce():
                         s=30.0, m=0.35,
                         mixed_precision=dt == torch.bfloat16)
         args = (emb, w, labels, cv)
-        stats = F.margin_ce_stats(*args, cfg)
         ref = F.margin_ce_stats_reference(*args, cfg)
-        torch.cuda.synchronize()
-        for a, b in zip(stats, ref):
-            rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
-            check(rel <= CE_STATS_RTOL, f"{margin} {dt} stats rel {rel}")
-        loss = lambda mdt: -torch.log(torch.clamp_min(  # noqa: E731
-            mdt[2] / mdt[1], 1e-30))
-        stats_err = (loss(stats) - loss(ref)).abs().max().item()
-        worst["margin_ce_stats"] = max(worst["margin_ce_stats"], stats_err)
+        tag = f"{margin} ({n},{d},{k}) {str(dt).split('.')[-1]}"
+        tc = F.tensor_core_route(dt, d)
+        bodies = (True, False) if dt == torch.bfloat16 else (True,)
+        stats_out, stats_rels = {}, {}
+        for body in bodies:
+            on_tc = body and tc
+            name = "margin_ce_stats" + ("_tc" if on_tc else "")
+            with _Body(body, "fused_pfc"):
+                _reset_ce_routes()
+                stats = F.margin_ce_stats(*args, cfg)
+                torch.cuda.synchronize()
+                check(_ce_launches(on_tc) == [1, 0, 0]
+                      and _ce_launches(not on_tc) == [0, 0, 0],
+                      f"[margin_ce] {tag}: stats with TENSOR_CORES={body} "
+                      f"took {dict(F.route_launches)}")
+                if on_tc:
+                    again = F.margin_ce_stats(*args, cfg)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b)
+                              for a, b in zip(stats, again)),
+                          f"[margin_ce] {tag}: two tensor-core stats calls "
+                          f"differ")
+            rel = _ce_stats_rel(stats, ref)
+            check(rel <= CE_STATS_RTOL, f"[margin_ce] {tag} {name}: "
+                  f"elementwise rel {rel} > {CE_STATS_RTOL}")
+            worst[name] = max(worst[name], _ce_loss_err(stats, ref))
+            stats_rels[name] = rel
+            stats_out[on_tc] = stats
+        if len(stats_out) == 2:
+            rel = _ce_stats_rel(stats_out[True], stats_out[False])
+            check(rel <= 2 * CE_STATS_RTOL, f"[margin_ce] {tag} stats: "
+                  f"tensor cores against CUDA cores rel {rel}")
+            stats_rels["margin_ce_stats tc-cc"] = rel
+        stats_err = max(_ce_loss_err(x, ref) for x in stats_out.values())
         m, dd, _ = ref
         rge, rgw = F.margin_ce_backward_reference(*args, m, dd, g, cfg)
         tol = CE_GRAD_RTOL[str(dt).split(".")[-1]]
-        tag = f"{margin} ({n},{d},{k}) {str(dt).split('.')[-1]}"
-        tc = F.tensor_core_route(dt, d)
         results, rels = {}, {}
-        for body in ((True, False) if dt == torch.bfloat16 else (True,)):
+        for body in bodies:
             with _Body(body, "fused_pfc"):
                 _reset_ce_routes()
                 out = (F.margin_ce_grad_emb(*args, m, dd, g, cfg),
                        F.margin_ce_grad_w(*args, m, dd, g, cfg))
                 torch.cuda.synchronize()
                 on_tc = body and tc
-                check(_ce_launches(on_tc) == [1, 1]
-                      and _ce_launches(not on_tc) == [0, 0],
+                check(_ce_launches(on_tc) == [0, 1, 1]
+                      and _ce_launches(not on_tc) == [0, 0, 0],
                       f"[margin_ce] {tag}: TENSOR_CORES={body} took "
                       f"{dict(F.route_launches)}")
                 suffix = "_tc" if on_tc else ""
@@ -636,8 +665,11 @@ def phase_margin_ce():
                 check(rel <= tol, f"{tag} {name}: tensor cores against CUDA "
                       f"cores norm-wise {rel} > {tol}")
                 rels[f"{name} tc-cc"] = rel
-        print(f"[margin_ce] {tag:32s} loss err {stats_err:.2e}; norm-wise "
-              f"against the plain version (tol {tol:g}): " + ", ".join(
+        print(f"[margin_ce] {tag:32s} loss err {stats_err:.2e}; stats "
+              f"elementwise against the plain version (tol "
+              f"{CE_STATS_RTOL:g}): " + ", ".join(
+                  f"{key} {v:.1e}" for key, v in stats_rels.items())
+              + f"; gradients norm-wise (tol {tol:g}): " + ", ".join(
                   f"{key} {v:.1e}" for key, v in rels.items()))
         if (n, d, k) in (CE_SHAPE, CE_WEBFACE_SHAPE) \
                 and dt == torch.bfloat16 and margin == "ArcFace":
@@ -653,10 +685,13 @@ def phase_margin_ce():
                                                    coeff.t() @ emb)}
             kern = {"margin_ce_grad_emb": F.margin_ce_grad_emb,
                     "margin_ce_grad_w": F.margin_ce_grad_w}
+            call = lambda: F.margin_ce_stats(*args, cfg)  # noqa: E731
             times[("margin_ce_stats", k)] = {
-                "ms": time_ms(lambda: F.margin_ce_stats(*args, cfg)),
+                "ms": time_ms(call),
+                "cc_ms": _cuda_core_ms(call, "fused_pfc"),
                 "plain_ms": time_ms(lambda: F.margin_ce_stats_reference(
-                    *args, cfg))}
+                    *args, cfg)),
+                "cublas_ms": time_ms(lambda: emb @ w.t())}
             for name in CE_BWD:
                 call = lambda f=kern[name]: f(  # noqa: E731
                     *args, m, dd, g, cfg)
@@ -666,15 +701,21 @@ def phase_margin_ce():
                     "plain_ms": time_ms(lambda nm=name: plain(nm)),
                     "cublas_ms": time_ms(cublas[name])}
             del coeff
-        del emb, w, stats, ref, rge, rgw, results
+        del emb, w, stats, stats_out, ref, rge, rgw, results
         torch.cuda.empty_cache()
 
     def bound(name, k):
         return "bound {:.4f} ({})".format(*_ce_bound(name, (128, 512, k)))
-    print("[margin_ce] row 9 margin_ce_stats, bf16 ArcFace: " + "; ".join(
-        f"K={k:,} kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, "
-        f"{bound(nm, k)}" for (nm, k), t in times.items()
-        if nm == "margin_ce_stats"))
+
+    def share(name, k, ms):
+        return 100 * _ce_bound(name, (128, 512, k))[0] / ms
+    print("[margin_ce] row 9, bf16 ArcFace, tensor cores against the CUDA "
+          "cores, the plain version and the cuBLAS product emb @ W.T (not "
+          "the same function): " + "; ".join(
+              f"K={k:,} {t['ms']:.4f} ms ({share(nm, k, t['ms']):.1f}% of "
+              f"bound) vs {t['cc_ms']:.4f}, plain {t['plain_ms']:.4f}, "
+              f"cuBLAS {t['cublas_ms']:.4f}, {bound(nm, k)}"
+              for (nm, k), t in times.items() if nm == "margin_ce_stats"))
     print("[margin_ce] rows 10/11, bf16 ArcFace, tensor cores against the "
           "CUDA cores, the plain version and the cuBLAS products (not the "
           "same function): " + "; ".join(
@@ -684,6 +725,21 @@ def phase_margin_ce():
               for (nm, k), t in times.items() if nm in CE_BWD))
     print(f"[margin_ce] {time.perf_counter() - t0:.1f} s")
     return worst, times
+
+
+def _ce_stats_rel(a, b):
+    """The largest elementwise relative difference of (m, d, t) a from b."""
+    return max(((x - y).abs() / y.abs().clamp_min(1e-30)).max().item()
+               for x, y in zip(a, b))
+
+
+def _ce_loss_err(a, b):
+    """The largest difference of the losses −log(t/d) that a and b give."""
+    import torch
+
+    def loss(mdt):
+        return -torch.log(torch.clamp_min(mdt[2] / mdt[1], 1e-30))
+    return (loss(a) - loss(b)).abs().max().item()
 
 
 class _EncoderCalls:
@@ -872,14 +928,15 @@ CE_ARMS = (("plain", False, True), ("tensor_cores", True, True),
 
 
 def _check_ce_arms(tag, losses, grads, launches, steps):
-    """Each fused arm launched every backward kernel once per step (of its
-    ``steps[arm]``) on its own body and none on the other, its losses sit
-    within 2e-2 of the plain CE's, and the two bodies' step-1 head
-    gradients within CE_GRAD_RTOL (bf16) norm-wise."""
+    """Each fused arm launched every margin-CE kernel (the stats and the
+    backward pair) once per step (of its ``steps[arm]``) on its own body and
+    none on the other, its losses sit within 2e-2 of the plain CE's, and the
+    two bodies' step-1 head gradients within CE_GRAD_RTOL (bf16)
+    norm-wise."""
     for arm in ("tensor_cores", "cuda_cores"):
-        expect = {body: [steps[arm]] * 2 if body == arm else [0, 0]
+        expect = {body: [steps[arm] if body == arm else 0] * 3
                   for body in ("tensor_cores", "cuda_cores")}
-        check(launches[arm] == expect, f"{tag} the {arm} arm's backward "
+        check(launches[arm] == expect, f"{tag} the {arm} arm's margin-CE "
               f"launches by body {launches[arm]} over {steps[arm]} steps")
         for a, b in zip(losses["plain"], losses[arm]):
             check(abs(a - b) <= 2e-2 * abs(a), f"{tag} fused loss on the "
@@ -896,13 +953,13 @@ def _check_ce_arms(tag, losses, grads, launches, steps):
 
 def phase_train_full_head(steps: int = 3, timed: int = 10):
     """training_step at the full ms1m_arcface_122 head from one seed, in
-    three arms (CE_ARMS): use_fused off; on, the backward pair on the
+    three arms (CE_ARMS): use_fused off; on, the margin-CE kernels on the
     tensor cores; on with fused_pfc.TENSOR_CORES off, on the CUDA cores.
-    Each margin-CE kernel launches once per fused step, every backward
-    launch on the arm's body; losses and step-1 head gradients as
-    _check_ce_arms says; ms per step. Returns the fused arms' launches:
-    {kernel: count}, the tensor-core kernels (suffix _tc) from the default
-    arm and the CUDA-core ones from the switch-off arm."""
+    Each margin-CE kernel launches once per fused step, every launch on the
+    arm's body; losses and step-1 head gradients as _check_ce_arms says;
+    ms per step. Returns the fused arms' launches: {kernel: count}, the
+    tensor-core kernels (suffix _tc) from the default arm and the CUDA-core
+    ones from the switch-off arm."""
     import torch
     from fr_tpu_torch.cli.main import build_conf, parse_args
     from fr_tpu_torch.ops import fused_pfc as F
@@ -949,7 +1006,7 @@ def phase_train_full_head(steps: int = 3, timed: int = 10):
             out["loss"].item()
             ms = (time.perf_counter() - t0) * 1e3 / timed
         print(f"[train_full_head] use_fused={fused}" + (
-            f", backward on the {arm}" if fused else "") + f": "
+            f", margin-CE kernels on the {arm}" if fused else "") + f": "
               f"{conf.n_classes:,} classes, {task.pfc_cfg.num_sample:,} "
               f"sampled, b={conf.b}: losses "
               f"{[round(x, 4) for x in losses[arm]]}; {ms:.2f} ms per step, "
@@ -960,10 +1017,8 @@ def phase_train_full_head(steps: int = 3, timed: int = 10):
               f"use_fused={fused}")
         if fused:
             suffix = "_tc" if arm == "tensor_cores" else ""
-            launches["margin_ce_stats"] = launches.get(
-                "margin_ce_stats", 0) + counts[0]
             launches.update({k + suffix: c for k, c in zip(
-                CE_BWD, routes[arm][arm])})
+                CE_KERNELS, routes[arm][arm])})
         del task
     _check_ce_arms("[train_full_head]", losses, grads, routes,
                    dict.fromkeys(routes, steps))
@@ -2189,8 +2244,8 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
         _reset_ce_routes()
         with _Body(tc, "fused_pfc"):
             results[arm] = run(conf, f"SGD use_fused={fused}" + (
-                f", backward on the {arm}" if fused else ""), steps, n_timed,
-                (1, 1, 0))
+                f", margin-CE kernels on the {arm}" if fused else ""), steps,
+                n_timed, (1, 1, 0))
         if fused:
             routes[arm] = {body: _ce_launches(body == "tensor_cores")
                            for body in ("tensor_cores", "cuda_cores")}
@@ -2200,10 +2255,8 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
               f"{steps + n_timed} steps with use_fused={fused}")
         if fused:
             suffix = "_tc" if arm == "tensor_cores" else ""
-            ce_launches["margin_ce_stats"] = ce_launches.get(
-                "margin_ce_stats", 0) + counts[0]
             ce_launches.update({k + suffix: c for k, c in zip(
-                CE_BWD, routes[arm][arm])})
+                CE_KERNELS, routes[arm][arm])})
     _check_ce_arms("[webface42m]", {a: r[0] for a, r in results.items()},
                    {a: r[2] for a, r in results.items() if r[2] is not None},
                    routes, arm_steps)
@@ -2214,8 +2267,9 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
     ms_block = results["plain"][1]
     print(f"[webface42m] sample_block {WEBFACE_BLOCK} against 1, use_fused "
           f"off: {ms_block:.2f} vs {ms_row:.2f} ms per step on the host "
-          f"clock ({ms_row / ms_block:.2f}x); use_fused on, the backward on "
-          f"the tensor cores: {results['tensor_cores'][1]:.2f} ms; the "
+          f"clock ({ms_row / ms_block:.2f}x); use_fused on, the margin-CE "
+          f"kernels on the tensor cores: {results['tensor_cores'][1]:.2f} "
+          f"ms; the "
           f"device's side of it is in [profile]")
     return [k.launches for k in rows], ce_launches
 
@@ -3365,8 +3419,8 @@ def phase_profile(network, warmup: int = 3, steps: int = 5, conf=None):
 
 def phase_profile_fused_ce():
     """[profile] of the AlterNet50 step at the full ms1m_arcface_122 head
-    (sample_rate 0.3) and of the webface42m step, use_fused on, the
-    margin-CE backward on each body (fused_pfc.TENSOR_CORES on, then off):
+    (sample_rate 0.3) and of the webface42m step, use_fused on, all three
+    margin-CE kernels on each body (fused_pfc.TENSOR_CORES on, then off):
     the head's pfc_head:* device time. Returns {(network, body): head ms
     per step}."""
     from fr_tpu_torch.cli.main import build_conf, parse_args
@@ -3380,7 +3434,7 @@ def phase_profile_fused_ce():
                 conf.sample_rate = FULL_HEAD_SAMPLE_RATE
             conf.use_fused = True
             print(f"[profile] {network}, use_fused on, the margin-CE "
-                  f"backward on the {body}")
+                  f"kernels on the {body}")
             with _Body(body == "tensor_cores", "fused_pfc"):
                 heads[(network, body)] = phase_profile(network, conf=conf)
     return heads
@@ -3609,14 +3663,15 @@ def main() -> None:
                "window_attn_tc.cuh", f"{attn}:1717", launches_bwd,
                worst_bwd, bwd["ms"], bwd["plain_ms"], _packed_bound("bwd"),
                bwd["library_ms"])]
-    # rows 9-11 at the ms1m head; rows 10/11 on each body, the tensor-core
+    # rows 9-11 at the ms1m head, each on each body, the tensor-core
     # kernels' launches from [train_full_head]'s default fused arm, the
     # CUDA-core ones' from its switch-off arm
     for name, line, label, key in (
-            ("margin_ce_stats", 308, "margin_ce_stats", "ms"),
+            ("margin_ce_stats_tc", 308, "margin_ce_stats_tc (row 9)", "ms"),
             ("margin_ce_grad_emb_tc", 406, "margin_ce_grad_emb_tc (row 10)",
              "ms"),
             ("margin_ce_grad_w_tc", 425, "margin_ce_grad_w_tc (row 11)", "ms"),
+            ("margin_ce_stats", 308, "margin_ce_stats", "cc_ms"),
             ("margin_ce_grad_emb", 406, "margin_ce_grad_emb", "cc_ms"),
             ("margin_ce_grad_w", 425, "margin_ce_grad_w", "cc_ms")):
         kernel = name.removesuffix("_tc")
@@ -3668,7 +3723,7 @@ def main() -> None:
     check(all(c > 0 for c in launches_ce_webface.values()),
           f"[webface42m] margin-CE launches {launches_ce_webface}")
     print("[summary] the head inside the step, use_fused on, the margin-CE "
-          "backward on the tensor cores against the CUDA cores (ms of "
+          "kernels on the tensor cores against the CUDA cores (ms of "
           "device time per step): " + "; ".join(
               f"{net} {head_fused[(net, 'tensor_cores')]:.3f} vs "
               f"{head_fused[(net, 'cuda_cores')]:.3f}"

@@ -32,9 +32,10 @@
 //            its output rows, so it needs no second pass.
 // The results do not depend on the schedule. These first versions run the
 // products as register-tiled f32 FMAs on the CUDA cores (16×16 threads, a
-// small micro-tile each). The bf16 backward pair also has a tensor-core
-// body (margin_ce_grad_emb_tc, margin_ce_grad_w_tc; its note is above the
-// kernels), which the wrapper picks for bf16 with D % 16 == 0, D ≤ 512.
+// small micro-tile each). For bf16 with D % 16 == 0, D ≤ 512, all three
+// also have a tensor-core body (margin_ce_grad_emb_tc, margin_ce_grad_w_tc
+// and margin_ce_stats_tc; their notes are above the kernels), which the
+// wrapper picks; f32 and every other D keep the CUDA-core kernels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -289,30 +290,49 @@ __global__ void __launch_bounds__(kThreads) margin_ce_stats_kernel(
   }
 }
 
-// One thread per row: merge the splits' (m, d, t) in split order.
+// One warp per row: merge the splits' (m, d, t) in split order. The lanes
+// read 32 splits at a time and compute their scales exp(m_s − max); every
+// lane then adds them up in split order (a split with m = −inf adds 0·0).
+constexpr int kMergeRows = 4;  // rows (warps) per block
 __global__ void margin_ce_merge_kernel(const float* __restrict__ pm,
                                        const float* __restrict__ pd,
                                        const float* __restrict__ pt, int N,
                                        int splits, float* __restrict__ m,
                                        float* __restrict__ d,
                                        float* __restrict__ t) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
+  const int row = blockIdx.x * kMergeRows + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= N) return;  // the whole warp
   float mx = -INFINITY;
-  for (int s = 0; s < splits; ++s)
+  for (int s = lane; s < splits; s += 32)
     mx = fmaxf(mx, pm[static_cast<size_t>(s) * N + row]);
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
   float sd = 0.f;
   float st = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const size_t o = static_cast<size_t>(s) * N + row;
-    if (pm[o] == -INFINITY) continue;
-    const float scale = expf(pm[o] - mx);
-    sd += pd[o] * scale;
-    st += pt[o] * scale;
+  for (int s0 = 0; s0 < splits; s0 += 32) {
+    const int s = s0 + lane;
+    float scale = 0.f, ds = 0.f, ts = 0.f;
+    if (s < splits) {
+      const size_t o = static_cast<size_t>(s) * N + row;
+      if (pm[o] != -INFINITY) {
+        scale = expf(pm[o] - mx);
+        ds = pd[o];
+        ts = pt[o];
+      }
+    }
+    const int n = min(32, splits - s0);
+    for (int j = 0; j < n; ++j) {
+      const float c = __shfl_sync(0xffffffffu, scale, j);
+      sd = fmaf(__shfl_sync(0xffffffffu, ds, j), c, sd);
+      st = fmaf(__shfl_sync(0xffffffffu, ts, j), c, st);
+    }
   }
-  m[row] = mx;
-  d[row] = sd;
-  t[row] = st;
+  if (lane == 0) {
+    m[row] = mx;
+    d[row] = sd;
+    t[row] = st;
+  }
 }
 
 // ---- grad_emb --------------------------------------------------------------
@@ -864,6 +884,346 @@ __global__ void __launch_bounds__(kTcThreads, 1) margin_ce_grad_w_tc_kernel(
   tc_store(acc, gw, c0, K, wr, wc, D);
 }
 
+// ---- the forward statistics on the tensor cores (bf16) ---------------------
+// margin_ce_stats_tc_kernel replaces the TPU kernel of _stats
+// (fr_tpu/ops/fused_pfc.py:308, pallas_call :330, body _fwd_kernel) on bf16
+// operands with D a multiple of 16, at most 512; f32 and every other D keep
+// margin_ce_stats_kernel. The element arithmetic is that kernel's (the
+// clamp, apply_margin, the −1e30 mask, expf); only the logit product moves
+// to mma.sync.m16n8k16 bf16 → f32 (tc_logits64: the backward pair's
+// tc_logits over a whole 64-class tile).
+//
+// What bounds it: bytes. It reads emb and W (bf16), the labels and
+// col_valid once and writes m, d and t: 26.8 MB at the ms1m_arcface_122
+// head (N 128, D 512, K 26,007) and 211.2 MB at webface42m's (K 205,952),
+// 0.0080 and 0.0631 ms at 3.35 TB/s; the 2·N·K·D flops take 0.0034 and
+// 0.027 ms at 989 TFLOP/s. So W must cross from device memory about once,
+// and the logits must never go there. On the card the copies alone (no mma,
+// no softmax) take about two thirds of the kernel's time, 2 µs a tile at
+// webface42m (fr_tpu_torch/tools/ce_probe.py parts).
+//
+// Design: grad_emb_tc's grid and tiles without its accumulator and coeff
+// tile, as a pipeline. A CTA holds a 64-row emb tile resident and streams
+// its split's 64-class W tiles through two stages. One copy warp fills the
+// stages by bulk copies (cp.async.bulk, a row each, completing on the
+// stage's "full" mbarrier). The 8 compute warps are two groups of 4:
+// group g owns stage g and the split's tiles g, g + 2, ...;
+// its warp r takes rows 16r.. and all 64 classes of a tile. A group waits
+// on its stage, runs the tile's mma, releases the stage on its "empty"
+// mbarrier and then folds the logits into its softmax, so that the next
+// copy into the stage and the other group's mma (shared memory and the
+// tensor cores) run under that softmax (the CUDA cores and exp): no
+// CTA-wide barrier per tile. The row tiles of a split
+// are neighbours in the grid, so the second read of a W tile is an L2 hit.
+// Each thread keeps an online softmax (m, d, t) in registers for its two
+// rows over its own 16 columns of each of its group's tiles. At the end the
+// 4 lanes of a quad merge by shuffles, group 1 hands its rows to group 0
+// through shared memory, and the CTA writes the split's partial, which
+// margin_ce_merge_kernel merges in split order. Every merge runs in a
+// fixed order with no atomics, so m, d and t repeat bit for bit. A thread
+// whose columns of a tile all lie past K skips that tile (its m would be
+// −inf, and exp(−inf − (−inf)) is NaN), and a partial with m = −inf merges
+// as empty; invalid columns are −1e30, finite, and count in d as they do
+// in the plain version. Rows past N and classes past K are never copied:
+// what shared memory holds there is never read into a result.
+constexpr int kStatsGroupWarps = 4;                      // warps of a group
+constexpr int kStatsWarps = 2 * kStatsGroupWarps;        // the compute warps
+constexpr int kStatsThreads = 32 * (kStatsWarps + 1);    // and the copy warp
+
+// Shared memory of margin_ce_stats_tc_kernel: three (64, D + 8) bf16 tiles
+// (the resident one and two stages) and five mbarriers (full and empty of
+// each stage, the emb tile's). The Python wrapper computes the same size
+// (fused_pfc.stats_tc_smem_bytes).
+__host__ __device__ inline size_t stats_tc_smem_bytes(int D) {
+  return 2 * 3 * static_cast<size_t>(kTcTile) * (D + 8) +
+         5 * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrives on bar and adds `bytes` to the transfers it waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of bar with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Copies `bytes` (a multiple of 16, both ends 16-byte aligned) from global
+// src to shared dst; the transfer completes on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The copy warp's part: rows [g0, g0 + rows) of the (·, D) matrix src into
+// the tile dst, a row a lane at a time, announced on bar by lane 0 first.
+__device__ __forceinline__ void stats_copy_rows(bf16* dst, const bf16* src,
+                                                int g0, int rows, int D,
+                                                uint64_t* bar) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t row_bytes = 2u * static_cast<uint32_t>(D);
+  if (lane == 0) mbar_expect_tx(bar, static_cast<uint32_t>(rows) * row_bytes);
+  __syncwarp();
+  for (int r = lane; r < rows; r += 32)
+    bulk_copy(dst + r * (D + 8), src + static_cast<size_t>(g0 + r) * D,
+              row_bytes, bar);
+}
+
+// Merges the statistics (mb, db, tb) of other columns of the same row into
+// (m, d, t); m = −inf marks no column.
+__device__ __forceinline__ void stats_merge(float& m, float& d, float& t,
+                                            float mb, float db, float tb) {
+  if (mb == -INFINITY) return;
+  if (m == -INFINITY) {
+    m = mb;
+    d = db;
+    t = tb;
+    return;
+  }
+  const float mx = fmaxf(m, mb);
+  const float sa = expf(m - mx);
+  const float sb = expf(mb - mx);
+  d = d * sa + db * sb;
+  t = t * sa + tb * sb;
+  m = mx;
+}
+
+// The warp's logits, 16 emb rows × all 64 classes of the tile: raw[j] is
+// the 16 × 8 tile of classes 8j, summed over D from the emb tile e and the
+// W tile w (tc_logits over both halves, the A fragment loaded once).
+__device__ __forceinline__ void tc_logits64(float (&raw)[8][4], const bf16* e,
+                                            const bf16* w, int wr, int D) {
+  const int lane = threadIdx.x & 31;
+  const int ld = D + 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    raw[j][0] = raw[j][1] = raw[j][2] = raw[j][3] = 0.f;
+  const bf16* ap = e + (16 * wr + (lane & 15)) * ld + (lane >> 4) * 8;
+  const bf16* bp = w + ((lane & 7) + ((lane >> 4) << 3)) * ld +
+                   ((lane >> 3) & 1) * 8;
+#pragma unroll 2
+  for (int k = 0; k < D; k += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, ap + k);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      uint32_t b[4];
+      ldsm_x4(b, bp + 16 * p * ld + k);
+      mma_bf16(raw[2 * p], a, b[0], b[1]);
+      mma_bf16(raw[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// This thread's 16 columns of the 64-class tile at c0: class col0 +
+// 8·(q/2) + q % 2 for q < 16, whether it lies before K and whether it is
+// valid.
+struct TcCols {
+  int col0;
+  bool in[16], valid[16];
+};
+
+__device__ __forceinline__ TcCols tc_cols(int c0, int K,
+                                          const uint8_t* col_valid) {
+  TcCols c;
+  c.col0 = c0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int col = c.col0 + 8 * (q >> 1) + (q & 1);
+    c.in[q] = col < K;
+    c.valid[q] = c.in[q] && col_valid[col] != 0;
+  }
+  return c;
+}
+
+// Folds the warp's logits of one tile into this thread's running (m, d, t)
+// of its two rows: raw[q/2][2h + q%2] is row h's logit at column q of c.
+// apply_margin leaves every column but the label's at z·s, so only the
+// thread that holds a row's label column takes its one-hot branch.
+__device__ __forceinline__ void tc_stats_fold(const float (&raw)[8][4],
+                                              const TcCols& c,
+                                              const int (&label)[2],
+                                              const Margin& mg, float (&m)[2],
+                                              float (&d)[2], float (&t)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float y[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const float z = fminf(fmaxf(raw[q >> 1][2 * h + (q & 1)], -1.f), 1.f);
+      y[q] = !c.in[q]     ? -INFINITY  // past the last class: not a column
+             : c.valid[q] ? apply_margin(z, false, mg)
+                          : kMask;
+    }
+    const int lq = label[h] - c.col0;  // the label's offset 8·(q/2) + q%2
+    if (lq >= 0 && lq < 64) {
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        if (lq == 8 * (q >> 1) + (q & 1) && c.valid[q])
+          y[q] = apply_margin(
+              fminf(fmaxf(raw[q >> 1][2 * h + (q & 1)], -1.f), 1.f), true,
+              mg);
+    }
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) tmax = fmaxf(tmax, y[q]);
+    if (tmax == -INFINITY) continue;  // every column of this thread is past K
+    const float m_new = fmaxf(m[h], tmax);
+    // exp(m − m_new): 0 while m is −inf, and exactly 1 where m holds
+    const float alpha = m_new == m[h] ? 1.f : expf(m[h] - m_new);
+    float se = 0.f;
+    float st = 0.f;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const float e = c.in[q] ? expf(y[q] - m_new) : 0.f;
+      se += e;
+      st += lq == 8 * (q >> 1) + (q & 1) ? e : 0.f;
+    }
+    d[h] = d[h] * alpha + se;
+    t[h] = t[h] * alpha + st;
+    m[h] = m_new;
+  }
+}
+
+// grid (row tiles, splits): split s takes class tiles [s·T/S, (s+1)·T/S) of
+// the T tiles. Writes the split's (m, d, t) partials for rows < N.
+__global__ void __launch_bounds__(kStatsThreads, 1) margin_ce_stats_tc_kernel(
+    const bf16* __restrict__ emb, const bf16* __restrict__ w,
+    const int* __restrict__ labels, const uint8_t* __restrict__ col_valid,
+    int N, int K, int D, Margin mg, float* __restrict__ pm,
+    float* __restrict__ pd, float* __restrict__ pt) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int ld = D + 8;
+  bf16* es = reinterpret_cast<bf16*>(tc_smem);
+  bf16* ws = es + kTcTile * ld;  // two stages
+  // full[s] = bars[s], empty[s] = bars[2 + s], the emb tile's = bars[4]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ws + 2 * kTcTile * ld);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * kTcTile;
+  const int n_tiles = (K + kTcTile - 1) / kTcTile;
+  const int t_begin = static_cast<int>(
+      static_cast<long long>(blockIdx.y) * n_tiles / gridDim.y);
+  const int t_end = static_cast<int>(
+      static_cast<long long>(blockIdx.y + 1) * n_tiles / gridDim.y);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&bars[s], 1);
+      mbar_init(&bars[2 + s], 32 * kStatsGroupWarps);
+    }
+    mbar_init(&bars[4], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kStatsWarps) {
+    // the copy warp: the emb tile, then tile t into stage t % 2 once its
+    // group has released that stage's previous tile
+    if (t_begin < t_end)
+      stats_copy_rows(es, emb, r0, min(kTcTile, N - r0), D, &bars[4]);
+    for (int tile = t_begin; tile < t_end; ++tile) {
+      const int i = tile - t_begin;
+      mbar_wait(&bars[2 + (i & 1)], ((i >> 1) & 1) ^ 1);
+      stats_copy_rows(ws + (i & 1) * kTcTile * ld, w, tile * kTcTile,
+                      min(kTcTile, K - tile * kTcTile), D, &bars[i & 1]);
+    }
+    return;
+  }
+
+  const int grp = warp / kStatsGroupWarps;  // its stage and tiles' parity
+  const int wr = warp % kStatsGroupWarps;
+  int label[2];
+  float m[2], d[2], t[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 16 * wr + (lane >> 2) + 8 * h;
+    label[h] = row < N ? labels[row] : -1;
+    m[h] = -INFINITY;
+    d[h] = t[h] = 0.f;
+  }
+  if (t_begin < t_end) mbar_wait(&bars[4], 0);
+  // round k takes tile t_begin + 2k + grp, the k-th fill of stage grp
+  for (int tile = t_begin + grp, k = 0; tile < t_end; tile += 2, ++k) {
+    const TcCols c = tc_cols(tile * kTcTile, K, col_valid);
+    mbar_wait(&bars[grp], k & 1);
+    float raw[8][4];
+    tc_logits64(raw, es, ws + grp * kTcTile * ld, wr, D);
+    mbar_arrive(&bars[2 + grp]);  // this thread is done with the stage
+    tc_stats_fold(raw, c, label, mg, m, d, t);
+  }
+
+  // the quad's 4 lanes hold the same two rows: merge them (every lane
+  // shuffles, outside any per-lane condition)
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[h], o);
+      const float dn = __shfl_xor_sync(0xffffffffu, d[h], o);
+      const float tn = __shfl_xor_sync(0xffffffffu, t[h], o);
+      stats_merge(m[h], d[h], t[h], mo, dn, tn);
+    }
+  // then group 0 takes over group 1's statistics of the same rows through
+  // the (now idle) stage memory, (3, 64) floats; barrier 1 holds the
+  // compute warps only
+  float* xs = reinterpret_cast<float*>(ws);
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kStatsWarps) : "memory");
+  if (grp == 1 && (lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lr = 16 * wr + (lane >> 2) + 8 * h;
+      xs[lr] = m[h];
+      xs[kTcTile + lr] = d[h];
+      xs[2 * kTcTile + lr] = t[h];
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kStatsWarps) : "memory");
+  if (grp == 0 && (lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lr = 16 * wr + (lane >> 2) + 8 * h;
+      if (r0 + lr >= N) continue;
+      stats_merge(m[h], d[h], t[h], xs[lr], xs[kTcTile + lr],
+                  xs[2 * kTcTile + lr]);
+      const size_t o = static_cast<size_t>(blockIdx.y) * N + r0 + lr;
+      pm[o] = m[h];
+      pd[o] = d[h];
+      pt[o] = t[h];
+    }
+  }
+}
+
 Margin make_margin(int kind, float s, float cos_m, float sin_m, float theta,
                    float sinmm, float m) {
   return Margin{kind, s, cos_m, sin_m, theta, sinmm, m};
@@ -904,8 +1264,9 @@ cudaError_t stats(const void* emb, const void* w, const int* labels,
       D, mg, per, pm, pd, pt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  margin_ce_merge_kernel<<<(N + 127) / 128, 128, 0, stream>>>(pm, pd, pt, N,
-                                                            splits, m, d, t);
+  margin_ce_merge_kernel<<<(N + kMergeRows - 1) / kMergeRows,
+                           32 * kMergeRows, 0, stream>>>(pm, pd, pt, N, splits,
+                                                         m, d, t);
   return cudaGetLastError();
 }
 
@@ -969,6 +1330,41 @@ cudaError_t grad_emb_tc(const void* emb, const void* w, const int* labels,
   split_sum_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0,
                      stream>>>(partial, count, splits, out);
   return cudaGetLastError();
+}
+
+cudaError_t stats_tc(const void* emb, const void* w, const int* labels,
+                     const uint8_t* cv, int N, int K, int D, Margin mg,
+                     int splits, float* partial, float* m, float* d, float* t,
+                     cudaStream_t stream) {
+  const size_t smem = stats_tc_smem_bytes(D);
+  cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(margin_ce_stats_tc_kernel), smem);
+  if (err != cudaSuccess) return err;
+  float* pm = partial;
+  float* pd = pm + static_cast<size_t>(splits) * N;
+  float* pt = pd + static_cast<size_t>(splits) * N;
+  const dim3 grid((N + kTcTile - 1) / kTcTile, splits);
+  margin_ce_stats_tc_kernel<<<grid, kStatsThreads, smem, stream>>>(
+      static_cast<const bf16*>(emb), static_cast<const bf16*>(w), labels, cv,
+      N, K, D, mg, pm, pd, pt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  margin_ce_merge_kernel<<<(N + kMergeRows - 1) / kMergeRows,
+                           32 * kMergeRows, 0, stream>>>(pm, pd, pt, N, splits,
+                                                         m, d, t);
+  return cudaGetLastError();
+}
+
+// CTAs of `kernel` (`threads` a CTA, `smem` bytes of dynamic shared
+// memory) that one SM holds at once (the occupancy API), or the negated
+// CUDA error.
+int tc_occupancy(const void* kernel, int threads, size_t smem) {
+  cudaError_t err = allow_smem(kernel, smem);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                        threads, smem);
+  return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }
 
 cudaError_t grad_w_tc(const void* emb, const void* w, const int* labels,
@@ -1118,13 +1514,38 @@ extern "C" int margin_ce_grad_w_tc(const void* emb, const void* w,
 extern "C" int margin_ce_grad_emb_tc_occupancy(int D) {
   if (D <= 0 || D % 16 != 0 || D > kTcMaxD)
     return -static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel =
-      reinterpret_cast<const void*>(margin_ce_grad_emb_tc_kernel);
-  const size_t smem = tc_smem_bytes(D);
-  cudaError_t err = allow_smem(kernel, smem);
-  int ctas = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
-                                                        kTcThreads, smem);
-  return err == cudaSuccess ? ctas : -static_cast<int>(err);
+  return tc_occupancy(
+      reinterpret_cast<const void*>(margin_ce_grad_emb_tc_kernel),
+      kTcThreads, tc_smem_bytes(D));
+}
+
+// The tensor-core twin of margin_ce_stats: the same arguments, bf16 only
+// (dtype 1), D a multiple of 16 and at most 512; emb and w 16-byte aligned.
+// partial: 3·splits·N floats, split s taking class tiles [s·T/S, (s+1)·T/S)
+// of the T = ⌈K/64⌉.
+extern "C" int margin_ce_stats_tc(const void* emb, const void* w,
+                                  const void* labels, const void* col_valid,
+                                  int N, int K, int D, int dtype, int kind,
+                                  float s, float cos_m, float sin_m,
+                                  float theta, float sinmm, float m,
+                                  int splits, void* partial, void* out_m,
+                                  void* out_d, void* out_t, void* stream) {
+  if (!tc_shape_ok(N, K, D, dtype, kind) || splits <= 0 || splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return stats_tc(emb, w, static_cast<const int*>(labels),
+                  static_cast<const uint8_t*>(col_valid), N, K, D,
+                  make_margin(kind, s, cos_m, sin_m, theta, sinmm, m), splits,
+                  static_cast<float*>(partial), static_cast<float*>(out_m),
+                  static_cast<float*>(out_d), static_cast<float*>(out_t),
+                  static_cast<cudaStream_t>(stream));
+}
+
+// CTAs of margin_ce_stats_tc_kernel that one SM holds at once at this D, or
+// the negated CUDA error.
+extern "C" int margin_ce_stats_tc_occupancy(int D) {
+  if (D <= 0 || D % 16 != 0 || D > kTcMaxD)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return tc_occupancy(
+      reinterpret_cast<const void*>(margin_ce_stats_tc_kernel),
+      kStatsThreads, stats_tc_smem_bytes(D));
 }

@@ -160,6 +160,9 @@ def load_library() -> ctypes.CDLL:
         "margin_ce_grad_w_tc": [*[vp] * 7, i32, i32, i32, i32, *margin, vp,
                                 vp],
         "margin_ce_grad_emb_tc_occupancy": [i32],
+        "margin_ce_stats_tc": [vp, vp, vp, vp, i32, i32, i32, i32, *margin,
+                               i32, vp, vp, vp, vp, vp],
+        "margin_ce_stats_tc_occupancy": [i32],
         "grouped_gather": [vp, vp, vp, i64, i64, i64, vp],
         "grouped_update_sgd": [vp, vp, vp, vp, i64, i64, i64, f64, f64, f64,
                                vp],

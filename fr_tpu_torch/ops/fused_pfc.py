@@ -19,12 +19,12 @@ every product accumulates in f32; the gradients come back in the operands'
 dtype, as fr_tpu's do.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels or
-raises. Each wrapper counts its launches in ``.launches``. The backward pair
-has two bodies: bf16 with D a multiple of 16, at most 512, takes the
-tensor-core kernels (``margin_ce_grad_{emb,w}_tc``) while ``TENSOR_CORES``
-is on; f32, any other D and the switch off take the CUDA-core ones.
-``route_launches`` counts the backward's launches by body. One shard only
-(fr_tpu's model_axis=None); the class-sharded merge is ROADMAP §1,
+raises. Each wrapper counts its launches in ``.launches``. All three kernels
+have two bodies: bf16 with D a multiple of 16, at most 512, takes the
+tensor-core kernels (``margin_ce_stats_tc``, ``margin_ce_grad_{emb,w}_tc``)
+while ``TENSOR_CORES`` is on; f32, any other D and the switch off take the
+CUDA-core ones. ``route_launches`` counts every launch by body. One shard
+only (fr_tpu's model_axis=None); the class-sharded merge is ROADMAP §1,
 multi-GPU.
 """
 
@@ -42,24 +42,25 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MARGIN_CODE = {"ArcFace": 0, "CosFace": 1}
 _TARGET_BLOCKS = 264   # two blocks per SM of an H100: the split heuristic
 _STATS_ROWS, _EMB_ROWS, _CLASS_TILE = 32, 16, 64   # the kernels' tiles
-# The tensor-core pair's tiles: 64 emb rows or W classes, a (64, D) f32
-# accumulator per CTA, so D at most 512.
+# The tensor-core kernels' tiles: 64 emb rows or W classes, a (64, D) f32
+# accumulator per backward CTA, so D at most 512.
 _TC_TILE, _TC_MAX_D = 64, 512
 
-# launches of the backward pair by body
-route_launches = {"grad_emb_tensor_cores": 0, "grad_emb_cuda_cores": 0,
+# launches of the three kernels by body
+route_launches = {"stats_tensor_cores": 0, "stats_cuda_cores": 0,
+                  "grad_emb_tensor_cores": 0, "grad_emb_cuda_cores": 0,
                   "grad_w_tensor_cores": 0, "grad_w_cuda_cores": 0}
 
-# The bf16 body switch of the backward pair, read at every call: True (the
+# The bf16 body switch of the three kernels, read at every call: True (the
 # default) puts bf16 calls with D % 16 == 0, D ≤ 512 on the tensor cores;
 # False puts every call on the CUDA-core kernels.
 TENSOR_CORES = True
 
 
 def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
-    """Whether a backward call in compute dtype ``dtype`` takes the
-    tensor-core kernels: bf16, D a multiple of 16 and at most 512, while
-    TENSOR_CORES is on."""
+    """Whether a call in compute dtype ``dtype`` takes the tensor-core
+    kernels: bf16, D a multiple of 16 and at most 512, while TENSOR_CORES
+    is on."""
     return (TENSOR_CORES and dtype == torch.bfloat16 and 0 < D <= _TC_MAX_D
             and D % 16 == 0)
 
@@ -71,10 +72,17 @@ def tc_smem_bytes(D: int) -> int:
     return 2 * (3 * _TC_TILE * (D + 8) + _TC_TILE * (_TC_TILE + 8))
 
 
+def stats_tc_smem_bytes(D: int) -> int:
+    """Shared memory of a tensor-core stats CTA (csrc/margin_ce.cu,
+    stats_tc_smem_bytes): three (64, D + 8) bf16 tiles, the resident one
+    and two stages, and five 8-byte mbarriers."""
+    return 2 * 3 * _TC_TILE * (D + 8) + 5 * 8
+
+
 def tc_splits(N: int, K: int, slots: int) -> int:
-    """Class splits of the tensor-core grad_emb: one wave of the ``slots``
-    CTAs the card holds (the occupancy API's count per SM times the SMs)
-    over the row tiles, no split without a class tile."""
+    """Class splits of the tensor-core stats and grad_emb: one wave of the
+    ``slots`` CTAs the card holds (the occupancy API's count per SM times
+    the SMs) over the row tiles, no split without a class tile."""
     row_tiles, class_tiles = -(-N // _TC_TILE), -(-K // _TC_TILE)
     return max(1, min(class_tiles, slots // row_tiles, 65535))
 
@@ -300,9 +308,12 @@ def _operands(emb, w, label_cols, col_valid, cfg):
             raise ValueError(f"{name} must be {shape} on {dev}, got "
                              f"{tuple(t.shape)} on {t.device}")
     compute = cfg.compute_dtype
+    # a bool mask is one byte of 0 or 1 an element: the kernels read it as is
+    cv = (col_valid.contiguous().view(torch.uint8)
+          if col_valid.dtype == torch.bool else
+          col_valid.to(torch.uint8).contiguous())
     return (emb.to(compute).contiguous(), w.to(compute).contiguous(),
-            label_cols.to(torch.int32).contiguous(),
-            col_valid.to(torch.uint8).contiguous(), N, K, D,
+            label_cols.to(torch.int32).contiguous(), cv, N, K, D,
             _DTYPE_CODE[compute])
 
 
@@ -313,22 +324,40 @@ def _margin_args(cfg):
             mc.get("m", 0.0))
 
 
+def _aligned16(*tensors):
+    """The tensors, each copied if its view starts off a 16-byte boundary:
+    the tensor-core kernels copy their rows in 16-byte units (cp.async,
+    cp.async.bulk)."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors]
+
+
 def _launch_stats(emb, w, label_cols, col_valid, cfg):
+    """One launch of the stats kernel on the body that tensor_core_route
+    picks, counted on route_launches. The tensor-core body's splits are one
+    wave of the CTAs its occupancy entry admits."""
     from fr_tpu_torch.ops._build import check_launch, load_library
 
     emb, w, labels, cv, N, K, D, code = _operands(emb, w, label_cols,
                                                   col_valid, cfg)
     dev = emb.device
-    splits = _splits(-(-N // _STATS_ROWS), -(-K // _CLASS_TILE))
+    tc = tensor_core_route(cfg.compute_dtype, D)
+    if tc:
+        emb, w = _aligned16(emb, w)
+        splits = tc_splits(N, K, _tc_slots("margin_ce_stats_tc_occupancy",
+                                           dev.index or 0, D))
+    else:
+        splits = _splits(-(-N // _STATS_ROWS), -(-K // _CLASS_TILE))
     partial = torch.empty((3, splits, N), dtype=torch.float32, device=dev)
     m, d, t = torch.empty((3, N), dtype=torch.float32, device=dev)
     lib = load_library()
+    entry = "margin_ce_stats" + ("_tc" if tc else "")
     with torch.cuda.device(dev):
-        err = lib.margin_ce_stats(
+        err = getattr(lib, entry)(
             emb.data_ptr(), w.data_ptr(), labels.data_ptr(), cv.data_ptr(),
             N, K, D, code, *_margin_args(cfg), splits, partial.data_ptr(),
             m.data_ptr(), d.data_ptr(), t.data_ptr(), _stream(dev))
-    check_launch(lib, err, "margin_ce_stats")
+    check_launch(lib, err, entry)
+    route_launches["stats_tensor_cores" if tc else "stats_cuda_cores"] += 1
     return m, d, t
 
 
@@ -346,10 +375,7 @@ def _launch_grad(emb, w, label_cols, col_valid, m_g, d_g, g, cfg, name):
         raise ValueError(f"m, d and g must be ({N},)")
     tc = tensor_core_route(cfg.compute_dtype, D)
     if tc:
-        # 16-byte cp.async: a view that starts off a 16-byte boundary is
-        # copied
-        emb, w = (t if t.data_ptr() % 16 == 0 else t.clone()
-                  for t in (emb, w))
+        emb, w = _aligned16(emb, w)
     lib = load_library()
     entry = name + ("_tc" if tc else "")
     with torch.cuda.device(dev):

@@ -1,17 +1,19 @@
-"""The margin-CE backward pair's two bodies (rows 10 and 11 of ROADMAP §2):
-which calls take the tensor-core kernels (margin_ce_grad_emb_tc,
-margin_ce_grad_w_tc in csrc/margin_ce.cu) and which the CUDA-core ones,
-the tensor-core CTA's shared memory, the launch each body makes (with the
-library replaced, so no card is needed) with the split count and partial
-buffer its plan gives at the ms1m_arcface_122 and webface42m heads, and the
-port's plain backward against fr_tpu's ``_bwd_jnp`` (what fr_tpu's own
-``_bwd_rule`` runs off the TPU) at the shapes the tensor-core route makes
+"""The margin-CE kernels' two bodies (rows 9, 10 and 11 of ROADMAP §2):
+which calls take the tensor-core kernels (margin_ce_stats_tc,
+margin_ce_grad_emb_tc, margin_ce_grad_w_tc in csrc/margin_ce.cu) and which
+the CUDA-core ones, the tensor-core CTAs' shared memory, the launch each
+body makes (with the library replaced, so no card is needed) with the split
+count and partial buffer its plan gives at the ms1m_arcface_122 and
+webface42m heads, and the port's plain statistics and backward against
+fr_tpu's ``_stats_jnp`` and ``_bwd_jnp`` (what fr_tpu's own ``_stats`` and
+``_bwd_rule`` run off the TPU) at the shapes the tensor-core route makes
 new: three 64-row tiles, ragged classes, D = 48, labels −1, masked columns,
 a zero cotangent row and logits beyond [−1, 1]. The kernels themselves are
 checked on the card by test_torch_pfc_cuda.py.
 
 Tolerances are those of tests/test_torch_pfc.py (bf16 operands; the f32
-products of both sides agree to rtol 2e-4 / atol 1e-6). About 10 s."""
+products of both sides agree to rtol 2e-4 / atol 1e-6, the statistics to
+rtol 1e-5). About 12 s on one torch thread."""
 
 import contextlib
 import dataclasses
@@ -148,7 +150,9 @@ def test_backward_call_takes_its_body_without_a_launch(fake_card, case):
     body = "tensor_cores" if tc else "cuda_cores"
     other = "cuda_cores" if tc else "tensor_cores"
     assert F.route_launches == {f"grad_emb_{body}": 1, f"grad_w_{body}": 1,
-                                f"grad_emb_{other}": 0, f"grad_w_{other}": 0}
+                                f"grad_emb_{other}": 0, f"grad_w_{other}": 0,
+                                "stats_tensor_cores": 0,
+                                "stats_cuda_cores": 0}
     # (emb, w, labels, col_valid, m, d, g, N, K, D, dtype, kind, s, ...)
     code = F._DTYPE_CODE[dtype]
     assert emb_args[7:11] == w_args[7:11] == (N, K, D, code)
@@ -177,12 +181,15 @@ def test_tensor_core_switch_moves_the_backward(fake_card, monkeypatch):
     assert F.route_launches == {"grad_emb_tensor_cores": 1,
                                 "grad_emb_cuda_cores": 1,
                                 "grad_w_tensor_cores": 1,
-                                "grad_w_cuda_cores": 1}
+                                "grad_w_cuda_cores": 1,
+                                "stats_tensor_cores": 0,
+                                "stats_cuda_cores": 0}
 
 
 def test_fused_function_backward_reaches_the_tensor_cores(fake_card):
-    """Under autograd the fused CE's bf16 backward calls the tensor-core
-    pair after the stats kernel, and each wrapper counts its launch."""
+    """Under autograd the fused CE's bf16 forward calls the tensor-core
+    stats kernel and its backward the tensor-core pair, and each wrapper
+    counts its launch."""
     counts = [f.launches for f in (F.margin_ce_stats, F.margin_ce_grad_emb,
                                    F.margin_ce_grad_w)]
     N, D, K = 130, 48, 131
@@ -193,7 +200,7 @@ def test_fused_function_backward_reaches_the_tensor_cores(fake_card):
                                      _cfg(torch.bfloat16, D=D))
     loss.sum().backward()
     assert [name for name, _ in fake_card.calls] == [
-        "margin_ce_stats", "margin_ce_grad_emb_tc", "margin_ce_grad_w_tc"]
+        "margin_ce_stats_tc", "margin_ce_grad_emb_tc", "margin_ce_grad_w_tc"]
     assert [f.launches for f in (F.margin_ce_stats, F.margin_ce_grad_emb,
                                  F.margin_ce_grad_w)] == [
         c + 1 for c in counts]
@@ -246,3 +253,100 @@ def test_plain_backward_matches_bwd_jnp_at_the_new_edges(margin):
         torch.testing.assert_close(b, a, rtol=0, atol=0)
     # the row whose cotangent the clamp zeroed has no gradient
     assert not bool(ours[0][5].any())
+
+
+def test_stats_smem_fits_the_card_at_every_admitted_width():
+    """The tensor-core stats CTA holds three (64, D + 8) bf16 tiles, the
+    resident emb tile and two W stages, and five mbarriers: 199,720 bytes
+    at D = 512, within 227 KB at every width the route admits."""
+    assert F.stats_tc_smem_bytes(512) == 2 * 3 * 64 * 520 + 40 == 199720
+    assert all(F.stats_tc_smem_bytes(D) <= LIMIT for D in range(16, 513, 16))
+
+
+def _stats_call(N, D, K, dtype):
+    """The stats wrapper on the stand-in card (operands left unwritten)."""
+    emb, w = torch.empty(N, D, dtype=dtype), torch.empty(K, D, dtype=dtype)
+    out = F.margin_ce_stats(emb, w, torch.zeros(N, dtype=torch.int32),
+                            torch.ones(K, dtype=torch.bool),
+                            _cfg(dtype, D=D))
+    assert [tuple(x.shape) for x in out] == [(N,)] * 3
+
+
+# (N, D, K, dtype, tensor cores, splits)
+STATS_CALLS = [(*MS1M, torch.bfloat16, True, 66),
+               (*WEBFACE, torch.bfloat16, True, 66),
+               (130, 512, 131, torch.bfloat16, True, 3),
+               (10, 48, 65, torch.bfloat16, True, 2),
+               (128, 512, 64, torch.bfloat16, True, 1),
+               (*MS1M, torch.float32, False, 66),
+               (10, 40, 131, torch.bfloat16, False, 3)]
+
+
+@pytest.mark.parametrize("case", STATS_CALLS, ids=lambda c: (
+    f"{c[0]}x{c[1]}x{c[2]}-{str(c[3]).split('.')[-1]}"))
+def test_stats_call_takes_its_body_without_a_launch(fake_card, case):
+    """The stats on a (stand-in) CUDA tensor reach the entry of their body
+    with the call's (N, K, D), count once on route_launches by body, and
+    get their split count and a (3, splits, N) f32 partial: on the tensor
+    cores one wave of margin_ce_stats_tc_occupancy's CTAs over the 64-row
+    tiles (66 at both heads), no split without a 64-class tile; on the
+    CUDA cores the 264-block heuristic over 32-row tiles."""
+    N, D, K, dtype, tc, splits = case
+    _stats_call(N, D, K, dtype)
+    ((entry, args),) = fake_card.calls
+    assert entry == "margin_ce_stats" + ("_tc" if tc else "")
+    body = "tensor_cores" if tc else "cuda_cores"
+    assert F.route_launches == dict.fromkeys(F.route_launches, 0) | {
+        f"stats_{body}": 1}
+    # (emb, w, labels, col_valid, N, K, D, dtype, kind, s, ..., splits, ...)
+    assert args[4:8] == (N, K, D, F._DTYPE_CODE[dtype])
+    assert args[15] == splits
+    assert ((3, splits, N), torch.float32) in fake_card.made
+    if tc:
+        assert splits == F.tc_splits(N, K, SLOTS)
+        assert fake_card.slots == [("margin_ce_stats_tc_occupancy", D)]
+    else:
+        assert splits == F._splits(-(-N // 32), -(-K // 64))
+        assert fake_card.slots == []
+
+
+def test_tensor_core_switch_moves_the_stats(fake_card, monkeypatch):
+    """fused_pfc.TENSOR_CORES off puts the bf16 stats on the CUDA-core
+    kernel at the webface42m head; switched on again, the next call takes
+    the tensor cores: route_launches counts the stats by body."""
+    monkeypatch.setattr(F, "TENSOR_CORES", False)
+    _stats_call(*WEBFACE, torch.bfloat16)
+    monkeypatch.setattr(F, "TENSOR_CORES", True)
+    _stats_call(*WEBFACE, torch.bfloat16)
+    assert [name for name, _ in fake_card.calls] == [
+        "margin_ce_stats", "margin_ce_stats_tc"]
+    assert F.route_launches == dict.fromkeys(F.route_launches, 0) | {
+        "stats_tensor_cores": 1, "stats_cuda_cores": 1}
+
+
+@pytest.mark.parametrize("margin", ["ArcFace", "CosFace"])
+@pytest.mark.parametrize("K", [65, 131])
+def test_plain_stats_match_stats_jnp_at_the_new_edges(margin, K):
+    """bf16, N = 130 (three 64-row tiles), K = 65 and 131 (ragged last
+    class tiles of 1 and 3 classes), D = 48, labels −1, the last 3 columns
+    masked, logits beyond [−1, 1]: the port's plain statistics and the CPU
+    wrapper (what the card's kernels are held to) against fr_tpu's
+    _stats_jnp."""
+    N, D = 130, 48
+    emb, w, labels, col_valid, _ = _edge_problem(N, K, D, seed=K)
+    cfg = _cfg(torch.bfloat16, margin, D)
+    jcfg = jax_pfc.PFCConfig(model_size=1, **dataclasses.asdict(cfg))
+    ref = jax_fused._stats_jnp(jnp.asarray(emb, jnp.bfloat16),
+                               jnp.asarray(w, jnp.bfloat16),
+                               jnp.asarray(labels), jnp.asarray(col_valid),
+                               jcfg)
+    te, tw = torch.from_numpy(emb).bfloat16(), torch.from_numpy(w).bfloat16()
+    args = (te, tw, torch.from_numpy(labels), torch.from_numpy(col_valid))
+    assert bool(((te.float() @ tw.float().t()).abs() > 1).any()), \
+        "no logit beyond [-1, 1]"
+    ours = F.margin_ce_stats_reference(*args, cfg)
+    for a, b, c in zip(ours, F.margin_ce_stats(*args, cfg), ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=1e-5)
+        torch.testing.assert_close(b, a, rtol=0, atol=0)
+    # rows without a target have t = 0
+    assert not bool(ours[2][torch.from_numpy(labels) < 0].any())

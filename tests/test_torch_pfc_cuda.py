@@ -28,6 +28,7 @@ from fr_tpu_torch.ops.sparse_rows import expand_group_index
 FULL = (128, 512, 26007)
 # webface42m at sample_block 64: 3,218 groups of 64 drawn per step
 WEBFACE = (128, 512, 205952)
+CE_STATS_RTOL = 1e-4   # m, d and t elementwise, as chip_smoke.py holds them
 
 
 @pytest.fixture
@@ -224,3 +225,85 @@ def test_cuda_core_pair_takes_f32_and_other_widths_on_card(cuda_device, dt,
     for a, b in zip((ge, gw), fused_pfc.margin_ce_backward_reference(
             *args, m, dd, g, cfg)):
         assert _rel(a, b) <= tol
+
+
+def _stats(emb, w, labels, col_valid, cfg):
+    """(m, d, t) and the bodies the stats launch took."""
+    before = dict(fused_pfc.route_launches)
+    out = fused_pfc.margin_ce_stats(emb, w, labels, col_valid, cfg)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in fused_pfc.route_launches.items()
+             if v != before[k]}
+    return out, moved
+
+
+def _loss(stats):
+    m, d, t = stats
+    return -torch.log(torch.clamp_min(t / d, 1e-30))
+
+
+def _stats_close(a, b, rtol):
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=rtol, atol=0)
+    # loss = log d − log t: to first order within the two relative errors
+    assert (_loss(a) - _loss(b)).abs().max().item() <= 2 * rtol
+
+
+# (N, D, K, scale): both heads; three 64-row tiles at a ragged K; D = 48
+# with logits beyond [−1, 1] (rows ×1.5) and a last class tile of one
+# class; one class tile
+STATS_SHAPES = [(*FULL, 1.0), (*WEBFACE, 1.0), (130, 512, 131, 1.0),
+                (10, 48, 65, 1.5), (128, 512, 64, 1.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("margin", ["ArcFace", "CosFace"])
+@pytest.mark.parametrize("shape", STATS_SHAPES,
+                         ids=lambda c: "x".join(map(str, c[:3])))
+def test_tensor_core_stats_match_plain_version_on_card(cuda_device, shape,
+                                                       margin, monkeypatch):
+    """bf16: margin_ce_stats_tc's m, d and t against the plain version at
+    CE_STATS_RTOL elementwise, and the loss, the call on the tensor cores;
+    two calls give the same bits; the CUDA-core kernel (TENSOR_CORES off)
+    on the same inputs passes the same check and sits within twice it of
+    the tensor-core body. Labels −1 and masked columns (at the webface42m
+    head: the step's own labels and column mask)."""
+    n, d, k, scale = shape
+    dt = torch.bfloat16
+    emb, w, labels, col_valid, _ = _problem(n, d, k, torch.float32,
+                                            cuda_device, seed=12)
+    emb, w = (scale * emb).to(dt), (scale * w).to(dt)
+    if (n, d, k) == WEBFACE:
+        gen = torch.Generator(device=cuda_device).manual_seed(13)
+        labels, col_valid = _webface_columns(cuda_device, gen)
+    cfg = _cfg(margin, dt)
+    args = (emb, w, labels, col_valid)
+    ref = fused_pfc.margin_ce_stats_reference(*args, cfg)
+    tc, moved = _stats(*args, cfg)
+    assert moved == {"stats_tensor_cores": 1}
+    assert all(bool(torch.isfinite(x).all()) for x in tc)
+    _stats_close(tc, ref, CE_STATS_RTOL)
+    again, _ = _stats(*args, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(tc, again))
+    monkeypatch.setattr(fused_pfc, "TENSOR_CORES", False)
+    cc, moved = _stats(*args, cfg)
+    assert moved == {"stats_cuda_cores": 1}
+    _stats_close(cc, ref, CE_STATS_RTOL)
+    _stats_close(tc, cc, 2 * CE_STATS_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,d", [(torch.float32, 512),
+                                  (torch.bfloat16, 40)], ids=["f32", "d40"])
+def test_cuda_core_stats_take_f32_and_other_widths_on_card(cuda_device, dt,
+                                                           d):
+    """f32 (its contract is f32 products, no TF32) and bf16 at D = 40 take
+    margin_ce_stats_kernel with the switch on, and pass against the plain
+    version at CE_STATS_RTOL."""
+    emb, w, labels, col_valid, _ = _problem(130, d, 300, dt, cuda_device,
+                                            seed=14)
+    cfg = _cfg("ArcFace", dt)
+    stats, moved = _stats(emb, w, labels, col_valid, cfg)
+    assert moved == {"stats_cuda_cores": 1}
+    _stats_close(stats, fused_pfc.margin_ce_stats_reference(
+        emb, w, labels, col_valid, cfg), CE_STATS_RTOL)
