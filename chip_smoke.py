@@ -104,6 +104,28 @@ Phases; any failure exits non-zero and prints no result:
     4, sample_rate 0.5) for 7 epochs in one run, then the same command with
     --resume from that run's epoch-5 save: the final encoder and head are
     bitwise equal;
+    [host_libs] which of cv2, pandas, libblosc, libjpeg and g++ the machine
+    has, and whether the native host library built, with JPEG or not;
+    [data_folder] (cv2) 1,024 JPEGs (128 classes x 8, 192 px) and a
+    validation pair root of 256 pairs at 112 px (a bcolz rootdir with
+    libblosc, else .npy), then the training CLI with --data_dir
+    (AlterNet50 at full width, bf16, b=128, 6 epochs); [data_packed] the
+    same corpus as images.npy / labels.npy / classes.json, then
+    --packed_dir and --packed_dir --device_corpus: in each run 48 steps,
+    12 + 12 tensor-core launches per step and 12 per validation call,
+    every step's images on the card (through the prefetch, or gathered
+    there with no prefetch for the device corpus), a finite loss whose
+    last epoch is below the first, the ROC report at epoch 5, the
+    snapshot, imgs/s by epoch; [eval_data] the pair test (--test_b 64)
+    over that root from the epoch-5 .npz and from a .pth that
+    export_encoder_pth wrote of the same weights (bit-equal embeddings,
+    identical reports), the cross test over a csv set of 1,024 JPEGs
+    (cv2 and pandas) and the synthetic cross test (12 launches per
+    encoder call), and on the card pair_score_device (scores within 1e-5
+    of the host's f64, equal totals) and cross_score_device (equal
+    totals; cumulative histograms within the count of host scores near a
+    bin edge). A phase whose library is absent prints "not run: <library>
+    absent";
     [kernel_variants] rows 15-18 against their plain versions: the packed
     entry's grouped route (head_group 4) at Swin50's N=49 shapes, its
     forward and backward once more under autograd with the counts set to
@@ -2363,6 +2385,427 @@ def phase_resume():
 
 
 # ---------------------------------------------------------------------------
+# The data and evaluation layer. Every file is written here: an
+# image folder, a packed corpus, a bcolz (or .npy) pair root, a csv cross
+# set and a .pth snapshot; the config's dataset roots point at them through
+# its DATA_DIR for each run.
+# ---------------------------------------------------------------------------
+
+DATA_CLASSES, DATA_PER_CLASS, DATA_PX = 128, 8, 192   # 1,024 images
+VAL_PAIRS, VAL_PX = 256, 112         # the LFW layout: 112 px, NCHW, float
+CROSS_CLASSES, CROSS_PER_CLASS = 256, 4                 # 1,024 JPEGs
+DATA_NETWORK = "AlterNet50"
+DATA_TRAIN_ARGS = ["--config", "ms1m_arcface_122", "--mode", "train",
+                   "--network", DATA_NETWORK, "--num_epoch", "6",
+                   "--device", "cuda"]
+DATA_TEST_ARGS = ["--config", "ms1m_arcface_122", "--mode", "test",
+                  "--network", DATA_NETWORK, "--test_b", "64",
+                  "--device", "cuda"]
+DATA_STEPS = 6 * (DATA_CLASSES * DATA_PER_CLASS // 128)
+
+
+def _importable(name):
+    import importlib
+    try:
+        importlib.import_module(name)
+        return True
+    except Exception:   # a module that is there but does not load is absent
+        return False
+
+
+def phase_host_libs():
+    """[host_libs] which host libraries the data paths can use here;
+    returns {name: present}."""
+    import ctypes.util
+    import shutil
+    from fr_tpu_torch import native
+    from fr_tpu_torch.data.bcolz_reader import blosc_available
+
+    libs = {"cv2": _importable("cv2"), "pandas": _importable("pandas"),
+            "libblosc": blosc_available(),
+            "libjpeg": ctypes.util.find_library("jpeg") is not None,
+            "g++": shutil.which("g++") is not None}
+    built = native.available()
+    how = ("with JPEG" if native.jpeg_available() else "without JPEG") \
+        if built else ""
+    print("[host_libs] " + ", ".join(
+        f"{k} {'present' if v else 'absent'}" for k, v in libs.items())
+        + f"; the native library {'built ' + how if built else 'did not build'}")
+    return libs
+
+
+@contextlib.contextmanager
+def _data_dir(root):
+    """The ms1m_arcface_122 config's dataset roots under ``root`` while the
+    block runs."""
+    from fr_tpu_torch.configs import ms1m_arcface_122 as cfg
+    saved = cfg.DATA_DIR
+    cfg.DATA_DIR = str(root)
+    try:
+        yield Path(root) / "validation"
+    finally:
+        cfg.DATA_DIR = saved
+
+
+def _write_bcolz(root, arr, chunklen):
+    """A bcolz 1.x rootdir (meta/sizes, meta/storage with the repr-quoted
+    dtype, __attrs__, data/__<i>.blp blosc chunks) through the port's
+    compress_chunk."""
+    from fr_tpu_torch.data.bcolz_reader import compress_chunk
+    (root / "meta").mkdir(parents=True)
+    (root / "data").mkdir()
+    (root / "meta" / "sizes").write_text(json.dumps(
+        {"shape": list(arr.shape), "nbytes": int(arr.nbytes),
+         "cbytes": 0}))
+    (root / "meta" / "storage").write_text(json.dumps(
+        {"dtype": repr(arr.dtype)[6:-1],
+         "cparams": {"clevel": 5, "shuffle": 1, "cname": "lz4",
+                     "quantize": 0},
+         "chunklen": chunklen, "dflt": 0.0, "expectedlen": len(arr)}))
+    (root / "__attrs__").write_text("{}")
+    for i, s in enumerate(range(0, len(arr), chunklen)):
+        (root / "data" / f"__{i}.blp").write_bytes(compress_chunk(
+            arr[s:s + chunklen].tobytes(), arr.dtype.itemsize, cname="lz4"))
+
+
+def _write_val_root(root, libs):
+    """<root>/validation/lfw unless it is there: 256 synthetic pairs at 112
+    px as (512, 3, 112, 112) float32, a bcolz rootdir where libblosc is
+    present, else lfw.npy; lfw_list.npy beside it."""
+    import numpy as np
+    from fr_tpu_torch.data import synthetic_pairs
+
+    val = Path(root) / "validation"
+    if (val / "lfw_list.npy").exists():
+        return
+    val.mkdir(parents=True)
+    pairs, same = synthetic_pairs(VAL_PAIRS, DATA_CLASSES, VAL_PX)
+    arr = np.ascontiguousarray(np.transpose(pairs, (0, 1, 4, 2, 3)).reshape(
+        2 * VAL_PAIRS, 3, VAL_PX, VAL_PX))
+    if libs["libblosc"]:
+        _write_bcolz(val / "lfw", arr, chunklen=32)
+        layout = "bcolz rootdir (lz4, chunks of 32 images)"
+    else:
+        np.save(val / "lfw.npy", arr)
+        layout = ".npy (libblosc absent)"
+    np.save(val / "lfw_list.npy", same)
+    print(f"[data] validation pair root: {VAL_PAIRS} pairs at {VAL_PX} px "
+          f"as a {layout}")
+
+
+class _StepWatch:
+    """While open: where each training step's images came from (on the
+    card, or not) and how many epochs went through the task's prefetch."""
+
+    def __init__(self):
+        from fr_tpu_torch.train.task import FaceRecognitionTask as T
+        self.cls, self.on_card, self.prefetches = T, [], 0
+        self.step, self.prefetch = T.training_step, T.prefetch_device_batches
+        watch = self
+
+        def training_step(task, batch):
+            images = batch[0]
+            watch.on_card.append(hasattr(images, "is_cuda")
+                                 and images.is_cuda)
+            return watch.step(task, batch)
+
+        def prefetch(task, host_iter, depth=2):
+            watch.prefetches += 1
+            return watch.prefetch(task, host_iter, depth)
+
+        T.training_step, T.prefetch_device_batches = training_step, prefetch
+
+    def close(self):
+        self.cls.training_step = self.step
+        self.cls.prefetch_device_batches = self.prefetch
+
+
+def _data_train(tag, root, extra, device_resident=False):
+    """One training CLI run of AlterNet50 at full width from the files
+    under ``root``: the steps, 12 + 12 tensor-core launches per step (12 per
+    validation call), each step's images on the card, the prefetch taken
+    (or skipped for a device-resident corpus), a finite loss whose last
+    epoch is below the first, the ROC report at epoch 5 and the epoch-5
+    snapshot. Returns (the snapshot, the epochs' imgs/s, seconds)."""
+    import re
+    import numpy as np
+    from fr_tpu_torch.cli.main import main as cli_main
+    from fr_tpu_torch.ops.fused_window_attn import (
+        fused_window_attention_packed as fwd, window_attention_backward as bwd)
+
+    save = Path(root) / f"save_{tag.strip('[]')}"
+    calls, watch = _EncoderCalls(), _StepWatch()
+    captured = io.StringIO()
+    try:
+        with _data_dir(root), \
+                contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+            t0 = time.perf_counter()
+            fwd.launches = bwd.launches = 0
+            _reset_routes()
+            task = cli_main(DATA_TRAIN_ARGS + extra
+                            + ["--save_root", str(save)])
+            launches = fwd.launches, bwd.launches
+            wall = time.perf_counter() - t0
+    finally:
+        calls.close()
+        watch.close()
+    steps, evals = calls.counts["train"], calls.counts["eval"]
+    report = captured.getvalue()
+    rates = [float(x) for x in re.findall(r"Throughput: ([\d.]+) imgs/sec",
+                                          report)]
+    losses = [h["train_loss"] for h in task.history]
+    snapshots = sorted(p.name for p in save.glob("*/*.npz"))
+    print(f"{tag} {steps} steps, {evals} validation encoder calls, "
+          f"launches {launches[0]} forward, {launches[1]} backward; images "
+          f"on the card in {sum(watch.on_card)}/{len(watch.on_card)} steps, "
+          f"{watch.prefetches} epochs through the prefetch; losses "
+          f"{[round(x, 4) for x in losses]}; imgs/s by epoch (host clock) "
+          f"{rates}; {wall:.1f} s")
+    check(steps == DATA_STEPS and task.conf.n_classes == DATA_CLASSES,
+          f"{tag} {steps} steps over {task.conf.n_classes} classes")
+    _check_routes(tag, *launches)
+    check(launches[1] == 12 * steps and launches[0] == 12 * (steps + evals),
+          f"{tag} launches {launches} for {steps} steps and {evals} "
+          f"validation calls")
+    check(all(watch.on_card) and len(watch.on_card) == steps,
+          f"{tag} a step's images were not on the card")
+    check(watch.prefetches == (0 if device_resident else 6),
+          f"{tag} {watch.prefetches} epochs went through the prefetch")
+    check(len(losses) == 6 and bool(np.isfinite(losses).all())
+          and losses[-1] < losses[0], f"{tag} losses {losses}")
+    check('[Validation with "lfw"]' in report and "- EER" in report
+          and task.history[4]["val_acc"] is not None,
+          f"{tag} the ROC report was not printed at epoch 5")
+    check(snapshots == ["5_epoch_encoder.npz"], f"{tag} snapshots "
+          f"{snapshots}")
+    check(len(rates) == 6, f"{tag} {len(rates)} epoch throughputs")
+    return next(save.glob("*/5_epoch_encoder.npz")), rates, wall
+
+
+def phase_data_folder(root, libs):
+    """[data_folder] write_synthetic_folder (128 classes x 8 JPEGs, 192
+    px) and the validation pair root, then the training CLI with
+    --data_dir. Needs cv2 to write the JPEGs."""
+    if not libs["cv2"]:
+        print("[data_folder] not run: cv2 absent")
+        return None
+    from fr_tpu_torch.data import write_synthetic_folder
+    t0 = time.perf_counter()
+    folder = Path(root) / "folder"
+    write_synthetic_folder(str(folder), DATA_CLASSES, DATA_PER_CLASS,
+                           DATA_PX)
+    _write_val_root(root, libs)
+    print(f"[data_folder] wrote {DATA_CLASSES * DATA_PER_CLASS} JPEGs and "
+          f"the pair root in {time.perf_counter() - t0:.1f} s")
+    out = _data_train("[data_folder]", root, ["--data_dir", str(folder)])
+    print(f"[data_folder] {time.perf_counter() - t0:.1f} s in all")
+    return out
+
+
+def phase_data_packed(root, libs):
+    """[data_packed] images.npy, labels.npy and classes.json straight from
+    synthetic_corpus (numpy alone), then the training CLI with --packed_dir
+    and with --packed_dir --device_corpus."""
+    import numpy as np
+    from fr_tpu_torch.data import synthetic_corpus
+    t0 = time.perf_counter()
+    packed = Path(root) / "packed"
+    packed.mkdir()
+    imgs, labels = synthetic_corpus(DATA_CLASSES, DATA_PER_CLASS, DATA_PX)
+    np.save(packed / "images.npy", imgs)
+    np.save(packed / "labels.npy", labels)
+    (packed / "classes.json").write_text(json.dumps(
+        [f"id_{i:05d}" for i in range(DATA_CLASSES)]))
+    _write_val_root(root, libs)
+    out = {"packed": _data_train("[data_packed]", root,
+                                 ["--packed_dir", str(packed)])}
+    out["device_corpus"] = _data_train(
+        "[data_device_corpus]", root,
+        ["--packed_dir", str(packed), "--device_corpus"],
+        device_resident=True)
+    print(f"[data_packed] {time.perf_counter() - t0:.1f} s in all")
+    return out
+
+
+def _data_test(tag, root, extra, per_call_images):
+    """One test CLI run of AlterNet50 under ``root``; returns its report
+    {name: Config} after checking 12 tensor-core forward launches per
+    encoder call and finite embeddings."""
+    import numpy as np
+    from fr_tpu_torch.cli.main import main as cli_main
+    from fr_tpu_torch.ops.fused_window_attn import \
+        fused_window_attention_packed as fwd
+
+    calls = _EncoderCalls()
+    captured = io.StringIO()
+    try:
+        with _data_dir(root), \
+                contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+            fwd.launches = 0
+            _reset_routes()
+            msg = cli_main(DATA_TEST_ARGS + extra + [
+                "--save_root", str(Path(root) / "save_test")])
+            launches = fwd.launches
+    finally:
+        calls.close()
+    n_calls = calls.counts["eval"]
+    _check_routes(tag, launches, 0)
+    check(n_calls >= 1 and launches == 12 * n_calls,
+          f"{tag} {launches} launches for {n_calls} encoder calls")
+    report = captured.getvalue()
+    check(len(msg) == 1 and "- EER" in report,
+          f"{tag} sets {list(msg)}, the ROC report printed: "
+          f"{'- EER' in report}")
+    (name, result), = msg.items()
+    emb = result.embeddings
+    emb = np.concatenate(emb) if isinstance(emb, tuple) else emb
+    check(f'[Test with "{name}"]' in report and emb.shape[1] == 512
+          and bool(np.isfinite(emb).all()), f"{tag} embeddings {emb.shape}")
+    print(f"{tag} {name}: {n_calls} encoder calls of up to "
+          f"{per_call_images} images, {launches} launches; accuracy "
+          f"{result.acc:.2f}%, {result.infer_time:.2f} ms per call (host "
+          f"to host)")
+    return msg
+
+
+def phase_eval_data(root, libs, snapshot):
+    """[eval_data] the pair test over the validation root from the epoch-5
+    snapshot, as .npz and as a .pth that export_encoder_pth wrote from the
+    same weights (bit-equal embeddings, identical reports); the cross test
+    over a csv set of 1,024 JPEGs (cv2 and pandas); the synthetic cross
+    test; pair_score_device and cross_score_device against the host's f64
+    scores on those embeddings."""
+    import numpy as np
+    from fr_tpu_torch.data import PairDataset
+    from fr_tpu_torch.eval import verification as V
+    from fr_tpu_torch.utils.jax_import import load_encoder_npz
+    from fr_tpu_torch.utils.torch_export import export_encoder_pth
+
+    t0 = time.perf_counter()
+    pth = Path(root) / "5_epoch_encoder.pth"
+    export_encoder_pth(str(pth), load_encoder_npz(str(snapshot),
+                                                  DATA_NETWORK, DATA_PX),
+                       DATA_NETWORK, epoch=5)
+    runs = {}
+    for kind, path in (("npz", snapshot), ("pth", pth)):
+        runs[kind] = _data_test(f"[eval_data] pair {kind}", root,
+                                ["--ckpt_path", str(path)], 128)["lfw"]
+    (a1, a2), (b1, b2) = runs["npz"].embeddings, runs["pth"].embeddings
+    same = np.array_equal(a1, b1) and np.array_equal(a2, b2)
+    print(f"[eval_data] .npz and .pth: embeddings "
+          f"{'bit-equal' if same else 'DIFFER'}, reports "
+          f"{'identical' if runs['npz'].roc == runs['pth'].roc else 'DIFFER'}")
+    check(same and runs["npz"].roc == runs["pth"].roc
+          and runs["npz"].acc == runs["pth"].acc,
+          "[eval_data] the .npz and .pth runs differ")
+
+    # the test's pair order: PairDataset's seeded permutation
+    labels = PairDataset(str(Path(root) / "validation" / "lfw"),
+                         VAL_PX).labels
+    cross_emb = None
+    if libs["cv2"] and libs["pandas"]:
+        croot = Path(root) / "cross"
+        _write_cross_set(croot / "validation" / "lfw")
+        msg = _data_test("[eval_data] cross csv", croot,
+                         ["--test_type", "cross", "--ckpt_path",
+                          str(snapshot)], 64)
+        cross_emb = msg["lfw"].embeddings
+        n = CROSS_CLASSES * CROSS_PER_CLASS
+        check(f"- Total count = {n * (n - 1) // 2:,}" in msg["lfw"].roc,
+              "[eval_data] the cross report's pair count")
+        cross_labels = np.repeat(np.arange(CROSS_CLASSES), CROSS_PER_CLASS)
+    else:
+        print(f"[eval_data] cross csv not run: "
+              f"{'cv2' if not libs['cv2'] else 'pandas'} absent")
+    msg = _data_test("[eval_data] cross synthetic", root,
+                     ["--test_type", "cross", "--synthetic"], 64)
+    if cross_emb is None:
+        cross_emb = msg["synthetic"].embeddings
+        cross_labels = np.repeat(np.arange(128), 4)
+
+    # device scoring on the card against the host's f64 scores
+    t1 = time.perf_counter()
+    hg, hi, scores = V.pair_score_device(a1, a2, labels)
+    rhg, rhi, rscores = V.pair_score(a1, a2, labels)
+    err = float(np.abs(scores - rscores).max())
+    check(hg.sum() == rhg.sum() and hi.sum() == rhi.sum() and err <= 1e-5,
+          f"[eval_data] pair_score_device: max |score - host| {err}")
+    dev = V.cross_score_device(cross_emb, cross_labels)
+    host = V.cross_score(cross_emb, cross_labels)
+    worst, near = _check_cross_device(dev, host)
+    print(f"[eval_data] on the card: pair_score_device max |score - host "
+          f"f64| {err:.3e} (tol 1e-5), totals equal; cross_score_device "
+          f"over {len(cross_emb)} embeddings: totals equal, largest "
+          f"cumulative-histogram difference {worst} against {near[1e-5]} "
+          f"host scores within 1e-5 of a bin edge and {near[1e-7]} within "
+          f"1e-7 ({time.perf_counter() - t1:.1f} s)")
+    print(f"[eval_data] {time.perf_counter() - t0:.1f} s in all")
+
+
+def _write_cross_set(root):
+    """<root>/imgs/<name>.csv of (file, label) rows and 1,024 JPEGs at 112
+    px: 256 classes x 4, synthetic_corpus with seed 3."""
+    import cv2
+    from fr_tpu_torch.data import synthetic_corpus
+    imgs, labels = synthetic_corpus(CROSS_CLASSES, CROSS_PER_CLASS, VAL_PX,
+                                    seed=3)
+    img_dir = Path(root) / "imgs"
+    img_dir.mkdir(parents=True)
+    rows = []
+    for i, (img, lab) in enumerate(zip(imgs, labels)):
+        cv2.imwrite(str(img_dir / f"{i:05d}.jpg"),
+                    cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        rows.append(f"{i:05d}.jpg,{lab}\n")
+    (img_dir / f"{Path(root).name}.csv").write_text("".join(rows))
+
+
+def _check_cross_device(dev, host, margins=(1e-5, 1e-7)):
+    """Equal genuine and imposter totals; the cumulative histograms differ
+    nowhere by more than the number of host scores within each margin of a
+    bin edge (a bin is 1.00001e-5 wide, so 1e-5 reaches every score; 1e-7
+    is the f32 rounding of d² at unit norms). Returns the largest
+    difference and {margin: that number}."""
+    import numpy as np
+    (hg, hi), (rhg, rhi, scores, _) = dev, host
+    check(hg.sum() == rhg.sum() and hi.sum() == rhi.sum(),
+          "[eval_data] cross_score_device totals differ from the host's")
+    worst = max(int(np.abs(np.cumsum(a) - np.cumsum(b)).max())
+                for a, b in ((hg, rhg), (hi, rhi)))
+    x = (1e5 - 1.0) * scores
+    off = np.abs(x - np.round(x))
+    near = {m: int(np.sum(off <= m * (1e5 - 1.0))) for m in margins}
+    check(all(worst <= n for n in near.values()),
+          f"[eval_data] cross_score_device: cumulative difference {worst}, "
+          f"host scores near an edge {near}")
+    return worst, near
+
+
+def phase_data(root):
+    """The data phases in order; returns their seconds and the epochs'
+    imgs/s by input path."""
+    t = {}
+    t0 = time.perf_counter()
+    libs = phase_host_libs()
+    folder = phase_data_folder(root, libs)
+    t["data_folder"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    packed = phase_data_packed(root, libs)
+    t["data_packed"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    snapshot = (folder or packed["packed"])[0]
+    phase_eval_data(root, libs, snapshot)
+    t["eval_data"] = time.perf_counter() - t2
+    rates = {"packed": packed["packed"][1],
+             "device_corpus": packed["device_corpus"][1]}
+    if folder is not None:
+        rates["folder"] = folder[1]
+    print("[data] seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in t.items())
+          + f"; {sum(t.values()):.1f} s together")
+    return t, rates
+
+
+# ---------------------------------------------------------------------------
 # Slice 6: the grouped (rows 15-16), spatial (row 17) and entry-fused (row
 # 18) attention routes, AlterNetSep50, AlterNetV1_50, DepthwiseTaps.
 # ---------------------------------------------------------------------------
@@ -3592,6 +4035,8 @@ def main() -> None:
     launches_rows, launches_ce_webface = phase_webface42m()
     phase_resnet100_train_golden()
     phase_resume()
+    with tempfile.TemporaryDirectory() as data_root:
+        phase_data(data_root)
     for network in ("Swin50", "EffiAlter_m"):
         phase_profile(network)
     phase_stats_profile()

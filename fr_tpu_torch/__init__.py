@@ -15,8 +15,11 @@ L2-normalised embeddings, pair scores and the 100001-bin ROC report) and
 the one-GPU training path (``--mode train``: augmentation, the PartialFC
 margin-softmax head with per-row or block-aligned negative sampling,
 backward, clip, SGD/AdamW with sampled-row head updates, full-state
-checkpoints with exact resume). This package imports torch and never jax,
-and nothing of ``fr_tpu``.
+checkpoints with exact resume), and the data and evaluation layer (image
+folder, packed and card-resident training corpora, bcolz pair roots and
+csv cross sets, pair and cross scoring on the host through a native C++
+library or on the card). This package imports torch and never jax, and
+nothing of ``fr_tpu``.
 """
 
 __version__ = "0.2.0"

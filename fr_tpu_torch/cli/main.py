@@ -1,24 +1,30 @@
 """CLI entry point (counterpart of fr_tpu/cli/main.py, same flag surface).
 
     python -m fr_tpu_torch.cli.main --config ms1m_arcface_122 --mode train \
-        --network AlterNet50 --synthetic --num_epoch 6 --device cuda
+        --network AlterNet50 --data_dir <root with imgs/<class>/*> --device cuda
+    python -m fr_tpu_torch.cli.main --config ms1m_arcface_122 --mode train \
+        --network AlterNet50 --packed_dir <packed corpus> [--device_corpus]
     python -m fr_tpu_torch.cli.main --config ms1m_arcface_122 --mode test \
-        --network AlterNet50 --synthetic --test_b 64 --device cuda
-
+        --network AlterNet50 --ckpt_path <.npz or .pth> --test_b 64 \
+        [--test_type cross]
     python -m fr_tpu_torch.cli.main --config webface42m --mode train \
         --network ResNet100 --sample_rate 0.1 --sample_block 64 --synthetic \
         --device cuda        # and again with --resume to go on from a save
 
-Ported: ``--mode train --synthetic`` on one device (128 synthetic classes ×
-8 images by default, validation on 256 synthetic pairs, encoder snapshots
-in fr_tpu's ``.npz`` layout beside full-state checkpoints; ``--sample_block
-N`` for block-aligned negative sampling, ``--resume`` to continue the newest
-matching run) and ``--mode test --test_type pair --synthetic``, with
-``--ckpt_path`` taking an fr_tpu ``.npz`` encoder snapshot or a reference
-``.pth``. ``--device {cuda,cpu}`` takes the place of JAX_PLATFORMS; it
-raises when CUDA is asked for and absent and never switches device on its
-own. Flags of paths not ported yet raise NotImplementedError naming their
-ROADMAP item.
+On one device, every input path of fr_tpu's CLI: training from an image
+folder (``--data_dir``, else ``conf.train_dataset_dir``), from a packed
+corpus (``--packed_dir``) or from a packed corpus uploaded to the card
+(``--device_corpus``), validating on the config's pair sets where they
+exist; testing pairs (bcolz roots or ``.npy``/``.npz``) or cross sets (a
+csv of images) under ``conf.test_dataset_dir``, skipping sets that are
+absent; ``--synthetic`` for either mode and test type. Encoder snapshots are
+written in fr_tpu's ``.npz`` layout beside full-state checkpoints;
+``--ckpt_path`` takes an ``.npz`` snapshot or a reference ``.pth``;
+``--sample_block N`` samples the head in aligned groups; ``--resume``
+continues the newest matching run. ``--device {cuda,cpu}`` takes the place
+of JAX_PLATFORMS; it raises when CUDA is asked for and absent and never
+switches device on its own. ``--profile`` and multi-GPU flags raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,8 +34,6 @@ import time
 from pathlib import Path
 
 _MULTI_GPU = "multi-GPU runs are not ported yet: ROADMAP §1, multi-GPU"
-_LOADERS = ("dataset loaders are not ported yet (pass --synthetic): ROADMAP "
-            "§1, eval extras")
 
 
 def parse_args(argv=None):
@@ -117,31 +121,106 @@ def make_save_dir(args, conf) -> Path:
     return save
 
 
+def _single_device(args):
+    if args.distributed or (args.mesh_data or 1) * (args.mesh_model or 1) > 1:
+        raise NotImplementedError(_MULTI_GPU)
+
+
+def _loaders(args, conf, device):
+    """(training loader, {name: validation pair set}) as fr_tpu's CLI makes
+    them; sets conf.n_classes from the corpus."""
+    from fr_tpu_torch.data import (ArrayPairDataset, ArrayTrainLoader,
+                                   ImageFolderIndex, PairDataset,
+                                   TrainLoader, synthetic_corpus,
+                                   synthetic_pairs)
+    if args.synthetic:
+        imgs, labels = synthetic_corpus(args.synthetic_classes, 8,
+                                        conf.img_size)
+        conf.n_classes = args.synthetic_classes
+        conf.val_dataset = ["synthetic"]
+        train = ArrayTrainLoader(imgs, labels, conf.b)
+        pairs, same = synthetic_pairs(256, args.synthetic_classes,
+                                      conf.img_size)
+        return train, {"synthetic": ArrayPairDataset(pairs, same)}
+    if args.packed_dir:
+        from fr_tpu_torch.data import PackedTrainLoader
+        train = PackedTrainLoader(args.packed_dir, conf.b)
+        packed_size = train.images.shape[1]
+        if packed_size != conf.img_size:
+            raise ValueError(
+                f"packed corpus is {packed_size}px but conf.img_size is "
+                f"{conf.img_size}; repack with --img_size {conf.img_size} "
+                f"or pass --img_size {packed_size}")
+        conf.n_classes = train.num_classes
+        if args.device_corpus:
+            from fr_tpu_torch.data import DeviceCorpusLoader
+            train = DeviceCorpusLoader(train.images, train.labels, conf.b,
+                                       device=device)
+    else:
+        index = ImageFolderIndex(conf.train_dataset_dir)
+        conf.n_classes = index.num_classes
+        train = TrainLoader(index, conf.b, conf.img_size,
+                            prefetch=conf.get("num_workers", 4))
+    vals = {}
+    for name, d in zip(conf.val_dataset, conf.val_dataset_dir):
+        try:
+            vals[name] = PairDataset(d, conf.img_size)
+        except FileNotFoundError as e:
+            print(f"skipping val dataset {name}: {e}")
+    # the task names a set by its index among those present (see
+    # _test_sets)
+    conf.val_dataset = list(vals)
+    return train, vals
+
+
+def _test_sets(args, conf):
+    """{name: pair or cross set} for conf.test_type, as fr_tpu's CLI makes
+    them; absent sets are skipped with a message. conf.test_dataset becomes
+    the names present: the task names a set by its index among them (fr_tpu
+    keeps the configured list, so a skipped set shifts the names of the
+    sets after it)."""
+    from fr_tpu_torch.data import (ArrayPairDataset, CrossDataset,
+                                   PairDataset, synthetic_corpus,
+                                   synthetic_pairs)
+    tests = {}
+    if args.synthetic:
+        conf.n_classes = args.synthetic_classes
+        conf.test_dataset = ["synthetic"]
+        if conf.test_type == "pair":
+            pairs, same = synthetic_pairs(256, args.synthetic_classes,
+                                          conf.img_size)
+            tests["synthetic"] = ArrayPairDataset(pairs, same)
+        else:  # cross: a flat image list + identity labels
+            imgs, labels = synthetic_corpus(args.synthetic_classes, 4,
+                                            conf.img_size)
+            imgs_f = (imgs.astype("float32") / 255.0 - 0.5) / 0.5
+            tests["synthetic"] = ArrayPairDataset(imgs_f, labels)
+        return tests
+    for name, d in zip(conf.test_dataset, conf.test_dataset_dir):
+        try:
+            if conf.test_type == "pair":
+                tests[name] = PairDataset(d, conf.img_size)
+            else:
+                tests[name] = CrossDataset(d, conf.img_size)
+        except FileNotFoundError as e:
+            print(f"skipping test dataset {name}: {e}")
+    conf.test_dataset = list(tests)
+    return tests
+
+
 def train(args):
-    """Synthetic-data training on one device; returns the task (its
-    ``history`` holds each epoch's results)."""
-    from fr_tpu_torch.data.synthetic import (ArrayPairDataset,
-                                             ArrayTrainLoader,
-                                             synthetic_corpus,
-                                             synthetic_pairs)
+    """Training on one device; returns the task (its ``history`` holds each
+    epoch's results)."""
     from fr_tpu_torch.train.task import FaceRecognitionTask, resolve_device
     from fr_tpu_torch.train.trainer import Trainer
 
-    if args.distributed or (args.mesh_data or 1) * (args.mesh_model or 1) > 1:
-        raise NotImplementedError(_MULTI_GPU)
-    if not args.synthetic:
-        raise NotImplementedError(_LOADERS)
+    _single_device(args)
     device = resolve_device(args.device)
     conf = build_conf(args)
-    imgs, labels = synthetic_corpus(args.synthetic_classes, 8, conf.img_size)
-    conf.n_classes = args.synthetic_classes
-    conf.val_dataset = ["synthetic"]
     save = make_save_dir(args, conf)
     logger = str(save / "log.txt")
 
-    loader = ArrayTrainLoader(imgs, labels, conf.b)
-    pairs, same = synthetic_pairs(256, args.synthetic_classes, conf.img_size)
-    vals = {"synthetic": ArrayPairDataset(pairs, same)}
+    loader, vals = _loaders(args, conf, device)
     task = FaceRecognitionTask(conf, logger=logger, stage="train",
                                device=device)
     return Trainer(conf, save, "train", logger).train(
@@ -149,33 +228,21 @@ def train(args):
 
 
 def test(args):
-    """Pair test; returns {dataset name: Config(acc, infer_time, roc,
-    embeddings)}."""
-    from fr_tpu_torch.data.synthetic import ArrayPairDataset, synthetic_pairs
+    """Pair or cross test; returns {dataset name: Config(acc, infer_time,
+    roc, embeddings)}."""
     from fr_tpu_torch.train.task import FaceRecognitionTask, resolve_device
     from fr_tpu_torch.train.trainer import Trainer
 
-    if args.distributed or (args.mesh_data or 1) * (args.mesh_model or 1) > 1:
-        raise NotImplementedError(_MULTI_GPU)
-    if args.test_type != "pair":
-        raise NotImplementedError("--test_type cross is not ported yet: "
-                                  "ROADMAP §1, eval extras")
-    if not args.synthetic:
-        raise NotImplementedError(_LOADERS)
+    _single_device(args)
     device = resolve_device(args.device)
     conf = build_conf(args)
     save = make_save_dir(args, conf)
     logger = str(save / "log.txt")
 
-    conf.n_classes = args.synthetic_classes
-    conf.test_dataset = ["synthetic"]
-    pairs, same = synthetic_pairs(256, args.synthetic_classes, conf.img_size)
-    tests = {"synthetic": ArrayPairDataset(pairs, same)}
-
+    tests = _test_sets(args, conf)
     task = FaceRecognitionTask(conf, logger=logger, stage="test",
                                device=device)
-    trainer = Trainer(conf, save, "test", logger)
-    return trainer.test(task, tests)
+    return Trainer(conf, save, "test", logger).test(task, tests)
 
 
 def main(argv=None):

@@ -179,3 +179,9 @@ def augment(images_u8: torch.Tensor, cfg: Tuple,
     draws = draw_augment(cfg, images_u8.shape, generator, images_u8.device)
     return apply_augment(images_u8, draws, cfg)
 
+
+
+def normalize_only(images_u8) -> torch.Tensor:
+    """Eval-time transform: Normalize(mean .5, std .5) only (reference
+    utils/data_partial.py:45-53,88); uint8 in, f32 out."""
+    return (torch.as_tensor(images_u8).float() / 255.0 - 0.5) / 0.5

@@ -1,14 +1,18 @@
-"""Synthetic identity data and in-memory loaders (numpy copies of
-fr_tpu/data/synthetic.py and fr_tpu/data/folder.py::ArrayTrainLoader, whose
-package top imports jax). Each class has a fixed template; samples are
-template + noise. Real-dataset loaders wait for datasets in the repository
-(ROADMAP §1, eval extras)."""
+"""Synthetic identity data for tests, demos and the card's smoke run
+(counterpart of fr_tpu/data/synthetic.py). Each class has a fixed uint8
+template; samples are template + noise. ``write_synthetic_folder`` writes
+the corpus as an image folder for the loaders of data/folder.py.
+``ArrayTrainLoader`` lives in data/folder.py, as in fr_tpu, and is
+importable from here too."""
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Tuple
 
 import numpy as np
+
+from fr_tpu_torch.data.folder import ArrayTrainLoader  # noqa: F401
 
 
 def synthetic_corpus(n_classes: int, per_class: int, img_size: int,
@@ -39,6 +43,20 @@ def synthetic_pairs(n_pairs: int, n_classes: int, img_size: int,
     return pairs, same
 
 
+def write_synthetic_folder(root: str, n_classes: int, per_class: int,
+                           img_size: int, seed: int = 0) -> None:
+    """Write synthetic_corpus as JPEGs in the CustomImageFolder layout
+    (<root>/imgs/id_<label>/<index>.jpg); needs cv2."""
+    import cv2
+    imgs, labels = synthetic_corpus(n_classes, per_class, img_size, seed)
+    base = Path(root) / "imgs"
+    for i, (img, lab) in enumerate(zip(imgs, labels)):
+        d = base / f"id_{lab:05d}"
+        d.mkdir(parents=True, exist_ok=True)
+        cv2.imwrite(str(d / f"{i:06d}.jpg"),
+                    cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+
+
 class ArrayPairDataset:
     """In-memory pair dataset with the PairDataset batching interface."""
 
@@ -52,28 +70,3 @@ class ArrayPairDataset:
     def batches(self, batch_size: int):
         for s in range(0, len(self.labels), batch_size):
             yield self.pairs[s:s + batch_size], self.labels[s:s + batch_size]
-
-
-class ArrayTrainLoader:
-    """In-memory training batches: a seeded permutation per epoch, whole
-    batches only (fr_tpu's ArrayTrainLoader on one process)."""
-
-    def __init__(self, images: np.ndarray, labels: np.ndarray,
-                 batch_size: int, seed: int = 0):
-        if images.dtype != np.uint8 or images.ndim != 4:
-            raise ValueError(f"uint8 NHWC images expected, got "
-                             f"{images.dtype} {images.shape}")
-        self.images = images
-        self.labels = labels.astype(np.int32)
-        self.batch_size = batch_size
-        self.seed = seed
-
-    def steps_per_epoch(self) -> int:
-        return len(self.images) // self.batch_size
-
-    def epoch(self, epoch: int):
-        order = np.random.default_rng(self.seed + epoch).permutation(
-            len(self.images))
-        for s in range(self.steps_per_epoch()):
-            sel = order[s * self.batch_size:(s + 1) * self.batch_size]
-            yield self.images[sel], self.labels[sel]

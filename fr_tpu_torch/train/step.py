@@ -21,6 +21,10 @@ its backward, the update) run inside ``record_function`` ranges named
 ``pfc_head:*``, so that a profile of the step can tell the head's device
 time from the encoder's; outside a profile the ranges do nothing.
 
+Batches reach the step from the host or already on the device:
+``prefetch_to_device`` copies host batches a few steps ahead on a side CUDA
+stream, and a tensor already on the step's device is taken as it is.
+
 Random numbers come from explicit generators, one per fr_tpu RNG stream
 (``stream_generators``), which live in the training state so that a
 checkpoint carries them; JAX and torch streams differ, so a test feeds the
@@ -30,7 +34,9 @@ JAX side's sampled columns or groups in through ``sample_idx`` /
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import queue
+import threading
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +104,8 @@ def make_train_step(conf, pfc_cfg: PFCConfig, device,
     def step(state: TrainState, images, labels, lr: float,
              sample_idx=None, sample_gidx=None) -> Dict:
         gens = state.generators
+        # a synchronous copy for host arrays; .to returns a tensor that is
+        # already on the device (a prefetched batch) as it is
         images = torch.as_tensor(images).to(device)
         labels = torch.as_tensor(labels).to(device).long()
         if augment_cfg is not None:
@@ -135,6 +143,90 @@ def make_train_step(conf, pfc_cfg: PFCConfig, device,
         return {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr}
 
     return step
+
+
+def prefetch_to_device(host_iter, device="cuda", depth: int = 2
+                       ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """(images, labels) host batches → (images, int32 labels) tensors on
+    ``device``, converted ``depth`` batches ahead on a worker thread
+    (fr_tpu/train/step.py:562-608), in order.
+
+    On CUDA the worker pins each batch and copies it on a side stream with
+    non_blocking copies, then records an event; the consumer's stream waits
+    on that event before the batch is handed out, so a step never reads a
+    torn batch, and each tensor is recorded on the consumer's stream, so
+    the allocator cannot hand its memory back to the copy stream while a
+    step still reads it. On the CPU the conversion is a plain
+    ``torch.as_tensor``. A worker's exception is raised again at the
+    consumer; closing the generator stops the worker, which then closes
+    ``host_iter``."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        copy_stream = torch.cuda.Stream(device)
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    done = object()
+
+    def put(item) -> bool:
+        # never block forever once the consumer has gone
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def convert(images, labels):
+        host = (torch.as_tensor(np.asarray(images)),
+                torch.as_tensor(np.asarray(labels, np.int32)))
+        if not cuda:
+            return host, None
+        pinned = [t.pin_memory() for t in host]
+        with torch.cuda.stream(copy_stream):
+            batch = tuple(t.to(device, non_blocking=True) for t in pinned)
+            ready = torch.cuda.Event()
+            ready.record(copy_stream)
+        # the pinned buffers ride along until the consumer has waited
+        return batch, (ready, pinned)
+
+    def worker():
+        try:
+            if cuda:
+                torch.cuda.set_device(device)
+            for images, labels in host_iter:
+                if stop.is_set() or not put(convert(images, labels)):
+                    return
+            put(done)
+        except BaseException as e:  # noqa: BLE001 — raised at the consumer
+            put(e)
+        finally:
+            close = getattr(host_iter, "close", None)
+            if close is not None:
+                close()
+
+    thread = threading.Thread(target=worker, daemon=True,
+                              name="prefetch_to_device")
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            batch, sync = item
+            if sync is not None:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(sync[0])
+                for t in batch:
+                    t.record_stream(stream)
+            yield batch
+    finally:
+        stop.set()
 
 
 def _resize_weights(in_size: int, out_size: int) -> np.ndarray:

@@ -3,9 +3,10 @@ the schedule and the evaluation logic (counterpart of fr_tpu/train/task.py),
 with fr_tpu's Lightning-style hook names so the Trainer mirrors fr_tpu's
 call for call.
 
-Ported: the training hooks (training_step / training_epoch_end) on one
-device, and the test-stage hooks (test_step / test_epoch_end and the
-validation_* pair). The all-pairs cross test is ROADMAP §1, eval extras.
+On one device: the training hooks (training_step / training_epoch_end,
+with prefetch_device_batches to copy host batches ahead of the step), the
+validation_* and test_* pair hooks, and the all-pairs cross test
+(cross_test_step / cross_test_epoch_end).
 """
 
 from __future__ import annotations
@@ -19,17 +20,15 @@ import torch
 from fr_tpu_torch.configs.base import Config
 from fr_tpu_torch.utils.logger import print_log
 from fr_tpu_torch.data.augment import augment_cfg_from_conf
-from fr_tpu_torch.eval.verification import (pair_score, performance_acc,
-                                            performance_roc)
+from fr_tpu_torch.eval.verification import (cross_score, pair_score,
+                                            performance_acc, performance_roc)
 from fr_tpu_torch.heads.partial_fc import PFCConfig
 from fr_tpu_torch.models import build_encoder
 from fr_tpu_torch.models.common import init_weights
 from fr_tpu_torch.train.schedule import get_schedule
 from fr_tpu_torch.train.state import init_train_state
 from fr_tpu_torch.train.step import (embed_global_batch, make_embed_step,
-                                     make_train_step)
-
-_CROSS = "the cross test is not ported yet: ROADMAP §1, eval extras"
+                                     make_train_step, prefetch_to_device)
 
 
 def pfc_config_from_conf(conf) -> PFCConfig:
@@ -116,6 +115,11 @@ class FaceRecognitionTask:
         metrics = self._train_step(self.state, images, labels, lr)
         return {"loss": metrics["loss"], "lr": lr}
 
+    def prefetch_device_batches(self, host_iter, depth: int = 2):
+        """Host batches copied to the task's device ``depth`` steps ahead,
+        on a side stream (train/step.py prefetch_to_device)."""
+        return prefetch_to_device(host_iter, self.device, depth)
+
     def training_epoch_end(self, outputs: List[Dict], running_t=None):
         """Per-epoch report (fr_tpu's text); appends the epoch's results to
         ``history``."""
@@ -199,8 +203,34 @@ class FaceRecognitionTask:
     def test_epoch_end(self, outputs):
         self._eval_epoch_end(outputs, self.test_msg)
 
-    def cross_test_step(self, batch, dataset_idx: int):
-        raise NotImplementedError(_CROSS)
+    # ------------------------------------------------------------------
+    # Cross test (all pairs; reference model/FR_PartialFC.py:379-427)
+    # ------------------------------------------------------------------
+    def cross_test_step(self, batch, dataset_idx: int) -> Dict[str, Any]:
+        """images (b, H, W, C) normalised float → embeddings + wall-clock
+        inference time (ms, host to host)."""
+        name = self.conf.test_dataset[dataset_idx]
+        images, labels = batch
+        start = time.time()
+        emb = embed_global_batch(self._embed, np.asarray(images))
+        infer_time = (time.time() - start) * 1000.0
+        return {f"{name}_embedding": emb,
+                f"{name}_label_list": np.asarray(labels),
+                f"{name}_infer_time": infer_time,
+                "dataset_name": name}
 
     def cross_test_epoch_end(self, outputs):
-        raise NotImplementedError(_CROSS)
+        """Scores every pair i > j of the test set's embeddings on the host
+        in f64 (cross_score), then the ROC report and the accuracy at the
+        EER threshold."""
+        name = outputs[0]["dataset_name"]
+        infer_time = float(np.mean([o[f"{name}_infer_time"]
+                                    for o in outputs]))
+        labels = np.concatenate([o[f"{name}_label_list"] for o in outputs])
+        emb = np.concatenate([o[f"{name}_embedding"] for o in outputs])
+        hg, hi, scores, pair_labels = cross_score(emb, labels)
+        roc, eer_th = performance_roc(hg, hi, min_level=self.min_level,
+                                      max_level=self.max_level)
+        acc = performance_acc(scores, pair_labels, eer_th)
+        self.test_msg[name] = Config(acc=acc, infer_time=infer_time, roc=roc,
+                                     embeddings=emb)

@@ -2,8 +2,9 @@
 the same report text.
 
 The training loop: epochs of the loader's batches through the task's
-training step, validation every ``valid_freq`` epochs, the epoch report,
-and, every ``save_epoch`` epochs, an encoder snapshot in fr_tpu's ``.npz``
+training step (host batches copied to the device a few steps ahead by the
+task's prefetch, a device-resident loader's batches as they come),
+validation every ``valid_freq`` epochs, the epoch report, and, every ``save_epoch`` epochs, an encoder snapshot in fr_tpu's ``.npz``
 layout beside the full resumable state (ckpt/checkpoint.py). ``resume``
 restores the newest state under the save directory and goes on at its
 epoch; the loader's order, the schedule and the state's generators make the
@@ -55,10 +56,19 @@ class Trainer:
             running_t = 0.0
             train_outputs: List[Dict] = []
             print_log(self.logger_, f"{epoch + 1} Epoch Training")
-            for batch in train_loader.epoch(epoch):
-                t0 = time.time()
-                train_outputs.append(task.training_step(batch))
-                running_t += time.time() - t0
+            if getattr(train_loader, "device_resident", False):
+                # the corpus lives on the device; batches are already there
+                batches = train_loader.epoch(epoch)
+            else:
+                batches = task.prefetch_device_batches(
+                    train_loader.epoch(epoch))
+            try:
+                for batch in batches:
+                    t0 = time.time()
+                    train_outputs.append(task.training_step(batch))
+                    running_t += time.time() - t0
+            finally:
+                getattr(batches, "close", lambda: None)()
             # the steps run asynchronously on the device: fetch the last
             # loss inside the timed region so the epoch time is honest
             if train_outputs:
@@ -83,7 +93,8 @@ class Trainer:
         return task
 
     def test(self, task, test_datasets: Dict):
-        """Pair test over each dataset; conf.test_b pairs per batch."""
+        """Pair or cross test (conf.test_type) over each dataset;
+        conf.test_b pairs or images per batch."""
         conf = self.conf
         test_b = int(conf.get("test_b", 1) or 1)
         for t_idx, (name, ds) in enumerate(test_datasets.items()):

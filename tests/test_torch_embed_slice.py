@@ -123,14 +123,47 @@ def test_task_and_trainer_print_the_roc_report(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "train"], "ROADMAP"),
-    (["--mode", "test", "--test_type", "cross", "--synthetic"], "ROADMAP"),
-    (["--mode", "test"], "ROADMAP"),
     (["--mode", "test", "--synthetic", "--mesh_data", "2"], "ROADMAP"),
 ])
 def test_cli_unported_paths_raise(argv, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         main(argv + ["--device", "cpu", "--save_root", str(tmp_path)])
+
+
+_SMALL = ["--network", "ResNet18", "--img_size", "16", "--batch", "8",
+          "--synthetic_classes", "8", "--test_b", "16", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode", "train"],
+    ["--mode", "test", "--test_type", "cross", "--synthetic"],
+    ["--mode", "test"],
+])
+def test_cli_paths_do_what_fr_tpu_does(argv, tmp_path, monkeypatch, capsys):
+    """The paths that raised before the loaders were ported, with the
+    config's dataset roots at an empty directory: training raises
+    FileNotFoundError for the missing train_dataset_dir (fr_tpu's
+    ImageFolderIndex does), the test mode skips every missing test set with
+    a message, and the synthetic cross test (8 classes × 4 images) prints
+    its report."""
+    from fr_tpu_torch.configs import lfw
+    monkeypatch.setattr(lfw, "DATA_DIR", str(tmp_path / "FR"))
+    run = argv + _SMALL + ["--save_root", str(tmp_path / "save")]
+    if argv == ["--mode", "train"]:
+        with pytest.raises(FileNotFoundError):
+            main(run)
+        return
+    msg = main(run)
+    out = capsys.readouterr().out
+    if "--synthetic" in argv:
+        assert list(msg) == ["synthetic"] and "- EER" in out
+        assert "- Total count = 496" in out   # 32 · 31 / 2 pairs
+        assert msg["synthetic"].embeddings.shape == (32, 512)
+    else:
+        assert msg == {}
+        for name in ("lfw", "agedb_30", "cfp_fp", "cfp_ff", "calfw",
+                     "cplfw"):
+            assert f"skipping test dataset {name}: no pair data" in out
 
 
 def test_cli_cuda_without_a_card_raises(tmp_path):

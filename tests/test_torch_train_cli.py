@@ -3,7 +3,8 @@ data (a small network on the CPU: the plumbing is under test here, AlterNet
 is covered by test_torch_train_step.py), the library path through the
 task, the encoder snapshot in fr_tpu's layout, block-aligned sampling
 (--sample_block), --resume into the previous run's directory, the paths that
-still raise, and that the package never imports jax."""
+still raise, a missing training directory, and that the package never
+imports jax."""
 
 import os
 import re
@@ -124,10 +125,15 @@ def test_cli_train_unported_paths_raise(extra, match, tmp_path):
              + extra)
 
 
-def test_cli_train_without_synthetic_raises(tmp_path):
+def test_cli_train_without_synthetic_raises(tmp_path, monkeypatch):
+    """Without --synthetic the CLI trains from conf.train_dataset_dir, as
+    fr_tpu's does; a missing directory raises FileNotFoundError from the
+    folder index, before any model is built."""
+    from fr_tpu_torch.configs import ms1m_arcface_122
+    monkeypatch.setattr(ms1m_arcface_122, "DATA_DIR", str(tmp_path / "FR"))
     argv = [a for a in CLI if a != "--synthetic"]
-    with pytest.raises(NotImplementedError, match="loaders"):
-        main(argv + ["--save_root", str(tmp_path)])
+    with pytest.raises(FileNotFoundError, match="train"):
+        main(argv + ["--save_root", str(tmp_path / "save")])
 
 
 def test_package_source_never_imports_jax():
