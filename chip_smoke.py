@@ -104,8 +104,9 @@ Phases; any failure exits non-zero and prints no result:
     4, sample_rate 0.5) for 7 epochs in one run, then the same command with
     --resume from that run's epoch-5 save: the final encoder and head are
     bitwise equal;
-    [host_libs] which of cv2, pandas, libblosc, libjpeg and g++ the machine
-    has, and whether the native host library built, with JPEG or not;
+    [host_libs] which of cv2, pandas, TensorBoard, libblosc, libjpeg and
+    g++ the machine has, and whether the native host library built, with
+    JPEG or not;
     [data_folder] (cv2) 1,024 JPEGs (128 classes x 8, 192 px) and a
     validation pair root of 256 pairs at 112 px (a bcolz rootdir with
     libblosc, else .npy), then the training CLI with --data_dir
@@ -149,6 +150,22 @@ Phases; any failure exits non-zero and prints no result:
     call), the golden, a 6-epoch training CLI run; [alternet_v1_50] the
     serving CLI at --img_size 112 and the golden; [dw_taps] EffiAlter_m
     with DepthwiseTaps against the depthwise conv (f32, 1e-5);
+    [tools] the four user tools: 64 JPEGs of 250 px through
+    fd_processing (the Haar cascade where cv2 has objdetect and a cascade
+    is found, else the centre crop; it says which), pack_dataset over the
+    crops, tools/embed.py with full-width AlterNet50 at 192 px in bf16 from
+    an .npz and from a .pth of the same weights (bit-equal to each other
+    and to make_embed_step on the same batches, unit norm, 12 row-1
+    tensor-core launches per encoder call, counted from 0 just before),
+    convert_bcolz where libblosc is present; [profile_cli] the training
+    CLI (AlterNet50, bf16, b=128) with --profile 2: the Chrome trace holds
+    two profiler steps and 24 launches each of the row-1 and row-2
+    tensor-core kernels, and whether TBLog/ was written;
+    [bench] python -m fr_tpu_torch.bench over four of its seven rows
+    (alternet50, webface42m_head, embed_r100, r100_realdata), 5 timed
+    steps, one repeat: its JSON line, every row with imgs/s > 0, a
+    non-null mfu and this card's name, and the attention and sparse-row
+    rows' kernel launches per step (12 + 12, 1 + 1);
 16. [profile] torch.profiler over 5 training steps of Swin50 and of
     EffiAlter_m (bf16, b=128, the full ms1m head at sample_rate 0.3), of
     AlterNet50 and Swin50 with FR_ATTN_STORED_STATS=1 (the stats arm on the
@@ -2422,6 +2439,7 @@ def phase_host_libs():
     from fr_tpu_torch.data.bcolz_reader import blosc_available
 
     libs = {"cv2": _importable("cv2"), "pandas": _importable("pandas"),
+            "tensorboard": _importable("torch.utils.tensorboard"),
             "libblosc": blosc_available(),
             "libjpeg": ctypes.util.find_library("jpeg") is not None,
             "g++": shutil.which("g++") is not None}
@@ -2803,6 +2821,257 @@ def phase_data(root):
         f"{k} {v:.1f}" for k, v in t.items())
           + f"; {sum(t.values()):.1f} s together")
     return t, rates
+
+
+# ---------------------------------------------------------------------------
+# Slice 14: the user tools, the training CLI's --profile trace and
+# TensorBoard scalars, and the port's bench.
+# ---------------------------------------------------------------------------
+
+TOOLS_CLASSES, TOOLS_PER_CLASS, TOOLS_PX = 8, 8, 250   # 64 JPEGs
+TOOLS_BATCH = 24    # 3 encoder calls per embed run, the last one padded
+PROFILE_CLI_STEPS = 2
+BENCH_STEPS = 5
+BENCH_TIMEOUT = 600
+# the seven rows took 176.9 s on an NVIDIA H100 80GB HBM3 at 700 W, over
+# the 150 s this phase may take: the four that cover the packed attention,
+# the sparse-row kernels, the embedding step and the card-resident corpus
+BENCH_SMOKE_ROWS = ("alternet50", "webface42m_head", "embed_r100",
+                    "r100_realdata")
+# the port's kernel launches per step of each bench row, by body
+# (fr_tpu_torch/bench.py kernel_launches_per_step)
+BENCH_LAUNCHES = {
+    "alternet50": {"attention_fwd_tensor_cores": 12,
+                   "attention_bwd_tensor_cores": 12},
+    "webface42m_head": {"grouped_gather": 1, "grouped_update_sgd": 1},
+}
+
+
+def _tools_reference(conf, encoder, files):
+    """make_embed_step over the tool's batches: the same decode, the same
+    normalisation, the same zero padding of the tail."""
+    import numpy as np
+    from fr_tpu_torch.data.folder import _decode_resize
+    from fr_tpu_torch.train.step import make_embed_step
+
+    embed = make_embed_step(conf, encoder.to("cuda").eval(), "cuda")
+    out = []
+    for s in range(0, len(files), TOOLS_BATCH):
+        imgs = np.zeros((TOOLS_BATCH, conf.img_size, conf.img_size, 3),
+                        np.float32)
+        for j, f in enumerate(files[s:s + TOOLS_BATCH]):
+            imgs[j] = (_decode_resize(f, conf.img_size).astype(np.float32)
+                       / 255.0 - 0.5) / 0.5
+        out.append(embed(imgs).cpu().numpy()[:len(files[s:s + TOOLS_BATCH])])
+    return np.concatenate(out)
+
+
+def phase_tools(root):
+    """[tools] the four user tools at full width: 64 JPEGs of 250 px
+    (write_synthetic_folder), fd_processing (Haar where cv2 has objdetect
+    and a cascade is found, else the centre crop; it says which),
+    pack_dataset over the crops, tools/embed.py over the crops with
+    AlterNet50 at 192 px in bf16 from an .npz and from a .pth of the same
+    seeded weights (bit-equal, bit-equal to make_embed_step on the same
+    batches, unit norm, 12 row-1 tensor-core launches per encoder call),
+    and convert_bcolz where libblosc is present."""
+    import numpy as np
+    from fr_tpu_torch.configs import load_config
+    from fr_tpu_torch.data.bcolz_reader import blosc_available
+    from fr_tpu_torch.data.synthetic import write_synthetic_folder
+    from fr_tpu_torch.models import build_encoder
+    from fr_tpu_torch.models.common import init_weights
+    from fr_tpu_torch.ops.fused_window_attn import \
+        fused_window_attention_packed as kernel
+    from fr_tpu_torch.tools import (convert_bcolz, embed, fd_processing,
+                                    pack_dataset)
+    from fr_tpu_torch.utils.jax_import import export_encoder_npz
+    from fr_tpu_torch.utils.torch_export import export_encoder_pth
+
+    t0 = time.perf_counter()
+    check(_importable("cv2"), "[tools] cv2 is absent")
+    import cv2
+    root = Path(root) / "tools"
+    write_synthetic_folder(str(root), TOOLS_CLASSES, TOOLS_PER_CLASS,
+                           TOOLS_PX)
+    haar = hasattr(cv2, "CascadeClassifier") and any(
+        Path(p).exists() for p in fd_processing.HAAR_PATHS)
+    stats = fd_processing.process_tree(str(root / "imgs"), out_size=112,
+                                       detector="haar")
+    n = TOOLS_CLASSES * TOOLS_PER_CLASS
+    crops = sorted((root / "imgs_fd").rglob("*.jpg"))
+    how = ("the Haar cascade" if haar else
+           "the centre crop (no Haar cascade or no objdetect in this cv2)")
+    print(f"[tools] fd_processing with {how}: {stats}; {len(crops)} crops")
+    check(stats["total"] == n and stats["failed"] == 0 and len(crops) == n
+          and stats["detected"] + stats["fallback"] == n
+          and (haar or stats["fallback"] == n),
+          f"[tools] fd_processing stats {stats}")
+    check(cv2.imread(str(crops[0])).shape == (112, 112, 3),
+          "[tools] the crops are not 112 px")
+    pack_dataset.main(["--src", str(root / "imgs_fd"), "--dst",
+                       str(root / "packed"), "--img_size", "112"])
+    packed = np.load(root / "packed" / "images.npy", mmap_mode="r")
+    check(packed.shape == (n, 112, 112, 3), f"[tools] packed {packed.shape}")
+
+    conf = load_config("ms1m_arcface_122", network="AlterNet50")
+    encoder = init_weights(build_encoder(conf), 0)
+    export_encoder_npz(str(root / "enc.npz"), encoder, 1, "AlterNet50",
+                       conf.img_size)
+    export_encoder_pth(str(root / "enc.pth"), encoder, "AlterNet50", 1)
+    embeddings, lists = [], []
+    calls = _EncoderCalls()
+    try:
+        kernel.launches = 0
+        _reset_routes()
+        for ckpt in ("enc.npz", "enc.pth"):
+            out = str(root / f"emb_{ckpt[4:]}")
+            check(embed.main(["--ckpt", str(root / ckpt), "--network",
+                              "AlterNet50", "--input_dir",
+                              str(root / "imgs_fd"), "--out", out,
+                              "--batch", str(TOOLS_BATCH), "--device",
+                              "cuda"]) == 0, "[tools] embed failed")
+            embeddings.append(np.load(out + ".npy"))
+            lists.append(Path(out + ".files.txt").read_text().splitlines())
+        launches = kernel.launches
+    finally:
+        calls.close()
+    n_calls = calls.counts["eval"]
+    _check_routes("[tools]", launches, 0)
+    check(n_calls == 2 * -(-n // TOOLS_BATCH) and launches == 12 * n_calls,
+          f"[tools] {launches} launches for {n_calls} encoder calls, "
+          f"expected 12 per call")
+    check(lists[0] == lists[1] and len(lists[0]) == n,
+          "[tools] the file lists differ")
+    npz, pth = embeddings
+    check(npz.shape == (n, 512) and bool(np.isfinite(npz).all()),
+          f"[tools] embeddings {npz.shape}")
+    check(np.array_equal(npz, pth), "[tools] the .npz and .pth embeddings "
+          "differ")
+    ref = _tools_reference(conf, encoder, lists[0])
+    check(np.array_equal(npz, ref), "[tools] embed differs from "
+          f"make_embed_step by {float(np.abs(npz - ref).max()):.3e}")
+    norm_err = float(np.abs(np.linalg.norm(npz, axis=1) - 1.0).max())
+    check(norm_err <= 1e-4, f"[tools] max | |e| - 1 | {norm_err:.2e}")
+    print(f"[tools] embed: {n} crops of AlterNet50 at 192 px in bf16 from "
+          f".npz and .pth, bit-equal to each other and to make_embed_step; "
+          f"{n_calls} encoder calls, {launches} row-1 tensor-core launches; "
+          f"max | |e| - 1 | {norm_err:.2e}")
+    if blosc_available():
+        arr = np.random.default_rng(2).standard_normal(
+            (16, 3, 112, 112)).astype(np.float32)
+        _write_bcolz(root / "val" / "lfw", arr, chunklen=6)
+        np.save(root / "val" / "lfw_list.npy", np.arange(8) % 2 == 0)
+        convert_bcolz.main(["--src", str(root / "val" / "lfw"), "--dst",
+                            str(root / "npy" / "lfw")])
+        check(np.array_equal(np.load(root / "npy" / "lfw.npy"), arr)
+              and (root / "npy" / "lfw_list.npy").exists(),
+              "[tools] convert_bcolz")
+        print("[tools] convert_bcolz: a 16-item rootdir read back equal")
+    else:
+        print("[tools] convert_bcolz not run: libblosc absent")
+    print(f"[tools] {time.perf_counter() - t0:.1f} s")
+
+
+def phase_profile_cli(root):
+    """[profile_cli] the training CLI (AlterNet50, bf16, b=128, 6 epochs)
+    with --profile 2: the trace holds two ProfilerStep ranges and the
+    row-1 and row-2 tensor-core kernels' CUDA events of both steps (12 +
+    12 a step); says whether TBLog/ was written; no module of JAX or
+    TensorFlow is loaded after the run."""
+    from fr_tpu_torch.cli.main import main as cli_main
+
+    t0 = time.perf_counter()
+    save = Path(root) / "profile_cli"
+    _reset_routes()
+    task = cli_main(TRAIN_ARGS + ["--profile", str(PROFILE_CLI_STEPS),
+                                  "--save_root", str(save)])
+    (run_dir,) = save.iterdir()
+    trace = run_dir / "profile" / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    # the host's step ranges (each shows on the device's timeline too, as
+    # a gpu_user_annotation)
+    steps = [e["name"] for e in events if e.get("cat") == "user_annotation"
+             and e["name"].startswith("ProfilerStep#")]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in name for name in kernels)
+             for k in ("window_attn_fwd_tc_kernel",
+                       "window_attn_bwd_tc_kernel")}
+    tb = sorted((run_dir / "TBLog").glob("events.out.tfevents.*"))
+    # the CLI, TensorBoard's writer included, brings none of JAX into the
+    # process (nor TensorFlow, which would bring Keras and its backends)
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & {
+        "jax", "jaxlib", "flax", "optax", "orbax", "tensorflow", "keras"})
+    print(f"[profile_cli] modules of JAX or TensorFlow loaded: {loaded}")
+    print(f"[profile_cli] {trace.relative_to(save)}: "
+          f"{trace.stat().st_size / 2**20:.1f} MB, steps {steps}, "
+          f"{len(kernels)} kernel events, of them {found}; TBLog "
+          f"{'written' if tb else 'not written'}; losses "
+          f"{[round(h['train_loss'], 4) for h in task.history]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(len(steps) == PROFILE_CLI_STEPS, f"[profile_cli] steps {steps}")
+    check(all(v == 12 * PROFILE_CLI_STEPS for v in found.values()),
+          f"[profile_cli] tensor-core kernels in the trace {found}, "
+          f"expected {12 * PROFILE_CLI_STEPS} each")
+    check(len(task.history) == 6, "[profile_cli] the run did not finish")
+    check(not loaded, f"[profile_cli] the CLI run loaded {loaded}")
+
+
+def phase_bench():
+    """[bench] python -m fr_tpu_torch.bench over BENCH_SMOKE_ROWS,
+    BENCH_STEPS=5, one repeat: prints the JSON line; every row has a value
+    > 0, a non-null mfu and this card's name, and the attention and
+    sparse-row rows launched their kernels. Returns the JSON object."""
+    import gc
+    import os
+    import signal
+    import torch
+
+    t0 = time.perf_counter()
+    # the rows run in their own processes: free what this one has cached
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[bench] this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_STEPS=str(BENCH_STEPS), BENCH_REPEATS="1",
+               BENCH_ROWS=",".join(BENCH_SMOKE_ROWS))
+    # its own process group, so that a timeout ends the row's process too
+    proc = subprocess.Popen([sys.executable, "-m", "fr_tpu_torch.bench"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        check(False, f"[bench] no result in {BENCH_TIMEOUT} s")
+    lines = stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines, "[bench] exit "
+          f"{proc.returncode}: {stderr[-3000:]}")
+    agg = json.loads(lines[-1])
+    print(f"[bench] {json.dumps(agg)}")
+    rows = {r["row"]: r for r in agg["rows"]}
+    name = torch.cuda.get_device_name(0)
+    for row, r in rows.items():
+        print(f"[bench] {row}: {r.get('value', 0):.1f} imgs/s, step "
+              f"{r.get('step_ms', 0):.2f} ms, device busy "
+              f"{r.get('device_busy_ms') or 0:.2f} ms, idle share "
+              f"{r.get('idle_share') or 0:.3f}, "
+              f"{r.get('launches_per_step') or 0:.0f} launches a step, mfu "
+              f"{r.get('mfu') or 0:.4f}; {r.get('error', '')}")
+    check(tuple(rows) == BENCH_SMOKE_ROWS, f"[bench] rows {list(rows)}")
+    for row, r in rows.items():
+        check(r.get("value", 0) > 0 and r.get("mfu") is not None
+              and r.get("device_name") == name and r.get("idle_share")
+              is not None, f"[bench] {row}: {r}")
+        want = BENCH_LAUNCHES.get(row, {})
+        got = r["kernel_launches_per_step"]
+        check(all(got.get(k) == v for k, v in want.items()),
+              f"[bench] {row}: launches per step {got}, expected {want}")
+    print(f"[bench] {time.perf_counter() - t0:.1f} s")
+    return agg
 
 
 # ---------------------------------------------------------------------------
@@ -3747,9 +4016,6 @@ def _variant_entries(errs, times, launches):
     return out
 
 
-HEAD_RANGE = "pfc_head:"   # train/step.py's record_function ranges
-
-
 def _head_device_ms(events, kernels, steps):
     """{range: device ms per step} of the kernels that the profiled steps
     launched inside train/step.py's ``pfc_head:*`` ranges (rows, loss,
@@ -3758,6 +4024,7 @@ def _head_device_ms(events, kernels, steps):
     launch call share a correlation id, which is the event's ``id``."""
     import bisect
     import torch
+    from fr_tpu_torch.utils.profiling import HEAD_RANGE
 
     cpu = torch.autograd.DeviceType.CPU
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -3796,6 +4063,8 @@ def phase_profile(network, warmup: int = 3, steps: int = 5, conf=None):
     from torch.profiler import ProfilerActivity, profile
     from fr_tpu_torch.cli.main import build_conf, parse_args
     from fr_tpu_torch.train.task import FaceRecognitionTask
+    from fr_tpu_torch.utils.profiling import HEAD_RANGE, device_events
+    from fr_tpu_torch.utils.profiling import busy_ms as union_ms
 
     if conf is None:
         conf = build_conf(parse_args(_net_args(network, "train")))
@@ -3820,17 +4089,8 @@ def phase_profile(network, warmup: int = 3, steps: int = 5, conf=None):
             task.training_step((images, labels))
         torch.cuda.synchronize()
     events = prof.events()
-    # the ranges show on the device's timeline too: they are no kernels
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(HEAD_RANGE)]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy_ms = busy / 1e3 / steps
+    kernels = device_events(events)
+    busy_ms = union_ms(kernels) / steps
     families, by_name = {}, {}
     for e in kernels:
         ms = (e.time_range.end - e.time_range.start) / 1e3 / steps
@@ -4037,6 +4297,10 @@ def main() -> None:
     phase_resume()
     with tempfile.TemporaryDirectory() as data_root:
         phase_data(data_root)
+    with tempfile.TemporaryDirectory() as tools_root:
+        phase_tools(tools_root)
+        phase_profile_cli(tools_root)
+    phase_bench()
     for network in ("Swin50", "EffiAlter_m"):
         phase_profile(network)
     phase_stats_profile()

@@ -23,7 +23,9 @@ written in fr_tpu's ``.npz`` layout beside full-state checkpoints;
 ``--sample_block N`` samples the head in aligned groups; ``--resume``
 continues the newest matching run. ``--device {cuda,cpu}`` takes the place
 of JAX_PLATFORMS; it raises when CUDA is asked for and absent and never
-switches device on its own. ``--profile`` and multi-GPU flags raise
+switches device on its own. ``--profile N`` records a torch.profiler trace
+of N training steps into <run dir>/profile/trace.json, and training writes
+TensorBoard scalars into <run dir>/TBLog. The multi-GPU flags raise
 NotImplementedError naming their ROADMAP item.
 """
 
@@ -64,7 +66,8 @@ def parse_args(argv=None):
                    help="train/evaluate on synthetic identity data")
     p.add_argument("--synthetic_classes", type=int, default=128)
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--profile", type=int, default=0)
+    p.add_argument("--profile", type=int, default=0,
+                   help="record a torch.profiler trace of N steps")
     p.add_argument("--save_root", type=str, default="save")
     p.add_argument("--distributed", action="store_true")
     p.add_argument("--mesh_data", type=int, default=None)

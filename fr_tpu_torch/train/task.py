@@ -19,6 +19,7 @@ import torch
 
 from fr_tpu_torch.configs.base import Config
 from fr_tpu_torch.utils.logger import print_log
+from fr_tpu_torch.utils.summary import model_summary
 from fr_tpu_torch.data.augment import augment_cfg_from_conf
 from fr_tpu_torch.eval.verification import (cross_score, pair_score,
                                             performance_acc, performance_roc)
@@ -82,10 +83,13 @@ class FaceRecognitionTask:
             self.encoder.load_state_dict(load_encoder_snapshot(
                 conf.ckpt_path, conf.network, conf.img_size), strict=True)
         self.encoder.to(self.device).eval()
-        n_params = sum(p.numel() for p in self.encoder.parameters())
-        msg = f"{conf.network}: {n_params:,} encoder parameters"
+        self.pfc_cfg = pfc_config_from_conf(conf)
+        # structural summary, as fr_tpu's task logs it (task.py:101-106)
+        print_log(logger, model_summary(
+            self.encoder,
+            head_params=self.pfc_cfg.num_classes_padded * conf.emd_size))
+        msg = conf.network
         if stage == "train":
-            self.pfc_cfg = pfc_config_from_conf(conf)
             self.schedule = get_schedule(conf)
             self.epoch = 0
             self.history: List[Dict[str, Any]] = []
@@ -94,7 +98,7 @@ class FaceRecognitionTask:
             self._train_step = make_train_step(
                 conf, self.pfc_cfg, self.device,
                 augment_cfg_from_conf(conf))
-            msg += (f", head {self.pfc_cfg.num_classes_padded:,} x "
+            msg += (f": head {self.pfc_cfg.num_classes_padded:,} x "
                     f"{conf.emd_size} ({self.pfc_cfg.num_sample:,} columns "
                     f"sampled per step)")
         print_log(logger, f"{msg} on {self.device}")

@@ -3,7 +3,7 @@ imports nothing of the JAX package: load_config of the port equals
 fr_tpu's for every config module under several override sets (fr_tpu's
 re-flatten that resets ms1m_arcface_122's sample_rate 0.3 to 1.0 included),
 and an AST scan of every module of fr_tpu_torch/ and of chip_smoke.py finds
-no import of fr_tpu, jax, flax or orbax."""
+no import of fr_tpu, jax, flax, orbax or the root bench.py."""
 
 import ast
 from pathlib import Path
@@ -14,7 +14,8 @@ from fr_tpu import configs as jax_configs
 from fr_tpu_torch import configs
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("fr_tpu", "jax", "jaxlib", "flax", "orbax")
+# the JAX package, JAX itself, and fr_tpu's bench.py at the repository root
+FORBIDDEN = ("fr_tpu", "jax", "jaxlib", "flax", "orbax", "bench")
 OVERRIDES = [
     {},
     {"network": "Swin50"},
@@ -72,5 +73,7 @@ def test_port_module_imports_nothing_of_the_jax_package(path):
 def test_the_scan_sees_a_forbidden_import(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("def f():\n    from fr_tpu.configs import base\n"
-                     "    import jax.numpy as jnp\n")
-    assert [m.split(".")[0] for m in _imports(probe)] == ["fr_tpu", "jax"]
+                     "    import jax.numpy as jnp\n    import bench\n"
+                     "    from fr_tpu_torch import bench as ours\n")
+    assert [m.split(".")[0] for m in _imports(probe)
+            if m.split(".")[0] in FORBIDDEN] == ["fr_tpu", "jax", "bench"]
