@@ -104,6 +104,25 @@ Phases; any failure exits non-zero and prints no result:
     4, sample_rate 0.5) for 7 epochs in one run, then the same command with
     --resume from that run's epoch-5 save: the final encoder and head are
     bitwise equal;
+    [multi_gpu] (a) the training CLI (webface42m, ResNet100, sample_block
+    64, 6 epochs) under torchrun, one process over NCCL at mesh (1, 1),
+    against the same command without --distributed in this process: the same
+    groups drawn at every step (a weak check: --synthetic's 128 classes make
+    2 groups of 64, and 1 is drawn), losses within 1e-5 relative (the strong
+    one), a snapshot in each; (b) two ranks of a (1, 2) mesh sharing the
+    card over gloo (gloo's CUDA collectives checked first), each a
+    webface42m task at full width with use_fused (a 1,030,016 x 512 shard,
+    1,609 groups a step): the margin-CE kernels on the tensor cores and the
+    grouped gather and SGD update once per step per rank, only drawn rows
+    changed at step 1, the ranks' encoders bitwise equal after each of 3
+    steps, step 1 (64 images, rank 1 taking them and their labels reversed,
+    no augmentation) against the mean of one process's steps on each rank's
+    images fed the union of the shards' groups (loss 1e-5 and grad_norm 1e-3
+    relative, each shard's head-row gradient 5e-3 norm-wise, bf16's rounding
+    of the kernels' gradient output at about 2e-3; how far those two steps
+    part is printed: the batch order's effect in bf16); ms per step and peak
+    memory by rank. The ranks are this script, run with a private first
+    argument;
     [host_libs] which of cv2, pandas, TensorBoard, libblosc, libjpeg and
     g++ the machine has, and whether the native host library built, with
     JPEG or not;
@@ -550,7 +569,7 @@ def _webface_ce_columns(gen):
     labels = torch.randint(0, cfg.num_classes, (CE_WEBFACE_SHAPE[0],),
                            device="cuda", generator=gen)
     labels[0] = cfg.num_classes - 1
-    gidx = sample_groups(cfg, gen, *shard_group_masks(cfg, labels,
+    gidx = sample_groups(cfg, gen, *shard_group_masks(cfg, 0, labels,
                                                       labels >= 0))
     idx = expand_group_index(gidx, cfg.sample_block)
     cols, cv = label_columns(cfg, labels, idx), idx < cfg.num_classes
@@ -2214,7 +2233,7 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
             gen.set_state(task.state.generators["sample"].get_state())
             lab = labels[0]
             gidx = sample_groups(cfg, gen, *shard_group_masks(
-                cfg, lab, (lab >= 0) & (lab < cfg.num_local)))
+                cfg, 0, lab, (lab >= 0) & (lab < cfg.num_local)))
             check(gidx.shape == (cfg.num_sample_groups,)
                   and bool((gidx[1:] > gidx[:-1]).all()),
                   f"[webface42m] {tag}: the drawn groups are not sorted "
@@ -4241,6 +4260,405 @@ def _mix(times, dtype):
     return total
 
 
+# ---------------------------------------------------------------------------
+# [multi_gpu]: the mesh path. (a) the CLI under torchrun at world size 1 over
+# NCCL against the CLI without it; (b) two ranks of a (1, 2) mesh on this one
+# card over gloo, each a FaceRecognitionTask of webface42m at full width,
+# against a one-process step fed the union of their groups. The ranks are
+# this script again, run with a private first argument (RECORDED_CLI,
+# MESH_RANK); they load the kernels the parent built.
+# ---------------------------------------------------------------------------
+
+RECORDED_CLI, MESH_RANK = "--recorded-cli", "--mesh-rank"
+MULTI_GPU_ARGS = ["--config", "webface42m", "--mode", "train", "--network",
+                  "ResNet100", "--sample_rate", "0.1", "--sample_block",
+                  str(WEBFACE_BLOCK), "--synthetic", "--num_epoch", "6",
+                  "--device", "cuda"]
+MESH_B, MESH_STEPS = 128, 3         # global batch, steps of each rank
+MESH_CLASSES_LOCAL = 1030016        # 2,060,032 padded rows over 2 shards
+
+
+def _recorded_cli(argv):
+    """(task, the groups each step drew, each step's loss) of the training
+    CLI's main(argv), cuDNN held to its deterministic algorithms."""
+    import torch
+    import fr_tpu_torch.train.step as step_module
+    from fr_tpu_torch.cli.main import main as cli_main
+    from fr_tpu_torch.train.task import FaceRecognitionTask
+
+    draws, losses = [], []
+    sample_groups = step_module.sample_groups
+    training_step = FaceRecognitionTask.training_step
+
+    def drawing(*args, **kwargs):
+        gidx = sample_groups(*args, **kwargs)
+        draws.append(gidx.tolist())
+        return gidx
+
+    def stepping(self, batch):
+        out = training_step(self, batch)
+        losses.append(out["loss"].item())
+        return out
+
+    saved = torch.backends.cudnn.deterministic
+    step_module.sample_groups = drawing
+    FaceRecognitionTask.training_step = stepping
+    torch.backends.cudnn.deterministic = True
+    try:
+        task = cli_main(argv)
+    finally:
+        step_module.sample_groups = sample_groups
+        FaceRecognitionTask.training_step = training_step
+        torch.backends.cudnn.deterministic = saved
+    return task, draws, losses
+
+
+def _recorded_cli_child(out, argv):
+    """The torchrun child of [multi_gpu] (a): the recorded CLI, its record
+    written to ``out`` as JSON."""
+    _, draws, losses = _recorded_cli(argv)
+    Path(out).write_text(json.dumps({"draws": draws, "losses": losses}))
+
+
+def _multi_gpu_cli(root):
+    """(a) the training CLI under torchrun, one process over NCCL at mesh
+    (1, 1), against the same command without --distributed in this
+    process: the same groups drawn at every step (--synthetic's 128
+    classes are 2 groups of 64, 1 drawn, so this check is weak; the
+    losses are the strong one), losses within 1e-5 relative, a finite
+    loss and the snapshot in each."""
+    t0 = time.perf_counter()
+    _, draws, losses = _recorded_cli(MULTI_GPU_ARGS + [
+        "--save_root", str(root / "one")])
+    record = root / "torchrun.json"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", str(ROOT / "chip_smoke.py"),
+           RECORDED_CLI, str(record), "--distributed", "--mesh_data", "1",
+           "--mesh_model", "1"] + MULTI_GPU_ARGS + [
+               "--save_root", str(root / "torchrun")]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"[multi_gpu] torchrun exited "
+          f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    run = json.loads(record.read_text())
+    steps = len(losses)
+    check(steps == 6 * 8 and len(run["losses"]) == steps
+          and all(x == x and abs(x) != float("inf")
+                  for x in losses + run["losses"]),
+          f"[multi_gpu] (a) losses: {steps} and {len(run['losses'])}")
+    check(run["draws"] == draws and len(draws) == steps,
+          "[multi_gpu] (a) the torchrun run drew other groups")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], losses))
+    check(rel <= 1e-5, f"[multi_gpu] (a) losses part by {rel:.2e}")
+    for name in ("one", "torchrun"):
+        check(len(list((root / name).glob("*/5_epoch_encoder.npz"))) == 1
+              and len(list((root / name).glob("*/state/5.pt"))) == 1,
+              f"[multi_gpu] (a) no epoch-5 snapshot in the {name} run")
+    print(f"[multi_gpu] (a) the training CLI, webface42m ResNet100 bf16 "
+          f"b=128 on 1,024 synthetic images ({steps} steps), under torchrun "
+          f"over NCCL at mesh (1, 1) against no --distributed: the same "
+          f"{len(draws[0])} group(s) of 2 drawn at all {steps} steps, losses "
+          f"within {rel:.2e} relative (last {run['losses'][-1]:.4f}), both "
+          f"snapshots written; {time.perf_counter() - t0:.1f} s")
+
+
+def _mesh_batches(conf, seed=13):
+    """Step 1: 64 float images and their labels (rank 0 takes them as
+    they are, rank 1 in reverse order: see _mesh_rank_child); steps 2-3:
+    128 uint8 images and labels, each rank its half."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    size = conf.img_size
+    first = torch.randn((MESH_B // 2, size, size, 3), device="cuda",
+                        generator=gen)
+    labels = torch.randint(0, conf.n_classes, (MESH_B // 2,), device="cuda",
+                           generator=gen)
+    rest = [(torch.randint(0, 256, (MESH_B, size, size, 3), device="cuda",
+                           dtype=torch.uint8, generator=gen),
+             torch.randint(0, conf.n_classes, (MESH_B,), device="cuda",
+                           generator=gen))
+            for _ in range(MESH_STEPS - 1)]
+    return first, labels, rest
+
+
+def _mesh_conf():
+    conf = _webface_conf()
+    conf.use_fused = True
+    return conf
+
+
+def _encoder_digest(encoder):
+    """sha256 of the encoder's parameters' and buffers' bytes."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in encoder.state_dict().values():
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_rank_child(rank, store, out):
+    """(b) one rank of the (1, 2) mesh on cuda:0 over gloo; its record
+    (losses, grad norms, encoder digests, launches, times, the step-1 drawn
+    groups and their updated rows) saved to ``out``."""
+    import torch
+    import torch.distributed as dist
+    import fr_tpu_torch.train.step as step_module
+    from fr_tpu_torch.ops import fused_pfc as F
+    from fr_tpu_torch.ops import sparse_rows as R
+    from fr_tpu_torch.parallel.mesh import make_mesh
+    from fr_tpu_torch.train.step import make_train_step
+    from fr_tpu_torch.train.task import FaceRecognitionTask
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    try:
+        # gloo takes CUDA tensors for the three calls the port makes
+        x = torch.full((2, 3), float(rank + 1), device="cuda")
+        gathered = torch.empty((4, 3), device="cuda")
+        dist.all_gather_into_tensor(gathered, x)
+        scattered = torch.empty((2, 3), device="cuda")
+        dist.reduce_scatter_tensor(scattered, torch.arange(
+            12., device="cuda").view(4, 3) * (rank + 1))
+        total, top = x.clone(), x.clone()
+        dist.all_reduce(total)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX)
+        check(gathered[:, 0].tolist() == [1, 1, 2, 2]
+              and scattered.view(-1).tolist() == [3 * (6 * rank + i)
+                                                  for i in range(6)]
+              and total.eq(3).all() and top.eq(2).all(),
+              f"[multi_gpu] gloo on CUDA tensors: {gathered.tolist()}, "
+              f"{scattered.tolist()}")
+        mesh = make_mesh(1, 2)
+        conf = _mesh_conf()
+        t0 = time.perf_counter()
+        task = FaceRecognitionTask(conf, stage="train", device="cuda",
+                                   seed=0, mesh=mesh)
+        cfg = task.pfc_cfg
+        check((cfg.num_local, cfg.num_sample_groups, cfg.num_sample)
+              == (MESH_CLASSES_LOCAL, 1609, 102976),
+              f"[multi_gpu] shard {cfg.num_local} rows, "
+              f"{cfg.num_sample_groups} groups")
+        plain_step = make_train_step(conf, cfg, "cuda", None, mesh)
+        first, labels, rest = _mesh_batches(conf)
+        kernels = (F.margin_ce_stats, F.margin_ce_grad_emb,
+                   F.margin_ce_grad_w, R.grouped_gather,
+                   R.grouped_update_sgd)
+        for k in kernels:
+            k.launches = 0
+        _reset_ce_routes()
+        drawn = []
+        sample_groups = step_module.sample_groups
+
+        def drawing(*args, **kwargs):
+            drawn.append(sample_groups(*args, **kwargs))
+            return drawn[-1]
+
+        step_module.sample_groups = drawing
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        built = time.perf_counter() - t0
+        w0 = task.state.pfc.weight.clone()
+        lr = task.schedule(0)
+        rec = {"losses": [], "norms": [], "digests": [], "ms": []}
+
+        def record(m, t):
+            rec["losses"].append(m["loss"].item())
+            if "grad_norm" in m:   # the step's own; the task's has none
+                rec["norms"].append(float(m["grad_norm"]))
+            rec["ms"].append((time.perf_counter() - t) * 1e3)
+            rec["digests"].append(_encoder_digest(task.state.encoder))
+
+        # step 1: rank 1 takes rank 0's images reversed, with the labels
+        # reversed alike, so that a row order or label slice gone wrong
+        # shows; _multi_gpu_mesh holds it against one process's steps on
+        # each rank's images
+        t = time.perf_counter()
+        record(plain_step(task.state, first if rank == 0 else first.flip(0),
+                          torch.cat([labels, labels.flip(0)]), lr), t)
+        gidx = drawn[0]
+        block = cfg.sample_block
+        moved = (task.state.pfc.slots["momentum"] != 0).any(dim=1).view(
+            -1, block)
+        stayed = (task.state.pfc.weight != w0).any(dim=1).view(-1, block)
+        picked = torch.zeros(moved.shape[0], dtype=torch.bool,
+                             device="cuda")
+        picked[gidx] = True
+        check(bool((moved.all(dim=1) == picked).all())
+              and not bool(moved[~picked].any())
+              and not bool(stayed[~picked].any()),
+              f"[multi_gpu] rank {rank}: rows outside the drawn groups "
+              f"changed")
+        torch.save({"gidx": gidx.cpu(), "grad": _group_grad(
+            task.state, w0, gidx, conf.wd).cpu()}, f"{out}.grad")
+        del w0, moved, stayed
+        for images, labs in rest:
+            t = time.perf_counter()
+            local = images[rank * MESH_B // 2:(rank + 1) * MESH_B // 2]
+            record(task.training_step((local, labs)), t)
+        step_module.sample_groups = sample_groups
+        rec.update(launches=[k.launches for k in kernels],
+                   tensor_cores=_ce_launches(True),
+                   cuda_cores=_ce_launches(False),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   built_s=built, rank=rank)
+        Path(out).write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
+def _group_grad(state, w0, gidx, wd):
+    """The step-1 SGD gradient of the head rows of groups ``gidx``: the
+    momentum then holds g + wd·w0 (as _head_grad reads it)."""
+    groups = (-1, WEBFACE_BLOCK, w0.shape[1])
+    mom = state.pfc.slots["momentum"].view(groups)[gidx]
+    return mom - wd * w0.view(groups)[gidx]
+
+
+def _mesh_reference(conf, images, labels, union):
+    """(loss, the encoder's gradient as one f32 vector, the gradient of the
+    union's groups' head rows) of the one-process step 1 on ``images`` and
+    ``labels``, fed the groups ``union``, from the (1, 2) mesh's initial
+    state: its head is the first num_classes_padded rows of the two shards'
+    table."""
+    import torch
+    import fr_tpu_torch.train.step as step_module
+    from fr_tpu_torch.train.task import FaceRecognitionTask, \
+        pfc_config_from_conf
+
+    task = FaceRecognitionTask(conf, stage="train", device="cuda", seed=0)
+    cfg = task.pfc_cfg
+    whole = pfc_config_from_conf(conf, 2).num_classes_padded
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    table = 0.01 * torch.randn((whole, cfg.embedding_size), generator=gen,
+                               device="cuda")
+    task.state.pfc.weight = table[:cfg.num_classes_padded].clone()
+    w0 = task.state.pfc.weight.clone()
+    del table
+    grads = []
+    clip = step_module.clip_by_global_norm
+
+    def clipping(g, max_norm):  # the encoder's gradient before the clip
+        grads.append(torch.cat([x.float().reshape(-1) for x in g]))
+        return clip(g, max_norm)
+
+    step_module.clip_by_global_norm = clipping
+    try:
+        m = step_module.make_train_step(conf, cfg, "cuda")(
+            task.state, images, labels, task.schedule(0), sample_gidx=union)
+    finally:
+        step_module.clip_by_global_norm = clip
+    return (m["loss"].item(), grads[0],
+            _group_grad(task.state, w0, union, conf.wd))
+
+
+def _multi_gpu_mesh(root):
+    """(b) two ranks on this card: see _mesh_rank_child, then one process's
+    steps on each rank's step-1 images fed the union of their groups."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    store = root / "store"
+    outs = [root / f"rank{r}.json" for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               MESH_RANK, str(r), str(store), str(outs[r])],
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"[multi_gpu] rank {r} exited "
+              f"{p.returncode}:\n{log[-4000:]}")
+    recs = [json.loads(o.read_text()) for o in outs]
+    ranks_s = time.perf_counter() - t0
+    for r, rec in enumerate(recs):
+        check(rec["launches"] == [MESH_STEPS] * 5
+              and rec["tensor_cores"] == [MESH_STEPS] * 3
+              and rec["cuda_cores"] == [0] * 3,
+              f"[multi_gpu] rank {r} launches {rec['launches']}, on the "
+              f"tensor cores {rec['tensor_cores']}, CUDA cores "
+              f"{rec['cuda_cores']}")
+        check(all(x == x and abs(x) != float("inf") for x in rec["losses"]),
+              f"[multi_gpu] rank {r} losses {rec['losses']}")
+    check(recs[0]["digests"] == recs[1]["digests"],
+          "[multi_gpu] the ranks' encoders differ after a step")
+    check(recs[0]["losses"] == recs[1]["losses"]
+          and recs[0]["norms"] == recs[1]["norms"],
+          "[multi_gpu] the ranks report different losses")
+    conf = _mesh_conf()
+    first, labels, _ = _mesh_batches(conf)
+    shards = [torch.load(f"{o}.grad", weights_only=True) for o in outs]
+    ng = MESH_CLASSES_LOCAL // WEBFACE_BLOCK
+    union = torch.cat([shards[0]["gidx"], shards[1]["gidx"] + ng]).cuda()
+    # the mesh's step-1 loss and gradients are the means of one process's
+    # on each rank's 64 images (each rank's forward, bit for bit, and the
+    # head columns of the union): the reference is their mean, and how far
+    # the two halves part is the batch order's own effect in bf16
+    (loss_a, enc_a, grad_a), (loss_b, enc_b, grad_b) = (
+        _mesh_reference(conf, x, y, union)
+        for x, y in ((first, labels), (first.flip(0), labels.flip(0))))
+    loss, grad = (loss_a + loss_b) / 2, (grad_a + grad_b) / 2
+    norm = float(torch.linalg.norm((enc_a + enc_b) / 2))
+    order = {"loss": abs(loss_a - loss_b) / abs(loss_a),
+             "grad_norm": float(torch.linalg.norm(enc_a - enc_b)
+                                / torch.linalg.norm(enc_a)),
+             "rows": float(torch.linalg.norm(grad_a - grad_b)
+                           / torch.linalg.norm(grad_a))}
+    del enc_a, enc_b, grad_a, grad_b
+    errs = {"loss": abs(recs[0]["losses"][0] - loss) / abs(loss),
+            "grad_norm": abs(recs[0]["norms"][0] - norm) / abs(norm)}
+    start = 0
+    for r, s in enumerate(shards):
+        ref = grad[start:start + len(s["gidx"])]
+        start += len(s["gidx"])
+        errs[f"rows{r}"] = float(torch.linalg.norm(s["grad"].cuda() - ref)
+                                 / torch.linalg.norm(ref))
+    # rows 10 and 11 return their gradients in bf16, the operands' dtype:
+    # the mesh rounds the sum of both halves once, the reference each half,
+    # so the head rows part by bf16's own rounding (about 2e-3 norm-wise)
+    check(errs["loss"] <= 1e-5 and errs["grad_norm"] <= 1e-3
+          and errs["rows0"] <= 5e-3 and errs["rows1"] <= 5e-3,
+          f"[multi_gpu] (b) step 1 against one process: {errs}; the two "
+          f"one-process steps part by {order}")
+    print(f"[multi_gpu] (b) webface42m ResNet100 bf16 use_fused, mesh "
+          f"(1, 2) as two ranks on this card over gloo, global b={MESH_B} "
+          f"(64 a rank), each rank {MESH_CLASSES_LOCAL:,} x 512 head rows "
+          f"and {len(shards[0]['gidx']):,} groups drawn a step: rows 9-13 "
+          f"launched once per step per rank (rows 9-11 on the tensor "
+          f"cores), only drawn rows changed, encoders bitwise equal after "
+          f"every step; step 1, rank 1 taking rank 0's images reversed, "
+          f"against the mean of one process's steps on each rank's images "
+          f"fed the union of the shards' groups: "
+          f"loss {errs['loss']:.2e}, grad_norm {errs['grad_norm']:.2e}, "
+          f"each shard's head-row gradient {errs['rows0']:.2e} and "
+          f"{errs['rows1']:.2e} (norm-wise); the two one-process steps "
+          f"part by {order['loss']:.2e} (loss), {order['grad_norm']:.2e} "
+          f"(encoder gradient) and {order['rows']:.2e} (head rows), "
+          f"the batch order's effect in bf16; losses {recs[0]['losses']}; "
+          f"ms per step by rank (host clock, the gradients summed over the "
+          f"host by gloo) {[[round(x, 1) for x in r['ms']] for r in recs]}; "
+          f"peak memory by rank {[round(r['peak_gb'], 2) for r in recs]} "
+          f"GB; ranks ready after {[round(r['built_s'], 1) for r in recs]} "
+          f"s; {ranks_s:.1f} s for the ranks, "
+          f"{time.perf_counter() - t0:.1f} s in all")
+
+
+def phase_multi_gpu():
+    """[multi_gpu] (a) and (b)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "cli").mkdir()
+        _multi_gpu_cli(Path(tmp) / "cli")
+        _multi_gpu_mesh(Path(tmp))
+    print(f"[multi_gpu] {time.perf_counter() - t0:.1f} s")
+
+
 def _entry(name, source, line, launches, err, ms, plain_ms, bound, lib):
     return {"name": name, "route": "cuda",
             "source": f"fr_tpu_torch/csrc/{source}",
@@ -4295,6 +4713,7 @@ def main() -> None:
     launches_rows, launches_ce_webface = phase_webface42m()
     phase_resnet100_train_golden()
     phase_resume()
+    phase_multi_gpu()
     with tempfile.TemporaryDirectory() as data_root:
         phase_data(data_root)
     with tempfile.TemporaryDirectory() as tools_root:
@@ -4450,4 +4869,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [RECORDED_CLI]:
+        _recorded_cli_child(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] == [MESH_RANK]:
+        _mesh_rank_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

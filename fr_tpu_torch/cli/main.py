@@ -10,9 +10,16 @@
     python -m fr_tpu_torch.cli.main --config webface42m --mode train \
         --network ResNet100 --sample_rate 0.1 --sample_block 64 --synthetic \
         --device cuda        # and again with --resume to go on from a save
+    python -m torch.distributed.run --nproc_per_node 8 \
+        -m fr_tpu_torch.cli.main --distributed --mesh_model 8 \
+        --config webface42m --network ResNet100 --sample_rate 0.1 \
+        --sample_block 64 --synthetic --device cuda
 
-On one device, every input path of fr_tpu's CLI: training from an image
-folder (``--data_dir``, else ``conf.train_dataset_dir``), from a packed
+On one device or on a ('data', 'model') mesh of processes (``--distributed``
+under torchrun, one process per GPU, NCCL on CUDA and gloo with
+``--device cpu``; ``--mesh_data`` / ``--mesh_model`` shape it, by default
+model = every process), every input path of fr_tpu's CLI: training from an
+image folder (``--data_dir``, else ``conf.train_dataset_dir``), from a packed
 corpus (``--packed_dir``) or from a packed corpus uploaded to the card
 (``--device_corpus``), validating on the config's pair sets where they
 exist; testing pairs (bcolz roots or ``.npy``/``.npz``) or cross sets (a
@@ -23,19 +30,20 @@ written in fr_tpu's ``.npz`` layout beside full-state checkpoints;
 ``--sample_block N`` samples the head in aligned groups; ``--resume``
 continues the newest matching run. ``--device {cuda,cpu}`` takes the place
 of JAX_PLATFORMS; it raises when CUDA is asked for and absent and never
-switches device on its own. ``--profile N`` records a torch.profiler trace
-of N training steps into <run dir>/profile/trace.json, and training writes
-TensorBoard scalars into <run dir>/TBLog. The multi-GPU flags raise
-NotImplementedError naming their ROADMAP item.
+switches device on its own; under ``--distributed`` a process runs on
+``cuda:LOCAL_RANK``. ``--profile N`` records a torch.profiler trace of N
+training steps into <run dir>/profile/trace.json, and training writes
+TensorBoard scalars into <run dir>/TBLog; on a mesh rank 0 writes the run
+directory and everything in it. ``--device_corpus`` runs on one process
+only: striping the corpus over the ranks is not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
-
-_MULTI_GPU = "multi-GPU runs are not ported yet: ROADMAP §1, multi-GPU"
 
 
 def parse_args(argv=None):
@@ -124,30 +132,79 @@ def make_save_dir(args, conf) -> Path:
     return save
 
 
-def _single_device(args):
-    if args.distributed or (args.mesh_data or 1) * (args.mesh_model or 1) > 1:
-        raise NotImplementedError(_MULTI_GPU)
+def _setup(args):
+    """(device, mesh): with ``--distributed``, the process group from
+    torchrun's environment (NCCL for --device cuda, gloo for cpu) and the
+    device cuda:LOCAL_RANK; then the mesh over its ranks (fr_tpu
+    cli/main.py:196-205)."""
+    import torch
+    import torch.distributed as dist
+
+    from fr_tpu_torch.parallel.mesh import make_mesh
+    from fr_tpu_torch.train.task import resolve_device
+
+    device = resolve_device(args.device)
+    if not args.distributed and (args.mesh_data or 1) * (args.mesh_model
+                                                         or 1) > 1:
+        raise ValueError(
+            f"--mesh_data {args.mesh_data} --mesh_model {args.mesh_model} "
+            f"is a multi-GPU mesh: launch one process per GPU with torchrun "
+            f"(python -m torch.distributed.run) and --distributed")
+    if args.distributed and "WORLD_SIZE" not in os.environ:
+        raise RuntimeError(
+            "--distributed runs a multi-GPU mesh under torchrun (python -m "
+            "torch.distributed.run), which sets RANK, LOCAL_RANK, "
+            "WORLD_SIZE and MASTER_ADDR; they are not set")
+    if args.distributed:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return device, make_mesh(data=args.mesh_data, model=args.mesh_model)
 
 
-def _loaders(args, conf, device):
+def _run_dir(args, conf, mesh):
+    """(run dir, log file or None): rank 0 makes the run dir and tells the
+    other ranks its name; only rank 0 logs to the file."""
+    if mesh.size == 1:
+        save = make_save_dir(args, conf)
+        return save, str(save / "log.txt")
+    import torch.distributed as dist
+    name = [str(make_save_dir(args, conf)) if mesh.rank == 0 else None]
+    dist.broadcast_object_list(name, src=0)
+    save = Path(name[0])
+    return save, str(save / "log.txt") if mesh.rank == 0 else None
+
+
+def _teardown(args) -> None:
+    import torch.distributed as dist
+    if args.distributed and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _loaders(args, conf, device, mesh=None):
     """(training loader, {name: validation pair set}) as fr_tpu's CLI makes
-    them; sets conf.n_classes from the corpus."""
+    them, each process loading its rows of every global batch; sets
+    conf.n_classes from the corpus."""
     from fr_tpu_torch.data import (ArrayPairDataset, ArrayTrainLoader,
                                    ImageFolderIndex, PairDataset,
                                    TrainLoader, synthetic_corpus,
                                    synthetic_pairs)
+    split = ({"process_index": mesh.rank, "process_count": mesh.size}
+             if mesh is not None else {})
     if args.synthetic:
         imgs, labels = synthetic_corpus(args.synthetic_classes, 8,
                                         conf.img_size)
         conf.n_classes = args.synthetic_classes
         conf.val_dataset = ["synthetic"]
-        train = ArrayTrainLoader(imgs, labels, conf.b)
+        train = ArrayTrainLoader(imgs, labels, conf.b, **split)
         pairs, same = synthetic_pairs(256, args.synthetic_classes,
                                       conf.img_size)
         return train, {"synthetic": ArrayPairDataset(pairs, same)}
     if args.packed_dir:
         from fr_tpu_torch.data import PackedTrainLoader
-        train = PackedTrainLoader(args.packed_dir, conf.b)
+        train = PackedTrainLoader(args.packed_dir, conf.b, **split)
         packed_size = train.images.shape[1]
         if packed_size != conf.img_size:
             raise ValueError(
@@ -157,13 +214,17 @@ def _loaders(args, conf, device):
         conf.n_classes = train.num_classes
         if args.device_corpus:
             from fr_tpu_torch.data import DeviceCorpusLoader
+            if split.get("process_count", 1) > 1:
+                raise ValueError("--device_corpus runs on one process: "
+                                 "striping the corpus over the ranks is "
+                                 "not ported")
             train = DeviceCorpusLoader(train.images, train.labels, conf.b,
                                        device=device)
     else:
         index = ImageFolderIndex(conf.train_dataset_dir)
         conf.n_classes = index.num_classes
         train = TrainLoader(index, conf.b, conf.img_size,
-                            prefetch=conf.get("num_workers", 4))
+                            prefetch=conf.get("num_workers", 4), **split)
     vals = {}
     for name, d in zip(conf.val_dataset, conf.val_dataset_dir):
         try:
@@ -212,40 +273,43 @@ def _test_sets(args, conf):
 
 
 def train(args):
-    """Training on one device; returns the task (its ``history`` holds each
-    epoch's results)."""
-    from fr_tpu_torch.train.task import FaceRecognitionTask, resolve_device
+    """Training on one device or on this process's rank of the mesh;
+    returns the task (its ``history`` holds each epoch's results)."""
+    from fr_tpu_torch.train.task import FaceRecognitionTask
     from fr_tpu_torch.train.trainer import Trainer
 
-    _single_device(args)
-    device = resolve_device(args.device)
-    conf = build_conf(args)
-    save = make_save_dir(args, conf)
-    logger = str(save / "log.txt")
-
-    loader, vals = _loaders(args, conf, device)
-    task = FaceRecognitionTask(conf, logger=logger, stage="train",
-                               device=device)
-    return Trainer(conf, save, "train", logger).train(
-        task, loader, vals, resume=args.resume, profile_steps=args.profile)
+    device, mesh = _setup(args)
+    try:
+        conf = build_conf(args)
+        save, logger = _run_dir(args, conf, mesh)
+        loader, vals = _loaders(args, conf, device, mesh)
+        task = FaceRecognitionTask(conf, logger=logger, stage="train",
+                                   device=device, mesh=mesh)
+        return Trainer(conf, save, "train", logger, rank=mesh.rank).train(
+            task, loader, vals, resume=args.resume,
+            profile_steps=args.profile)
+    finally:
+        _teardown(args)
 
 
 def test(args):
     """Pair or cross test; returns {dataset name: Config(acc, infer_time,
-    roc, embeddings)}."""
-    from fr_tpu_torch.train.task import FaceRecognitionTask, resolve_device
+    roc, embeddings)}. On a mesh every rank embeds its slice of each batch
+    and gathers the rest."""
+    from fr_tpu_torch.train.task import FaceRecognitionTask
     from fr_tpu_torch.train.trainer import Trainer
 
-    _single_device(args)
-    device = resolve_device(args.device)
-    conf = build_conf(args)
-    save = make_save_dir(args, conf)
-    logger = str(save / "log.txt")
-
-    tests = _test_sets(args, conf)
-    task = FaceRecognitionTask(conf, logger=logger, stage="test",
-                               device=device)
-    return Trainer(conf, save, "test", logger).test(task, tests)
+    device, mesh = _setup(args)
+    try:
+        conf = build_conf(args)
+        save, logger = _run_dir(args, conf, mesh)
+        tests = _test_sets(args, conf)
+        task = FaceRecognitionTask(conf, logger=logger, stage="test",
+                                   device=device, mesh=mesh)
+        return Trainer(conf, save, "test", logger, rank=mesh.rank).test(
+            task, tests)
+    finally:
+        _teardown(args)
 
 
 def main(argv=None):

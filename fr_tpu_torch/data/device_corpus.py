@@ -6,8 +6,9 @@ is uploaded once as a uint8 tensor and each batch is gathered on the device
 with ``index_select``: no image byte crosses the host-device link on the hot
 path. Each epoch uploads its permutation once (KBs); a step only slices it.
 The permutation is fr_tpu's numpy draw seeded by ``(seed, epoch, 0)``, so
-the batches are fr_tpu's. Striping the corpus over several devices is
-multi-GPU work (ROADMAP §1, multi-GPU).
+the batches are fr_tpu's. Striping the corpus over the ranks of a mesh is
+not ported: the CLI refuses ``--device_corpus`` under more than one process,
+as fr_tpu's CLI asserts one (ROADMAP §1 item 5).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Training datasets: a class-per-directory image folder and an in-memory
-corpus (counterpart of fr_tpu/data/folder.py, on one process).
+corpus (counterpart of fr_tpu/data/folder.py).
 
 ``ImageFolderIndex`` scans ``<root>/imgs/<class>/*`` with the reference's
 CustomImageFolder semantics (reference utils/data_partial.py:95-164,
@@ -10,6 +10,14 @@ in the training step. Every epoch draws a permutation seeded by
 ``seed + epoch`` (DistributedSampler.set_epoch, reference
 utils/trainer.py:72) and drops the last partial batch (reference
 utils/data_partial.py:271-278), so the batches are fr_tpu's.
+
+Under several processes (the reference's DistributedSampler role,
+utils/data_partial.py:273) ``batch_size`` is the global batch: every
+process draws the same permutation, decodes only its contiguous slice of
+each global batch, rows ``[process_index·b_loc, (process_index + 1)·b_loc)``,
+and yields (local images, global labels). The labels come from the index,
+not from decoding, so the whole vector costs nothing on every process; the
+training step takes it whole.
 
 Decoding takes the native threaded libjpeg pool (fr_tpu_torch/native) when
 every file of a batch is a JPEG and the pool built, else cv2 per image.
@@ -73,19 +81,23 @@ def _decode_resize(path: str, img_size: int) -> np.ndarray:
 
 
 class TrainLoader:
-    """Epoch iterator of (uint8 images (B, H, W, 3), int32 labels (B,)),
+    """Epoch iterator of (uint8 images (B/P, H, W, 3), int32 labels (B,)),
     decoded ``prefetch`` batches ahead on a background thread (the
     reference uses torch DataLoader workers, utils/data_partial.py:271-278).
     A decode error is raised again at the consumer; leaving the epoch early
-    stops the thread."""
+    stops the thread. P = process_count (see the module docstring)."""
 
     def __init__(self, index: ImageFolderIndex, batch_size: int,
-                 img_size: int, seed: int = 0, prefetch: int = 4):
+                 img_size: int, seed: int = 0, prefetch: int = 4,
+                 process_index: int = 0, process_count: int = 1):
+        _check_split(batch_size, process_count)
         self.index = index
         self.batch_size = batch_size
         self.img_size = img_size
         self.seed = seed
         self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
 
     def steps_per_epoch(self) -> int:
         return len(self.index) // self.batch_size  # drop_last=True
@@ -109,6 +121,7 @@ class TrainLoader:
         order = np.random.default_rng(self.seed + epoch).permutation(
             len(self.index))
         nsteps = self.steps_per_epoch()
+        lo, hi = _local_rows(self)
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -130,7 +143,7 @@ class TrainLoader:
                     sel = order[s * self.batch_size:(s + 1) * self.batch_size]
                     labels = np.array(
                         [self.index.samples[int(i)][1] for i in sel], np.int32)
-                    if not put((self._decode_batch(sel), labels)):
+                    if not put((self._decode_batch(sel[lo:hi]), labels)):
                         return
                 put(None)
             except BaseException as e:  # raised again at the consumer
@@ -153,17 +166,22 @@ class TrainLoader:
 
 class ArrayTrainLoader:
     """In-memory training batches (synthetic data, tests): the same
-    epoch-seeded permutation and whole batches only."""
+    epoch-seeded permutation, whole batches only, and the same split over
+    processes as TrainLoader."""
 
     def __init__(self, images: np.ndarray, labels: np.ndarray,
-                 batch_size: int, seed: int = 0):
+                 batch_size: int, seed: int = 0,
+                 process_index: int = 0, process_count: int = 1):
         if images.dtype != np.uint8 or images.ndim != 4:
             raise ValueError(f"uint8 NHWC images expected, got "
                              f"{images.dtype} {images.shape}")
+        _check_split(batch_size, process_count)
         self.images = images
         self.labels = labels.astype(np.int32)
         self.batch_size = batch_size
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
 
     def steps_per_epoch(self) -> int:
         return len(self.images) // self.batch_size
@@ -171,6 +189,19 @@ class ArrayTrainLoader:
     def epoch(self, epoch: int):
         order = np.random.default_rng(self.seed + epoch).permutation(
             len(self.images))
+        lo, hi = _local_rows(self)
         for s in range(self.steps_per_epoch()):
             sel = order[s * self.batch_size:(s + 1) * self.batch_size]
-            yield self.images[sel], self.labels[sel]
+            yield self.images[sel[lo:hi]], self.labels[sel]
+
+
+def _check_split(batch_size: int, process_count: int) -> None:
+    if batch_size % process_count:
+        raise ValueError(f"global batch {batch_size} does not split over "
+                         f"{process_count} processes")
+
+
+def _local_rows(loader) -> Tuple[int, int]:
+    """[lo, hi): the process's rows of each global batch."""
+    b_loc = loader.batch_size // loader.process_count
+    return loader.process_index * b_loc, (loader.process_index + 1) * b_loc

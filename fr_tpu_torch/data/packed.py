@@ -1,5 +1,5 @@
 """Packed training corpus: pre-decoded uint8 images in a memory-mapped file
-(counterpart of fr_tpu/data/packed.py, on one process).
+(counterpart of fr_tpu/data/packed.py).
 
 Packing decodes a CustomImageFolder corpus once; training then
 memory-maps ``images.npy`` (N, H, W, 3) uint8 and gathers each batch with
@@ -20,13 +20,14 @@ from typing import Iterator, Tuple
 
 import numpy as np
 
+from fr_tpu_torch.data.folder import (ImageFolderIndex, _check_split,
+                                      _decode_resize, _local_rows)
+
 
 def pack_image_folder(src_root: str, dst_root: str, img_size: int,
                       log_every: int = 1000) -> int:
     """Convert a CustomImageFolder-layout corpus (<src>/imgs/<class>/*) into
     the packed format, decoding with cv2. Returns the number of images."""
-    from fr_tpu_torch.data.folder import ImageFolderIndex, _decode_resize
-
     index = ImageFolderIndex(src_root)
     dst = Path(dst_root)
     dst.mkdir(parents=True, exist_ok=True)
@@ -49,9 +50,13 @@ def pack_image_folder(src_root: str, dst_root: str, img_size: int,
 class PackedTrainLoader:
     """Epoch iterator over a packed corpus: the epoch-seeded permutation
     (DistributedSampler.set_epoch, reference utils/trainer.py:72), whole
-    batches, each batch's rows read in sorted order."""
+    batches, each batch's rows read in sorted order. Under several
+    processes it yields (the process's slice of the sorted batch, the
+    global labels), as data/folder.py's loaders do."""
 
-    def __init__(self, root: str, batch_size: int, seed: int = 0):
+    def __init__(self, root: str, batch_size: int, seed: int = 0,
+                 process_index: int = 0, process_count: int = 1):
+        _check_split(batch_size, process_count)
         root_p = Path(root)
         self.images = np.load(str(root_p / "images.npy"), mmap_mode="r")
         self.labels = np.load(str(root_p / "labels.npy"))
@@ -60,6 +65,8 @@ class PackedTrainLoader:
                         if classes_file.exists() else None)
         self.batch_size = batch_size
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
 
     @property
     def num_classes(self) -> int:
@@ -75,9 +82,11 @@ class PackedTrainLoader:
         order = np.random.default_rng(self.seed + epoch).permutation(
             len(self.labels))
         bs = self.batch_size
+        lo, hi = _local_rows(self)
         for s in range(self.steps_per_epoch()):
             sel = np.sort(order[s * bs:(s + 1) * bs])  # sequential reads
-            imgs = native.gather_u8_native(self.images, sel)
+            local = sel[lo:hi]
+            imgs = native.gather_u8_native(self.images, local)
             if imgs is None:
-                imgs = np.ascontiguousarray(self.images[sel])
+                imgs = np.ascontiguousarray(self.images[local])
             yield imgs, self.labels[sel].astype(np.int32)

@@ -1,8 +1,12 @@
-"""PartialFC on one device (counterpart of fr_tpu/heads/partial_fc.py with
-model_axis=None: one class shard, so no collectives).
+"""PartialFC: the class-sharded margin-softmax head (counterpart of
+fr_tpu/heads/partial_fc.py).
 
-The (num_classes, emd) class-centre matrix is padded to num_classes_padded
-and the padding masked out of the softmax; negative sampling
+The (num_classes, emd) class-centre matrix is padded to num_classes_padded,
+split into ``model_size`` equal shards over the mesh's 'model' axis, and the
+padding masked out of the softmax. Each shard holds num_local rows from
+``model_idx·num_local``; the softmax over all of them is assembled from each
+shard's part with ``pmax``/``psum`` over the model group
+(``shard_softmax_ce``, parallel/collectives.py). Negative sampling
 (sample_rate < 1) draws num_sample sorted columns per step with the batch's
 positives forced in, and the labels are remapped onto the sampled columns.
 fr_tpu's deliberate divergences from its torch reference carry over: excess
@@ -31,15 +35,18 @@ import torch
 
 from fr_tpu_torch.heads.margins import get_margin_fn
 from fr_tpu_torch.models.common import l2_normalize
+from fr_tpu_torch.parallel.collectives import pmax, psum
+from fr_tpu_torch.parallel.mesh import local_class_slice
 
 MASK_VALUE = -1e30  # additive logit mask for padded/invalid class columns
 
 
 @dataclasses.dataclass(frozen=True)
 class PFCConfig:
-    """Static configuration of the head: fr_tpu's fields and properties for
-    one class shard (its model_size is 1, its TPU fused_tiles have no use
-    here)."""
+    """Static configuration of the head: fr_tpu's fields and properties
+    (its TPU fused_tiles have no use here). ``model_size``, the size of the
+    mesh's 'model' axis, is fr_tpu's third field; it is the last one here,
+    so that the positional calls of the one-device head stand."""
     num_classes: int
     embedding_size: int
     sample_rate: float = 1.0
@@ -51,16 +58,17 @@ class PFCConfig:
     use_fused: bool = False      # the margin-softmax CE kernels
     easy_margin: bool = False
     sample_block: int = 1
+    model_size: int = 1          # size of the 'model' mesh axis
 
     @property
     def num_classes_padded(self) -> int:
-        m = max(1, self.sample_block)
+        m = self.model_size * max(1, self.sample_block)
         return ((self.num_classes + m - 1) // m) * m
 
     @property
     def num_local(self) -> int:
-        """Classes of the one shard: all of them, padding included."""
-        return self.num_classes_padded
+        """Classes of one shard, padding included."""
+        return self.num_classes_padded // self.model_size
 
     @property
     def num_sample(self) -> int:
@@ -98,10 +106,16 @@ class PFCState:
 
 
 def init_pfc_state(cfg: PFCConfig, generator: torch.Generator,
-                   device) -> PFCState:
-    """weight ~ N(0, 0.01), zero slots."""
+                   device, model_idx: int = 0) -> PFCState:
+    """weight ~ N(0, 0.01), zero slots: the rows of shard ``model_idx`` of
+    the whole padded table drawn from ``generator``, so that every mesh
+    shape starts from the same table."""
     w = 0.01 * torch.randn((cfg.num_classes_padded, cfg.embedding_size),
                            generator=generator, device=device)
+    if cfg.model_size > 1:
+        start, num_local = local_class_slice(cfg.num_classes_padded,
+                                             cfg.model_size, model_idx)
+        w = w[start:start + num_local].clone()
     if cfg.optimizer == "SGD":
         slots = {"momentum": torch.zeros_like(w)}
     elif cfg.optimizer == "AdamW":
@@ -112,9 +126,12 @@ def init_pfc_state(cfg: PFCConfig, generator: torch.Generator,
     return PFCState(weight=w, slots=slots, count=0)
 
 
-def shard_valid_mask(cfg: PFCConfig, device=None) -> torch.Tensor:
-    """True for the real (non-padding) class rows."""
-    return torch.arange(cfg.num_local, device=device) < cfg.num_classes
+def shard_valid_mask(cfg: PFCConfig, model_idx: int,
+                     device=None) -> torch.Tensor:
+    """True for the real (non-padding) class rows of shard ``model_idx``."""
+    gidx = model_idx * cfg.num_local + torch.arange(cfg.num_local,
+                                                    device=device)
+    return gidx < cfg.num_classes
 
 
 def sample_columns(cfg: PFCConfig, generator: torch.Generator,
@@ -130,18 +147,20 @@ def sample_columns(cfg: PFCConfig, generator: torch.Generator,
     return torch.sort(idx).values
 
 
-def shard_group_masks(cfg: PFCConfig, labels: torch.Tensor,
+def shard_group_masks(cfg: PFCConfig, model_idx: int, labels: torch.Tensor,
                       owned: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Group-level (positives, valid) masks, (num_local // sample_block,)
-    each, built without any num_local-sized tensor: the positives scatter
+    """Group-level (positives, valid) masks of shard ``model_idx``,
+    (num_local // sample_block,) each, built without any num_local-sized
+    tensor: ``labels`` are shard-local class ids, the owned ones scatter
     straight onto the group axis, and a group holds a real class iff its
-    first row id is below num_classes."""
+    first row's global id is below num_classes."""
     block = cfg.sample_block
     ng_total = cfg.num_local // block
     gpos = torch.zeros(ng_total, dtype=torch.bool, device=labels.device)
     gpos[labels[owned] // block] = True
-    first_row = torch.arange(ng_total, device=labels.device) * block
+    first_row = (model_idx * cfg.num_local
+                 + torch.arange(ng_total, device=labels.device) * block)
     return gpos, first_row < cfg.num_classes
 
 
@@ -170,19 +189,23 @@ def remap_labels(cfg: PFCConfig, idx: torch.Tensor, local_labels: torch.Tensor,
 
 def shard_softmax_ce(cfg: PFCConfig, emb_row: torch.Tensor,
                      label_cols: torch.Tensor, w_act: torch.Tensor,
-                     col_valid: torch.Tensor) -> torch.Tensor:
-    """Cosine logits → margin → softmax CE, per sample.
+                     col_valid: torch.Tensor,
+                     model_group=None) -> torch.Tensor:
+    """Cosine logits → margin → distributed softmax CE, per sample.
 
-    emb_row (N, D) L2-normalised embeddings; label_cols (N,) target column
-    or -1; w_act (K, D) the (sampled) class centres; col_valid (K,) False
-    for padding columns. Returns the per-sample loss (N,) f32."""
+    emb_row (N, D) L2-normalised embeddings of this data row's samples;
+    label_cols (N,) the target's column on this shard, or -1 where it lives
+    on another shard or was not sampled; w_act (K, D) this shard's (sampled)
+    class centres; col_valid (K,) False for padding columns; model_group the
+    model axis's process group, None for one shard. Returns the per-sample
+    loss (N,) f32, the same on every rank of the group."""
     compute = cfg.compute_dtype
     if cfg.use_fused:
         from fr_tpu_torch.ops.fused_pfc import fused_margin_softmax_ce
         return fused_margin_softmax_ce(
             l2_normalize(emb_row.float()).to(compute),
             l2_normalize(w_act.float()).to(compute),
-            label_cols, col_valid, cfg)
+            label_cols, col_valid, cfg, model_group)
     ne = l2_normalize(emb_row).to(compute)
     nw = l2_normalize(w_act).to(compute)
     # f32 products of the compute-dtype operands: fr_tpu's
@@ -192,12 +215,16 @@ def shard_softmax_ce(cfg: PFCConfig, emb_row: torch.Tensor,
     logits = cfg.margin_fn()(logits, label_cols)
     logits = torch.where(col_valid[None, :], logits, MASK_VALUE)
     # the max shift cancels in the softmax, so it carries no gradient
-    mx = torch.amax(logits, dim=1, keepdim=True).detach()
+    mx = pmax(torch.amax(logits, dim=1, keepdim=True), model_group)
     ex = torch.exp(logits - mx)
-    denom = torch.sum(ex, dim=1)
+    denom = psum(torch.sum(ex, dim=1), model_group)
     has_target = label_cols >= 0
     tgt_ex = torch.gather(ex, 1, torch.clamp_min(label_cols, 0)[:, None])[:, 0]
-    tgt = torch.where(has_target, tgt_ex, 0.0) / denom
+    # fr_tpu sums tgt_ex / denom over the shards: one shard at most holds
+    # the target, so summing the numerators first gives the same bits, and
+    # leaves every term after the sums replicated over the group (psum's
+    # backward is the identity)
+    tgt = psum(torch.where(has_target, tgt_ex, 0.0), model_group) / denom
     return -torch.log(torch.clamp_min(tgt, 1e-30))
 
 
@@ -213,8 +240,8 @@ def dense_partial_fc_loss(cfg: PFCConfig, embeddings: torch.Tensor,
 
 def label_columns(cfg: PFCConfig, labels: torch.Tensor,
                   idx: Optional[torch.Tensor]) -> torch.Tensor:
-    """Each sample's target column among the active columns, or -1
-    (fr_tpu/train/step.py:155-167 on one shard)."""
+    """Each sample's target column among the shard's active columns, or -1
+    (fr_tpu/train/step.py:155-167); ``labels`` are shard-local class ids."""
     owned = (labels >= 0) & (labels < cfg.num_local)
     if idx is None:
         return torch.where(owned, labels, -1)

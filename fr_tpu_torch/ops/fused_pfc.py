@@ -23,9 +23,14 @@ raises. Each wrapper counts its launches in ``.launches``. All three kernels
 have two bodies: bf16 with D a multiple of 16, at most 512, takes the
 tensor-core kernels (``margin_ce_stats_tc``, ``margin_ce_grad_{emb,w}_tc``)
 while ``TENSOR_CORES`` is on; f32, any other D and the switch off take the
-CUDA-core ones. ``route_launches`` counts every launch by body. One shard
-only (fr_tpu's model_axis=None); the class-sharded merge is ROADMAP §1,
-multi-GPU.
+CUDA-core ones. ``route_launches`` counts every launch by body.
+
+On a class-sharded head (a model group) each rank's kernels see only its
+shard's columns, and the forward merges the shards' statistics as fr_tpu's
+``_fwd_impl`` does (fused_pfc.py:347-357): m_g = pmax(m), then d and t
+rescaled by exp(m − m_g) and summed over the group. The backward kernels
+take the global m_g and d_g; their grad_emb is the shard's part, which the
+embeddings' all-gather sums in its backward (parallel/collectives.py).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Tuple
 import torch
 
 from fr_tpu_torch.ops.fused_window_attn import _stream, _tc_slots
+from fr_tpu_torch.parallel.collectives import pmax, psum
 
 MASK = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -243,8 +249,14 @@ class _FusedMarginCE(torch.autograd.Function):
     logits in the backward."""
 
     @staticmethod
-    def forward(ctx, emb, w, label_cols, col_valid, cfg):
+    def forward(ctx, emb, w, label_cols, col_valid, cfg, model_group):
         m, d, t = margin_ce_stats(emb, w, label_cols, col_valid, cfg)
+        if model_group is not None:
+            m_g = pmax(m, model_group)
+            scale = torch.exp(m - m_g)
+            d = psum(d * scale, model_group)
+            t = psum(t * scale, model_group)
+            m = m_g
         p = t / d
         ctx.save_for_backward(emb, w, label_cols, col_valid, m, d, p)
         ctx.cfg = cfg
@@ -264,19 +276,23 @@ class _FusedMarginCE(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             gw = margin_ce_grad_w(emb, w, label_cols, col_valid, m, d, g,
                                   cfg).to(w.dtype)
-        return ge, gw, None, None, None
+        return ge, gw, None, None, None, None
 
 
 def fused_margin_softmax_ce(emb: torch.Tensor, w: torch.Tensor,
                             label_cols: torch.Tensor,
-                            col_valid: torch.Tensor, cfg) -> torch.Tensor:
-    """Per-sample margin-softmax CE over the class columns of one shard.
+                            col_valid: torch.Tensor, cfg,
+                            model_group=None) -> torch.Tensor:
+    """Per-sample margin-softmax CE over the class columns of every shard
+    of the model group (one shard when it is None).
 
     emb (N, D) and w (K, D): L2-normalised, in the compute dtype (fed that
-    way by shard_softmax_ce); label_cols (N,) int, −1 for no target;
-    col_valid (K,) bool; cfg a PFCConfig (margin, s, m, easy_margin,
-    mixed_precision). Returns the per-sample loss (N,) f32."""
-    return _FusedMarginCE.apply(emb, w, label_cols, col_valid, cfg)
+    way by shard_softmax_ce), w this shard's columns; label_cols (N,) int,
+    −1 where the target is not among them; col_valid (K,) bool; cfg a
+    PFCConfig (margin, s, m, easy_margin, mixed_precision). Returns the
+    per-sample loss (N,) f32, the same on every rank of the group."""
+    return _FusedMarginCE.apply(emb, w, label_cols, col_valid, cfg,
+                                model_group)
 
 
 # ---------------------------------------------------------------------------

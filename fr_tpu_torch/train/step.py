@@ -1,14 +1,33 @@
 """The training step and the embedding step (counterpart of
-fr_tpu/train/step.py: ``_device_step`` :103-226 with one device, the
-augmentation dispatch :253-272, and :452-475, :545-559), single device.
+fr_tpu/train/step.py: ``_device_step`` :83-280, the augmentation dispatch
+:253-272, ``shard_batch`` :478-509, the embed step :452-475 and
+``embed_global_batch`` :545-559), on one device or one rank of a
+('data', 'model') mesh (parallel/mesh.py).
 
 The training step, in fr_tpu's order:
-  sample the head's columns (positives forced in) → each sample's target
-  column → encoder in train mode (BN batch statistics, running statistics
-  updated) → f32 L2-normalise → shard_softmax_ce, mean over the batch →
-  backward → clip the encoder's gradients to global norm 5 → update the
-  encoder, then the head's sampled rows.
+  sample the shard's head columns (positives forced in) → each sample's
+  target column → encoder in train mode on the rank's images (local BN
+  batch statistics, running statistics updated) → f32 L2-normalise →
+  all-gather over the model group → shard_softmax_ce (pmax/psum over the
+  model group), mean over the data row → backward → sum the gradients
+  (the encoder's over the world, the head rows' over the data group) →
+  clip the encoder's gradients to global norm 5 → average the BN running
+  statistics over the world → update the encoder, then the shard's sampled
+  rows.
 Augmentation, when configured, runs as its own call before the step.
+
+Gradients on a mesh. fr_tpu's loss is the pmean over 'data' of each row's
+mean, and its vma-aware autodiff sums the cotangent of every replicated
+input over the mesh axes it is replicated on (step.py:189-194). So each
+rank backpropagates its row's loss divided by the data size through its
+own images (the all-gather's backward sums the embeddings' cotangents over
+the model group, parallel/collectives.py), and then the encoder's
+gradients are summed over the world in one flat bucket and the head rows'
+over the data group: fr_tpu's gradients exactly, not DDP's average. Every
+rank then holds the same clipped gradient, so the ranks' encoders stay
+equal bit for bit. BatchNorm uses each rank's own batch statistics, never
+SyncBatchNorm (step.py:16-17). At mesh (1, 1) no collective runs and the
+step is the one-device step.
 
 With block-aligned sampling (sample_block > 1) the head draws aligned groups
 of rows: the masks stay at group granularity, the column mask is arithmetic
@@ -23,13 +42,16 @@ time from the encoder's; outside a profile the ranges do nothing.
 
 Batches reach the step from the host or already on the device:
 ``prefetch_to_device`` copies host batches a few steps ahead on a side CUDA
-stream, and a tensor already on the step's device is taken as it is.
+stream, and a tensor already on the step's device is taken as it is. On a
+mesh the images are the rank's rows of the global batch (``shard_batch``,
+or a loader given ``process_index=rank``) and the labels the whole global
+vector.
 
 Random numbers come from explicit generators, one per fr_tpu RNG stream
 (``stream_generators``), which live in the training state so that a
 checkpoint carries them; JAX and torch streams differ, so a test feeds the
 JAX side's sampled columns or groups in through ``sample_idx`` /
-``sample_gidx``.
+``sample_gidx`` (the shard's own, on a mesh).
 """
 
 from __future__ import annotations
@@ -49,6 +71,9 @@ from fr_tpu_torch.heads.partial_fc import (PFCConfig, label_columns,
                                           shard_valid_mask)
 from fr_tpu_torch.models.common import l2_normalize
 from fr_tpu_torch.ops.sparse_rows import expand_group_index, grouped_gather
+from fr_tpu_torch.parallel.collectives import (all_gather, pmean,
+                                               pmean_flat_, psum_flat_)
+from fr_tpu_torch.parallel.mesh import Mesh, local_class_slice
 from fr_tpu_torch.train.optim import (clip_by_global_norm, encoder_update,
                                       pfc_row_update)
 from fr_tpu_torch.train.state import TrainState
@@ -57,44 +82,57 @@ MAX_GRAD_NORM = 5.0
 
 
 def make_train_step(conf, pfc_cfg: PFCConfig, device,
-                    augment_cfg: Optional[tuple] = None) -> Callable:
+                    augment_cfg: Optional[tuple] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """step(state, images, labels, lr, sample_idx=None, sample_gidx=None)
     → metrics.
 
-    images: (B, H, W, 3) float32, or uint8 when augment_cfg is given; labels
-    (B,) int class ids; lr a float. Updates ``state`` in place and returns
-    {"loss", "grad_norm"} as device scalars and "lr". ``sample_idx`` (test
-    use) replaces the drawn sampled columns with a given sorted index
-    vector, ``sample_gidx`` the drawn groups of block-aligned sampling with
-    given sorted group ids. The encoder and the generators are the
-    state's."""
+    images: (b_loc, H, W, 3) float32, or uint8 when augment_cfg is given:
+    the rank's rows of the global batch (all of it on one device); labels
+    the global batch's (B,) int class ids; lr a float. Updates ``state`` in
+    place and returns {"loss", "grad_norm"} as device scalars (the global
+    batch's, the same on every rank) and "lr". ``sample_idx`` (test use)
+    replaces the shard's drawn sampled columns with a given sorted index
+    vector of shard-local ids, ``sample_gidx`` the drawn groups of
+    block-aligned sampling with given sorted shard-local group ids. The
+    encoder and the generators are the state's; ``mesh`` is this rank's
+    place in the mesh (None: one device)."""
     device = torch.device(device)
     optimizer = conf.optimizer_name
     cfg = pfc_cfg
+    mesh = mesh if mesh is not None else Mesh(1, 1)
+    if cfg.model_size != mesh.model:
+        raise ValueError(f"the head is split {cfg.model_size} ways, the "
+                         f"mesh's model axis {mesh.model}")
+    model_group = mesh.model_group
+    class_start, num_local = local_class_slice(cfg.num_classes_padded,
+                                               mesh.model, mesh.model_idx)
     grouped = cfg.sampling and cfg.sample_block > 1
     # the grouped path keeps every mask at group granularity
-    valid = None if grouped else shard_valid_mask(cfg, device)
+    valid = None if grouped else shard_valid_mask(cfg, mesh.model_idx,
+                                                  device)
 
     def head_rows(labels, pfc, gens, sample_idx, sample_gidx):
-        """(idx, gidx, col_valid, w_rows): the active rows' ids (None for
-        all), their group ids under block-aligned sampling (else None), the
-        mask of the real columns among them and the rows themselves."""
+        """(idx, gidx, col_valid, w_rows): the active rows' shard-local ids
+        (None for all), their group ids under block-aligned sampling (else
+        None), the mask of the real columns among them and the rows
+        themselves. Positives are forced in from the global batch, so every
+        data row of a shard draws the same columns."""
+        loc = labels - class_start
+        owned = (loc >= 0) & (loc < num_local)
         if grouped:
             if sample_gidx is None:
-                owned = (labels >= 0) & (labels < cfg.num_local)
-                gidx = sample_groups(cfg, gens["sample"],
-                                     *shard_group_masks(cfg, labels, owned))
+                gidx = sample_groups(cfg, gens["sample"], *shard_group_masks(
+                    cfg, mesh.model_idx, loc, owned))
             else:
                 gidx = torch.as_tensor(sample_gidx).to(device).long()
             idx = expand_group_index(gidx, cfg.sample_block)
-            return (idx, gidx, idx < cfg.num_classes,
+            return (idx, gidx, idx + class_start < cfg.num_classes,
                     grouped_gather(pfc.weight, gidx, cfg.sample_block))
         if cfg.sampling:
             if sample_idx is None:
-                owned = (labels >= 0) & (labels < cfg.num_local)
-                pos = torch.zeros(cfg.num_local, dtype=torch.bool,
-                                  device=device)
-                pos[labels[owned]] = True
+                pos = torch.zeros(num_local, dtype=torch.bool, device=device)
+                pos[loc[owned]] = True
                 idx = sample_columns(cfg, gens["sample"], pos, valid)
             else:
                 idx = torch.as_tensor(sample_idx).to(device).long()
@@ -111,10 +149,15 @@ def make_train_step(conf, pfc_cfg: PFCConfig, device,
         if augment_cfg is not None:
             images = augment(images, augment_cfg, gens["augment"])
         pfc = state.pfc
+        row_size = mesh.model * images.shape[0]
         with record_function("pfc_head:rows"):
             idx, gidx, col_valid, w_rows = head_rows(labels, pfc, gens,
                                                      sample_idx, sample_gidx)
-            label_cols = label_columns(cfg, labels, idx)
+            # this data row's labels (fr_tpu/train/step.py:157-167)
+            labels_row = labels if row_size == labels.shape[0] else \
+                labels[mesh.data_idx * row_size:(mesh.data_idx + 1)
+                       * row_size]
+            label_cols = label_columns(cfg, labels_row - class_start, idx)
 
         encoder = state.encoder
         encoder.train()
@@ -122,13 +165,19 @@ def make_train_step(conf, pfc_cfg: PFCConfig, device,
         w_act = w_rows.detach().requires_grad_(True)
         emb = l2_normalize(encoder(images, gens["dropout"]).float())
         with record_function("pfc_head:loss"):
-            loss = shard_softmax_ce(cfg, emb, label_cols, w_act,
-                                    col_valid).mean()
+            loss = shard_softmax_ce(cfg, all_gather(emb, model_group),
+                                    label_cols, w_act, col_valid,
+                                    model_group).mean()
         # the head's backward, then the encoder's from the embeddings'
         # gradient: the same graph in two walks
         with record_function("pfc_head:backward"):
-            g_emb, g_rows = torch.autograd.grad(loss, [emb, w_act])
-        g_enc = torch.autograd.grad(emb, params, g_emb)
+            g_emb, g_rows = torch.autograd.grad(
+                loss / mesh.data if mesh.data > 1 else loss, [emb, w_act])
+        g_enc = list(torch.autograd.grad(emb, params, g_emb))
+        psum_flat_(g_enc, mesh.world_group)
+        psum_flat_([g_rows], mesh.data_group)
+        pmean_flat_([b for b in encoder.buffers()
+                     if b.is_floating_point()], mesh.world_group)
 
         g_enc, grad_norm = clip_by_global_norm(g_enc, MAX_GRAD_NORM)
         slots = {k: [v[n] for n in names] for k, v in state.opt_slots.items()}
@@ -140,9 +189,25 @@ def make_train_step(conf, pfc_cfg: PFCConfig, device,
                            block=cfg.sample_block)
         state.step += 1
         pfc.count += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm, "lr": lr}
+        return {"loss": pmean(loss.detach(), mesh.data_group),
+                "grad_norm": grad_norm, "lr": lr}
 
     return step
+
+
+def shard_batch(mesh: Optional[Mesh], images, labels):
+    """(the rank's images, the global labels) of a global host batch: rows
+    ``[rank·b_loc, (rank + 1)·b_loc)`` of the images, the batch split over
+    both mesh axes in rank order (fr_tpu BATCH_SPEC, parallel/mesh.py:29),
+    and every label."""
+    if mesh is None or mesh.size == 1:
+        return images, labels
+    n = images.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"global batch {n} does not split over "
+                         f"{mesh.size} ranks")
+    b_loc = n // mesh.size
+    return images[mesh.rank * b_loc:(mesh.rank + 1) * b_loc], labels
 
 
 def prefetch_to_device(host_iter, device="cuda", depth: int = 2
@@ -277,7 +342,21 @@ def make_embed_step(conf, encoder: torch.nn.Module, device) -> Callable:
     return embed
 
 
-def embed_global_batch(embed_fn: Callable, flat) -> np.ndarray:
-    """Embed a host batch (N, H, W, C) and fetch the (N, D) embeddings to
-    host numpy; one device, so no padding or gathering."""
-    return embed_fn(flat).cpu().numpy()
+def embed_global_batch(embed_fn: Callable, flat,
+                       mesh: Optional[Mesh] = None) -> np.ndarray:
+    """Embed a host batch (N, H, W, C) that every rank holds and fetch the
+    (N, D) embeddings to host numpy on every rank. On a mesh N is padded up
+    to a multiple of the world, each rank embeds its slice, and the slices
+    are all-gathered over the world and the pad stripped
+    (fr_tpu/train/step.py:545-559)."""
+    if mesh is None or mesh.size == 1:
+        return embed_fn(flat).cpu().numpy()
+    flat = np.asarray(flat)
+    n = flat.shape[0]
+    pad = (-n) % mesh.size
+    if pad:
+        flat = np.concatenate(
+            [flat, np.zeros((pad,) + flat.shape[1:], flat.dtype)])
+    per = flat.shape[0] // mesh.size
+    emb = embed_fn(flat[mesh.rank * per:(mesh.rank + 1) * per])
+    return all_gather(emb, mesh.world_group).cpu().numpy()[:n]

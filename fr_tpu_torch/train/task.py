@@ -3,10 +3,13 @@ the schedule and the evaluation logic (counterpart of fr_tpu/train/task.py),
 with fr_tpu's Lightning-style hook names so the Trainer mirrors fr_tpu's
 call for call.
 
-On one device: the training hooks (training_step / training_epoch_end,
-with prefetch_device_batches to copy host batches ahead of the step), the
-validation_* and test_* pair hooks, and the all-pairs cross test
-(cross_test_step / cross_test_epoch_end).
+On one device or one rank of a mesh (parallel/mesh.py): the training hooks
+(training_step / training_epoch_end, with prefetch_device_batches to copy
+host batches ahead of the step), the validation_* and test_* pair hooks,
+and the all-pairs cross test (cross_test_step / cross_test_epoch_end). On a
+mesh the head is class-sharded over the model axis, every rank embeds its
+slice of each evaluation batch and gathers the rest (embed_global_batch),
+so every rank validates, and the throughput line divides by the ranks.
 """
 
 from __future__ import annotations
@@ -26,15 +29,17 @@ from fr_tpu_torch.eval.verification import (cross_score, pair_score,
 from fr_tpu_torch.heads.partial_fc import PFCConfig
 from fr_tpu_torch.models import build_encoder
 from fr_tpu_torch.models.common import init_weights
+from fr_tpu_torch.parallel.mesh import Mesh
 from fr_tpu_torch.train.schedule import get_schedule
 from fr_tpu_torch.train.state import init_train_state
 from fr_tpu_torch.train.step import (embed_global_batch, make_embed_step,
                                      make_train_step, prefetch_to_device)
 
 
-def pfc_config_from_conf(conf) -> PFCConfig:
-    """The head's configuration; use_fused (the margin-softmax CE kernels)
-    comes from conf as in fr_tpu, default off."""
+def pfc_config_from_conf(conf, model_size: int = 1) -> PFCConfig:
+    """The head's configuration, split over ``model_size`` shards; use_fused
+    (the margin-softmax CE kernels) comes from conf as in fr_tpu, default
+    off."""
     return PFCConfig(
         num_classes=conf.n_classes, embedding_size=conf.emd_size,
         sample_rate=conf.get("sample_rate", 1.0),
@@ -42,7 +47,8 @@ def pfc_config_from_conf(conf) -> PFCConfig:
         mixed_precision=conf.mixed_precision, optimizer=conf.optimizer_name,
         use_fused=bool(conf.get("use_fused", False)),
         easy_margin=bool(conf.get("easy_margin", False)),
-        sample_block=int(conf.get("sample_block", 1)))
+        sample_block=int(conf.get("sample_block", 1)),
+        model_size=model_size)
 
 
 def load_encoder_snapshot(path, network: str, img_size=None):
@@ -68,22 +74,25 @@ def resolve_device(name) -> torch.device:
 
 class FaceRecognitionTask:
     """Encoder (+ head, optimizer state and schedule for stage "train") and
-    eval logic on one device. Training batches are uint8 images; the
-    train-time augmentation runs on the device, as in fr_tpu."""
+    eval logic on one device, or on this rank of ``mesh``. Training batches
+    are uint8 images (the rank's rows of the global batch) with the global
+    labels; the train-time augmentation runs on the device, as in
+    fr_tpu."""
 
     def __init__(self, conf, logger=None, stage: str = "train",
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, mesh=None):
         if stage not in ("train", "test"):
             raise ValueError(f"stage must be 'train' or 'test', got {stage!r}")
         self.conf = conf
         self.logger_ = logger
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else Mesh(1, 1)
         self.encoder = init_weights(build_encoder(conf), seed)
         if conf.get("ckpt_path"):
             self.encoder.load_state_dict(load_encoder_snapshot(
                 conf.ckpt_path, conf.network, conf.img_size), strict=True)
         self.encoder.to(self.device).eval()
-        self.pfc_cfg = pfc_config_from_conf(conf)
+        self.pfc_cfg = pfc_config_from_conf(conf, self.mesh.model)
         # structural summary, as fr_tpu's task logs it (task.py:101-106)
         print_log(logger, model_summary(
             self.encoder,
@@ -94,14 +103,18 @@ class FaceRecognitionTask:
             self.epoch = 0
             self.history: List[Dict[str, Any]] = []
             self.state = init_train_state(conf, self.encoder, self.pfc_cfg,
-                                          self.device, seed)
+                                          self.device, seed, self.mesh)
             self._train_step = make_train_step(
                 conf, self.pfc_cfg, self.device,
-                augment_cfg_from_conf(conf))
+                augment_cfg_from_conf(conf), self.mesh)
             msg += (f": head {self.pfc_cfg.num_classes_padded:,} x "
                     f"{conf.emd_size} ({self.pfc_cfg.num_sample:,} columns "
-                    f"sampled per step)")
-        print_log(logger, f"{msg} on {self.device}")
+                    f"sampled per step")
+            msg += (f" on each of {self.mesh.model} shards)"
+                    if self.mesh.model > 1 else ")")
+        where = (f"rank {self.mesh.rank} of a {self.mesh.data} x "
+                 f"{self.mesh.model} mesh, " if self.mesh.size > 1 else "")
+        print_log(logger, f"{msg} on {where}{self.device}")
         self._embed = make_embed_step(conf, self.encoder, self.device)
         self.min_level = conf.min_level
         self.max_level = conf.max_level
@@ -141,7 +154,8 @@ class FaceRecognitionTask:
             n_imgs = len(outputs) * self.conf.b
             if running_t > 0:
                 msg += (f"- Throughput: {n_imgs / running_t:.1f} imgs/sec "
-                        f"({n_imgs / running_t:.1f} imgs/sec/chip)\n")
+                        f"({n_imgs / running_t / self.mesh.size:.1f} "
+                        f"imgs/sec/chip)\n")
 
         val_acc = None
         if epoch % self.conf.valid_freq == 0 and self.val_msg:
@@ -169,7 +183,7 @@ class FaceRecognitionTask:
         pairs, labels = batch
         flat = np.asarray(pairs).reshape((-1,) + pairs.shape[2:])
         start = time.time()
-        emb = embed_global_batch(self._embed, flat)
+        emb = embed_global_batch(self._embed, flat, self.mesh)
         infer_time = (time.time() - start) * 1000.0
         return {
             f"{dataset_name}_embedding_1": emb[0::2],
@@ -216,7 +230,7 @@ class FaceRecognitionTask:
         name = self.conf.test_dataset[dataset_idx]
         images, labels = batch
         start = time.time()
-        emb = embed_global_batch(self._embed, np.asarray(images))
+        emb = embed_global_batch(self._embed, np.asarray(images), self.mesh)
         infer_time = (time.time() - start) * 1000.0
         return {f"{name}_embedding": emb,
                 f"{name}_label_list": np.asarray(labels),

@@ -11,6 +11,12 @@ scalars, and, every ``save_epoch`` epochs, an encoder snapshot in fr_tpu's
 its epoch; the loader's order, the schedule and the state's generators make
 the resumed run the uninterrupted one, bit for bit. ``profile_steps`` records
 a ``torch.profiler`` trace of that many steps of the first epoch.
+
+On a mesh every rank runs the loops, and only rank 0 writes: the log, the
+TensorBoard scalars, the snapshots and the profile trace (ROADMAP §3: fr_tpu
+is one controller and needs no such gate). The full-state checkpoint is
+collective, as ckpt/checkpoint.py says; the other ranks wait at a barrier
+while rank 0 writes the snapshot.
 """
 
 from __future__ import annotations
@@ -54,14 +60,15 @@ def _summary_writer(log_dir: str):
 
 class Trainer:
     def __init__(self, conf, save_dir, mode: str = "train", logger=None,
-                 tensorboard: bool = True):
+                 tensorboard: bool = True, rank: int = 0):
         assert mode in ("train", "test"), "Invalid Mode !!!"
         self.mode = mode
         self.conf = conf
         self.save_dir = Path(save_dir)
-        self.logger_ = logger
+        self.writes = rank == 0
+        self.logger_ = logger if self.writes else None
         self.writer = None
-        if mode == "train" and tensorboard:
+        if mode == "train" and tensorboard and self.writes:
             try:
                 self.writer = _summary_writer(str(self.save_dir / "TBLog"))
             except ImportError as e:
@@ -96,11 +103,13 @@ class Trainer:
         from fr_tpu_torch.utils.jax_import import export_encoder_npz
 
         conf = self.conf
+        mesh = task.mesh
+        profile_steps = profile_steps if self.writes else 0
         start_epoch = 0
         if resume:
             step = latest_step(self.save_dir)
             if step is not None:
-                restore_train_state(self.save_dir, task.state, step)
+                restore_train_state(self.save_dir, task.state, step, mesh)
                 start_epoch = step
                 task.epoch = step
                 print_log(self.logger_, f"resumed at epoch {step}")
@@ -153,10 +162,11 @@ class Trainer:
                 self._write_scalars(results, epoch)
 
             if (epoch + 1) % conf.save_epoch == 0:
-                export_encoder_npz(
-                    str(self.save_dir / f"{epoch + 1}_epoch_encoder.npz"),
-                    task.encoder, epoch + 1, conf.network, conf.img_size)
-                save_train_state(self.save_dir, task.state, epoch + 1)
+                if self.writes:
+                    export_encoder_npz(
+                        str(self.save_dir / f"{epoch + 1}_epoch_encoder.npz"),
+                        task.encoder, epoch + 1, conf.network, conf.img_size)
+                save_train_state(self.save_dir, task.state, epoch + 1, mesh)
         return task
 
     def _stop_profile(self, prof, device) -> None:

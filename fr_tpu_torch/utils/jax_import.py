@@ -39,6 +39,7 @@ from fr_tpu_torch.models.swinv2 import SWIN_PLANS
 from fr_tpu_torch.models.swin_common import (relative_coords_table,
                                              relative_position_index,
                                              shifted_window_mask)
+from fr_tpu_torch.parallel.mesh import local_class_slice
 
 StateDict = Dict[str, torch.Tensor]
 Tree = Dict[str, Any]
@@ -409,13 +410,17 @@ def export_encoder_npz(path: str, encoder: torch.nn.Module, epoch: int,
 
 def train_state_from_jax(jax_state, encoder: torch.nn.Module, network: str,
                          img_size: Optional[int] = None,
-                         plan: Optional[Tuple] = None, seed: int = 0):
+                         plan: Optional[Tuple] = None, seed: int = 0,
+                         mesh=None):
     """fr_tpu's TrainState (arrays readable by np.asarray) → the port's
     TrainState around ``encoder``, on the encoder's device: weights and BN
     statistics, the encoder's optimizer slots through the same entries as
     the parameters (transposes included), the head weight, slots and count,
-    and the step. fr_tpu's state holds no generator (its keys derive
-    from the step); the port's three streams are seeded from ``seed``."""
+    and the step. On a mesh (parallel/mesh.py) the head and its slots are
+    the rank's model shard of fr_tpu's global ones, the rows from
+    ``model_idx · num_local``. fr_tpu's state holds no generator (its keys
+    derive from the step); the port's three streams are seeded from
+    ``seed``, per rank as train/state.py seeds them."""
     from fr_tpu_torch.heads.partial_fc import PFCState
     from fr_tpu_torch.train.state import TrainState, stream_generators
 
@@ -439,15 +444,21 @@ def train_state_from_jax(jax_state, encoder: torch.nn.Module, network: str,
         tree = host(tree)
         opt_slots[slot] = {e.key: _to_torch(_get(tree, e.path), e.kind)
                            .to(device) for e in entries}
+    def shard(table):
+        table = np.asarray(table, np.float32)
+        if mesh is not None and mesh.model > 1:
+            start, num_local = local_class_slice(table.shape[0], mesh.model,
+                                                 mesh.model_idx)
+            table = table[start:start + num_local]
+        return torch.from_numpy(np.array(table)).to(device)
+
     pfc = PFCState(
-        weight=torch.from_numpy(np.array(jax_state.pfc.weight, np.float32)
-                                ).to(device),
-        slots={k: torch.from_numpy(np.array(v, np.float32)).to(device)
-               for k, v in jax_state.pfc.slots.items()},
+        weight=shard(jax_state.pfc.weight),
+        slots={k: shard(v) for k, v in jax_state.pfc.slots.items()},
         count=int(np.asarray(jax_state.pfc.count)))
     return TrainState(step=int(np.asarray(jax_state.step)), encoder=encoder,
                       opt_slots=opt_slots, pfc=pfc,
-                      generators=stream_generators(seed, device))
+                      generators=stream_generators(seed, device, mesh))
 
 
 def train_state_to_jax_layout(state, network: str,

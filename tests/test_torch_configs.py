@@ -2,8 +2,9 @@
 imports nothing of the JAX package: load_config of the port equals
 fr_tpu's for every config module under several override sets (fr_tpu's
 re-flatten that resets ms1m_arcface_122's sample_rate 0.3 to 1.0 included),
-and an AST scan of every module of fr_tpu_torch/ and of chip_smoke.py finds
-no import of fr_tpu, jax, flax, orbax or the root bench.py."""
+and an AST scan of every module of fr_tpu_torch/, of chip_smoke.py and of
+the spawned ranks' tests/torch_multigpu_worker.py finds no import of
+fr_tpu, jax, flax, orbax or the root bench.py."""
 
 import ast
 from pathlib import Path
@@ -59,7 +60,7 @@ def _imports(path: Path):
 
 def _port_files():
     return sorted((ROOT / "fr_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_multigpu_worker.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

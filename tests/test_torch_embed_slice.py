@@ -123,10 +123,12 @@ def test_task_and_trainer_print_the_roc_report(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "test", "--synthetic", "--mesh_data", "2"], "ROADMAP"),
+    (["--mode", "test", "--synthetic", "--mesh_data", "2"], "multi-GPU"),
 ])
 def test_cli_unported_paths_raise(argv, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
+    """A two-device mesh outside torchrun raises (the mesh runs one process
+    per device, tests/test_torch_multigpu_cli.py)."""
+    with pytest.raises(ValueError, match=match):
         main(argv + ["--device", "cpu", "--save_root", str(tmp_path)])
 
 

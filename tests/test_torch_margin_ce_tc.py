@@ -232,7 +232,7 @@ def test_plain_backward_matches_bwd_jnp_at_the_new_edges(margin):
     N, K, D = 130, 131, 48
     emb, w, labels, col_valid, g = _edge_problem(N, K, D, seed=11)
     cfg = _cfg(torch.bfloat16, margin, D)
-    jcfg = jax_pfc.PFCConfig(model_size=1, **dataclasses.asdict(cfg))
+    jcfg = jax_pfc.PFCConfig(**dataclasses.asdict(cfg))
     je, jw = jnp.asarray(emb, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
     jl, jc = jnp.asarray(labels), jnp.asarray(col_valid)
     m, d, _ = jax_fused._stats_jnp(je, jw, jl, jc, jcfg)
@@ -335,7 +335,7 @@ def test_plain_stats_match_stats_jnp_at_the_new_edges(margin, K):
     N, D = 130, 48
     emb, w, labels, col_valid, _ = _edge_problem(N, K, D, seed=K)
     cfg = _cfg(torch.bfloat16, margin, D)
-    jcfg = jax_pfc.PFCConfig(model_size=1, **dataclasses.asdict(cfg))
+    jcfg = jax_pfc.PFCConfig(**dataclasses.asdict(cfg))
     ref = jax_fused._stats_jnp(jnp.asarray(emb, jnp.bfloat16),
                                jnp.asarray(w, jnp.bfloat16),
                                jnp.asarray(labels), jnp.asarray(col_valid),

@@ -37,7 +37,7 @@ def _cfg(margin="ArcFace", mixed=False, use_fused=False, easy=False,
 
 
 def _jax_cfg(cfg):
-    return jax_pfc.PFCConfig(model_size=1, **dataclasses.asdict(cfg))
+    return jax_pfc.PFCConfig(**dataclasses.asdict(cfg))
 
 
 def _problem(n, k, seed):
@@ -210,7 +210,7 @@ def test_sampling_keeps_positives_and_remap_matches_fr_tpu():
     owned = (labels >= 0) & (labels < cfg.num_local)
     pos = np.zeros(cfg.num_local, bool)
     pos[labels[owned]] = True
-    valid = partial_fc.shard_valid_mask(cfg)
+    valid = partial_fc.shard_valid_mask(cfg, 0)
     gen = torch.Generator().manual_seed(0)
     idx = partial_fc.sample_columns(cfg, gen, torch.from_numpy(pos), valid)
     assert idx.shape == (cfg.num_sample,) == (29,)

@@ -137,7 +137,7 @@ def _webface_columns(dev, gen):
     labels = torch.randint(0, cfg.num_classes, (WEBFACE[0],), device=dev,
                            generator=gen)
     labels[0] = cfg.num_classes - 1
-    gidx = sample_groups(cfg, gen, *shard_group_masks(cfg, labels,
+    gidx = sample_groups(cfg, gen, *shard_group_masks(cfg, 0, labels,
                                                       labels >= 0))
     idx = expand_group_index(gidx, cfg.sample_block)
     return label_columns(cfg, labels, idx), idx < cfg.num_classes

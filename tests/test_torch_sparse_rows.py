@@ -143,7 +143,7 @@ def test_pfc_config_at_webface42m():
 
 def _masks(cfg, labels):
     t = torch.from_numpy(labels).long()
-    return pfc.shard_group_masks(cfg, t, (t >= 0) & (t < cfg.num_local))
+    return pfc.shard_group_masks(cfg, 0, t, (t >= 0) & (t < cfg.num_local))
 
 
 @pytest.mark.parametrize("n_classes,block", [(100, 8), (97, 4), (1000, 64)])
@@ -202,5 +202,5 @@ def test_sample_columns_serves_the_per_row_path_only():
     pos = torch.zeros(40, dtype=torch.bool)
     pos[[3, 9]] = True
     idx = pfc.sample_columns(cfg, torch.Generator().manual_seed(0), pos,
-                             pfc.shard_valid_mask(cfg))
+                             pfc.shard_valid_mask(cfg, 0))
     assert idx.shape == (20,) and {3, 9} <= set(idx.tolist())

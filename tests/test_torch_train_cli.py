@@ -2,9 +2,9 @@
 data (a small network on the CPU: the plumbing is under test here, AlterNet
 is covered by test_torch_train_step.py), the library path through the
 task, the encoder snapshot in fr_tpu's layout, block-aligned sampling
-(--sample_block), --resume into the previous run's directory, the paths that
-still raise, a missing training directory, and that the package never
-imports jax."""
+(--sample_block), --resume into the previous run's directory, the
+multi-GPU flags outside torchrun, a missing training directory, and that
+the package never imports jax."""
 
 import os
 import re
@@ -119,7 +119,10 @@ def test_cli_resume_without_a_prior_run_starts_afresh(tmp_path, capsys):
     (["--distributed"], "multi-GPU"),
 ])
 def test_cli_train_unported_paths_raise(extra, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
+    """A mesh of more than one device, and --distributed, need torchrun's
+    processes (tests/test_torch_multigpu_cli.py runs them); from one plain
+    process they raise before any model is built."""
+    with pytest.raises((ValueError, RuntimeError), match=match):
         main(CLI + ["--num_epoch", "6", "--save_root", str(tmp_path)]
              + extra)
 
