@@ -121,8 +121,13 @@ Phases; any failure exits non-zero and prints no result:
     relative, each shard's head-row gradient 5e-3 norm-wise, bf16's rounding
     of the kernels' gradient output at about 2e-3; how far those two steps
     part is printed: the batch order's effect in bf16); ms per step and peak
-    memory by rank. The ranks are this script, run with a private first
-    argument;
+    memory by rank; and each rank's stripe of a card-resident corpus (515
+    seeded 112-px images, DeviceCorpusLoader at process_count 2, global
+    batch 128): for two epochs every local batch equal to the rows of
+    fr_tpu's draw recomputed here with numpy (sha256 of the bytes), the
+    same global labels on both ranks and the expected ones, each rank
+    holding only its 257 rows. The ranks are this script, run with a
+    private first argument;
     [host_libs] which of cv2, pandas, TensorBoard, libblosc, libjpeg and
     g++ the machine has, and whether the native host library built, with
     JPEG or not;
@@ -4264,7 +4269,8 @@ def _mix(times, dtype):
 # [multi_gpu]: the mesh path. (a) the CLI under torchrun at world size 1 over
 # NCCL against the CLI without it; (b) two ranks of a (1, 2) mesh on this one
 # card over gloo, each a FaceRecognitionTask of webface42m at full width,
-# against a one-process step fed the union of their groups. The ranks are
+# against a one-process step fed the union of their groups, and each rank's
+# stripe of a card-resident corpus against fr_tpu's draw. The ranks are
 # this script again, run with a private first argument (RECORDED_CLI,
 # MESH_RANK); they load the kernels the parent built.
 # ---------------------------------------------------------------------------
@@ -4276,6 +4282,8 @@ MULTI_GPU_ARGS = ["--config", "webface42m", "--mode", "train", "--network",
                   "--device", "cuda"]
 MESH_B, MESH_STEPS = 128, 3         # global batch, steps of each rank
 MESH_CLASSES_LOCAL = 1030016        # 2,060,032 padded rows over 2 shards
+# (b)'s striped corpus: 515 rows (two ranks leave one out) of 112 px, 19 MB
+STRIPE_N, STRIPE_SEED, STRIPE_EPOCHS = 515, 21, 2
 
 
 def _recorded_cli(argv):
@@ -4398,10 +4406,84 @@ def _encoder_digest(encoder):
     return h.hexdigest()
 
 
+def _stripe_corpus():
+    """(images, labels) of (b)'s striped corpus, from a numpy seed."""
+    import numpy as np
+    rng = np.random.default_rng(STRIPE_SEED)
+    return (rng.integers(0, 256, (STRIPE_N, 112, 112, 3), dtype=np.uint8),
+            rng.integers(0, 1000, STRIPE_N).astype(np.int32))
+
+
+def _sha(array) -> str:
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(array).tobytes()).hexdigest()
+
+
+def _stripe_record(rank):
+    """This rank's stripe of the corpus on cuda:0 at process_count 2: the
+    resident rows' count and digest, and each step's image digest and
+    labels, for STRIPE_EPOCHS epochs."""
+    import torch
+    from fr_tpu_torch.data import DeviceCorpusLoader
+    t0 = time.perf_counter()
+    images, labels = _stripe_corpus()
+    loader = DeviceCorpusLoader(images, labels, MESH_B, seed=STRIPE_SEED,
+                                device="cuda", process_index=rank,
+                                process_count=2)
+    rec = {"rows": loader.images.shape[0], "device": str(
+        loader.images.device), "resident": _sha(loader.images.cpu().numpy()),
+        "steps": [[(_sha(x.cpu().numpy()), y.tolist())
+                   for x, y in loader.epoch(e)]
+                  for e in range(STRIPE_EPOCHS)]}
+    torch.cuda.synchronize()
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
+def _check_stripes(recs):
+    """fr_tpu's draw (fr_tpu/data/device_corpus.py) recomputed with numpy
+    against each rank's stripe record; returns the readings' text."""
+    import numpy as np
+    images, labels = _stripe_corpus()
+    n_loc, b_loc = STRIPE_N // 2, MESH_B // 2
+    steps = n_loc // b_loc
+    for r, rec in enumerate(recs):
+        block = slice(r * n_loc, (r + 1) * n_loc)
+        check(rec["rows"] == n_loc and rec["resident"] == _sha(images[block])
+              and rec["device"] == "cuda:0",
+              f"[multi_gpu] (b) rank {r} holds {rec['rows']} rows on "
+              f"{rec['device']}, not block {r}'s {n_loc} rows")
+    for e in range(STRIPE_EPOCHS):
+        perms = [np.random.default_rng((STRIPE_SEED, e, r)).permutation(
+            n_loc) + r * n_loc for r in range(2)]
+        for r, rec in enumerate(recs):
+            check(len(rec["steps"][e]) == steps,
+                  f"[multi_gpu] (b) rank {r} took {len(rec['steps'][e])} "
+                  f"steps of epoch {e}, not {steps}")
+        for s in range(steps):
+            rows = [p[s * b_loc:(s + 1) * b_loc] for p in perms]
+            want = np.concatenate([labels[x] for x in rows]).tolist()
+            for r, rec in enumerate(recs):
+                digest, got = rec["steps"][e][s]
+                check(digest == _sha(images[rows[r]]),
+                      f"[multi_gpu] (b) rank {r}'s images of epoch {e} "
+                      f"step {s} are not fr_tpu's rows")
+                check(got == want, f"[multi_gpu] (b) rank {r}'s labels of "
+                      f"epoch {e} step {s} are not fr_tpu's")
+    return (f"{STRIPE_N} images of 112 px over 2 ranks, {n_loc} rows "
+            f"resident on each ({n_loc * 112 * 112 * 3 / 1e6:.1f} MB), "
+            f"{b_loc} local images and {MESH_B} labels a step, "
+            f"{STRIPE_EPOCHS} x {steps} steps; every batch bitwise fr_tpu's "
+            f"rows, labels equal on both ranks and fr_tpu's; "
+            f"{[round(rec['s'], 2) for rec in recs]} s by rank")
+
+
 def _mesh_rank_child(rank, store, out):
     """(b) one rank of the (1, 2) mesh on cuda:0 over gloo; its record
-    (losses, grad norms, encoder digests, launches, times, the step-1 drawn
-    groups and their updated rows) saved to ``out``."""
+    (its stripe of the corpus, losses, grad norms, encoder digests,
+    launches, times, the step-1 drawn groups and their updated rows) saved
+    to ``out``."""
     import torch
     import torch.distributed as dist
     import fr_tpu_torch.train.step as step_module
@@ -4431,6 +4513,7 @@ def _mesh_rank_child(rank, store, out):
               and total.eq(3).all() and top.eq(2).all(),
               f"[multi_gpu] gloo on CUDA tensors: {gathered.tolist()}, "
               f"{scattered.tolist()}")
+        stripe = _stripe_record(rank)
         mesh = make_mesh(1, 2)
         conf = _mesh_conf()
         t0 = time.perf_counter()
@@ -4503,7 +4586,7 @@ def _mesh_rank_child(rank, store, out):
                    tensor_cores=_ce_launches(True),
                    cuda_cores=_ce_launches(False),
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   built_s=built, rank=rank)
+                   built_s=built, rank=rank, stripe=stripe)
         Path(out).write_text(json.dumps(rec))
     finally:
         dist.destroy_process_group()
@@ -4586,6 +4669,10 @@ def _multi_gpu_mesh(root):
               f"{rec['cuda_cores']}")
         check(all(x == x and abs(x) != float("inf") for x in rec["losses"]),
               f"[multi_gpu] rank {r} losses {rec['losses']}")
+    t_stripe = time.perf_counter()
+    stripes = _check_stripes([rec["stripe"] for rec in recs])
+    print(f"[multi_gpu] (b) the card-resident corpus striped: {stripes}; "
+          f"checked in {time.perf_counter() - t_stripe:.2f} s")
     check(recs[0]["digests"] == recs[1]["digests"],
           "[multi_gpu] the ranks' encoders differ after a step")
     check(recs[0]["losses"] == recs[1]["losses"]

@@ -34,8 +34,8 @@ switches device on its own; under ``--distributed`` a process runs on
 ``cuda:LOCAL_RANK``. ``--profile N`` records a torch.profiler trace of N
 training steps into <run dir>/profile/trace.json, and training writes
 TensorBoard scalars into <run dir>/TBLog; on a mesh rank 0 writes the run
-directory and everything in it. ``--device_corpus`` runs on one process
-only: striping the corpus over the ranks is not ported.
+directory and everything in it. With ``--device_corpus`` on a mesh each
+rank uploads only its stripe of the corpus (1/world size of it).
 """
 
 from __future__ import annotations
@@ -214,12 +214,8 @@ def _loaders(args, conf, device, mesh=None):
         conf.n_classes = train.num_classes
         if args.device_corpus:
             from fr_tpu_torch.data import DeviceCorpusLoader
-            if split.get("process_count", 1) > 1:
-                raise ValueError("--device_corpus runs on one process: "
-                                 "striping the corpus over the ranks is "
-                                 "not ported")
             train = DeviceCorpusLoader(train.images, train.labels, conf.b,
-                                       device=device)
+                                       device=device, **split)
     else:
         index = ImageFolderIndex(conf.train_dataset_dir)
         conf.n_classes = index.num_classes

@@ -50,6 +50,26 @@ def cosface(logits: torch.Tensor, labels: torch.Tensor, s: float = 64.0,
     return (logits - onehot.to(logits.dtype) * m) * s
 
 
+def combined_margin(logits: torch.Tensor, labels: torch.Tensor, s: float,
+                    m1: float, m2: float, m3: float,
+                    interclass_filtering_threshold: float = 0.0
+                    ) -> torch.Tensor:
+    """InsightFace's combined margin s·[cos(m1·θ + m2) − m3] in its two
+    supported forms: (m1 = 1, m3 = 0) is ArcFace with m = m2, m3 > 0 is
+    CosFace with m = m3. A threshold > 0 first zeroes every logit above it
+    but a row's target column (all of them on a row labelled -1)."""
+    if interclass_filtering_threshold > 0:
+        dirty = (logits > interclass_filtering_threshold) & ~_one_hot_valid(
+            labels, logits.shape[-1])
+        logits = (1.0 - dirty.to(logits.dtype)) * logits
+    if m1 == 1.0 and m3 == 0.0:
+        return arcface(logits, labels, s=s, m=m2)
+    if m3 > 0:
+        return cosface(logits, labels, s=s, m=m3)
+    raise ValueError(
+        f"Unsupported combined margin (m1={m1}, m2={m2}, m3={m3})")
+
+
 def get_margin_fn(name: str, s: float, m: float, easy_margin: bool = False):
     """Margin by conf.metric; CosFace has no easy_margin."""
     if name == "ArcFace":

@@ -2,8 +2,8 @@
 packed.py): ArrayTrainLoader, TrainLoader and PackedTrainLoader at
 process_count 2 and 4, every process_index, give fr_tpu's loaders' (local
 images, global labels) for the same seed, epoch after epoch; a global
-batch that does not split raises; --device_corpus under two ranks
-raises."""
+batch that does not split raises; --device_corpus under two ranks gives
+each rank its stripe of the corpus."""
 
 import numpy as np
 import pytest
@@ -13,10 +13,10 @@ from fr_tpu.data.folder import ImageFolderIndex as JaxImageFolderIndex
 from fr_tpu.data.folder import TrainLoader as JaxTrainLoader
 from fr_tpu.data.packed import PackedTrainLoader as JaxPackedTrainLoader
 from fr_tpu_torch.cli.main import _loaders, build_conf, parse_args
-from fr_tpu_torch.data import (ArrayTrainLoader, ImageFolderIndex,
-                               PackedTrainLoader, TrainLoader,
-                               pack_image_folder, synthetic_corpus,
-                               write_synthetic_folder)
+from fr_tpu_torch.data import (ArrayTrainLoader, DeviceCorpusLoader,
+                               ImageFolderIndex, PackedTrainLoader,
+                               TrainLoader, pack_image_folder,
+                               synthetic_corpus, write_synthetic_folder)
 from fr_tpu_torch.parallel.mesh import Mesh
 from test_torch_loaders import _same_batches
 
@@ -72,16 +72,23 @@ def test_a_batch_that_does_not_split_raises(corpus):
         ArrayTrainLoader(imgs, labels, 8, process_count=3)
     with pytest.raises(ValueError, match="does not split"):
         PackedTrainLoader(str(corpus / "packed"), 8, process_count=3)
+    with pytest.raises(ValueError, match="does not split"):
+        DeviceCorpusLoader(imgs, labels, 8, device="cpu", process_count=3)
 
 
-def test_device_corpus_under_two_ranks_raises(corpus):
+@pytest.mark.parametrize("rank", [0, 1])
+def test_device_corpus_under_two_ranks_stripes(corpus, rank):
     args = parse_args(["--config", "ms1m_arcface_122", "--network",
                        "ResNet18", "--img_size", "16", "--batch", "8",
                        "--packed_dir", str(corpus / "packed"),
                        "--device_corpus", "--device", "cpu"])
     conf = build_conf(args)
-    with pytest.raises(ValueError, match="one process"):
-        _loaders(args, conf, "cpu", Mesh(1, 2, 0, 1))
+    train, _ = _loaders(args, conf, "cpu", Mesh(1, 2, 0, rank))
+    assert isinstance(train, DeviceCorpusLoader)
+    assert (train.process_index, train.process_count) == (rank, 2)
+    images, labels = next(iter(train.epoch(0)))
+    assert images.shape[0] == 4 and labels.shape[0] == 8
+    assert train.images.shape[0] == 12
     # the same corpus splits over the two ranks without --device_corpus
     args.device_corpus = False
     train, _ = _loaders(args, conf, "cpu", Mesh(1, 2, 0, 1))
