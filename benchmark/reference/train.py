@@ -1,0 +1,249 @@
+"""Plain float32 PyTorch of the training step that the train cells time,
+and of the embedding step of the embed cell.
+
+One training step, as the configuration states it:
+
+1. the train-time augmentation of the uint8 batch (``augment.py``);
+2. the PartialFC head's draw: the batch's positives' groups of ``block``
+   class rows forced in, the other groups by a uniform top-k, groups of
+   padding rows excluded, ``sampled_columns // block`` groups in all;
+3. the encoder in training mode (batch statistics) → L2-normalise → cosine
+   logits against the L2-normalised drawn rows, clamped to [−1, 1] → the
+   configuration's margin on each target column (ArcFace: cos(θ + m);
+   CosFace: cos θ − m) → scale → padding columns masked → softmax
+   cross-entropy, −log(max(p_target, 1e-30)), mean over the batch;
+4. gradients of the encoder and of the drawn rows; the encoder's clipped to
+   global norm ``max_grad_norm``;
+5. SGD with momentum and coupled weight decay, b ← μ·b + (g + wd·p),
+   p ← p − lr·b, on the encoder and on the drawn rows only.
+
+The random numbers (the augmentation's, the draw's, dropout's) come from
+generators that the caller sets to the states the program's generators
+had before each step: this reference follows the program step by step
+from those states and checks what it draws (every positive's group in,
+the count of groups).
+
+The steps start from the weights and class table handed in, with the
+momentum at zero as in a fresh run, or with the momentum handed in
+(``start``). Readings of the steps (``steps``):
+- ``loss``: each step's loss;
+- ``grad1``: per leaf, the norm of the momentum's change over the first
+  step, μ·b₀ − b₀ + g + wd·p₀; from zero momentum that is the gradient as
+  SGD takes it, g + wd·p₀;
+- ``gnorm1``: per leaf, the norm of the first step's clipped gradient g;
+- ``mom1``: per leaf, the momentum's change over the first step itself;
+- ``head1``: the first step's drawn rows and their gradient as SGD takes
+  it, g + wd·w (from zero momentum, the momentum's change there);
+- ``change3``: per leaf, ‖p − p₀‖ after the last step.
+The leaves are the encoder's parameters by name, and ``head``, the whole
+class table.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Dict, List, Optional
+
+import torch
+
+from benchmark.reference import augment as aug
+from benchmark.reference.encoders import Quant, forward, identity, unit
+
+
+def gen_at(state: torch.Tensor, device) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.set_state(state)
+    return g
+
+
+def draw_rows(head: dict, labels: torch.Tensor, gen: torch.Generator):
+    """(sorted drawn rows, their validity) of one step."""
+    block = head["sample_block"]
+    n_rows = head["padded_classes"]
+    groups = n_rows // block
+    n_draw = head["sampled_columns"] // block
+    dev = labels.device
+    gpos = torch.zeros(groups, dtype=torch.bool, device=dev)
+    gpos[labels // block] = True
+    gvalid = torch.arange(groups, device=dev) * block < head["num_classes"]
+    perm = torch.rand(groups, generator=gen, device=dev)
+    perm = torch.where(gpos, 2.0, perm)
+    perm = torch.where(gvalid, perm, -1.0)
+    gidx = torch.sort(torch.topk(perm, n_draw, sorted=False).indices).values
+    if int(gpos.sum()) <= n_draw and not bool(gpos[gidx].sum()
+                                              == gpos.sum()):
+        raise AssertionError("a positive's group was not drawn")
+    rows = (gidx[:, None] * block
+            + torch.arange(block, device=dev)[None, :]).reshape(-1)
+    return rows, rows < head["num_classes"]
+
+
+def target_cosine(c: torch.Tensor, head: dict) -> torch.Tensor:
+    """The margin on a target column's cosine: ArcFace's cos(θ + m), kept
+    monotone below cos(π − m) as cos θ − sin(π − m)·m; CosFace's cos θ − m."""
+    m = head["m"]
+    if head["margin"] == "CosFace":
+        return c - m
+    if head["margin"] != "ArcFace":
+        raise ValueError(f"no reference for the margin {head['margin']!r}")
+    sq = 1.0 - c * c
+    sin = torch.where(sq > 0, torch.sqrt(torch.where(sq > 0, sq, 1.0)), 0.0)
+    phi = c * math.cos(m) - sin * math.sin(m)
+    return torch.where(c > math.cos(math.pi - m), phi,
+                       c - math.sin(math.pi - m) * m)
+
+
+def margin_ce(emb, labels, w_rows, rows, valid, head: dict, q: Quant):
+    """Per-sample loss of the margin softmax over the drawn rows."""
+    col = torch.searchsorted(rows, labels)
+    col = torch.clamp_max(col, rows.shape[0] - 1)
+    hit = rows[col] == labels
+    c = torch.clamp(q(unit(emb)) @ q(unit(w_rows)).t(), -1.0, 1.0)
+    target = torch.zeros_like(c, dtype=torch.bool)
+    target[torch.arange(c.shape[0], device=c.device)[hit], col[hit]] = True
+    logits = torch.where(target, target_cosine(c, head), c) * head["s"]
+    logits = torch.where(valid[None, :], logits, -1e30)
+    ex = torch.exp(logits - logits.amax(dim=1, keepdim=True).detach())
+    t = torch.where(hit, ex.gather(1, col[:, None])[:, 0], 0.0)
+    return -torch.log(torch.clamp_min(t / ex.sum(dim=1), 1e-30))
+
+
+def train_steps(cfg: dict, params0: Dict[str, torch.Tensor],
+                table0: torch.Tensor, steps: List[dict],
+                q: Quant = identity, half_batch: bool = False,
+                start: Optional[dict] = None) -> dict:
+    """The readings of ``len(steps)`` steps from params0 and the class
+    table table0 (both left as they are). Each step is a dict with
+    ``images`` (B, H, W, 3) uint8, ``labels`` (B,) and ``states`` (the
+    generators' states: augment, sample, dropout). ``start`` holds the
+    momentum to start from (``mom``: {leaf: tensor}, ``head_mom``: the
+    table's), zero without it. ``half_batch`` takes the loss over the
+    first half of each batch only (a planted fault)."""
+    model, head, opt = cfg["model"], cfg["head"], cfg["optimizer"]
+    acfg = aug.cfg_from_config(cfg["augmentation"])
+    lr, mu, wd = opt["lr"], opt["momentum"], opt["weight_decay"]
+    names = [n for n in params0 if not n.endswith(("running_mean",
+                                                   "running_var"))]
+    p = {n: params0[n].clone() for n in names}
+    stats = {n: v for n, v in params0.items() if n not in p}
+    if start is None:
+        mom = {n: torch.zeros_like(v) for n, v in p.items()}
+        head_mom = torch.zeros_like(table0)
+    else:
+        mom = {n: start["mom"][n].clone() for n in names}
+        head_mom = start["head_mom"].clone()
+    table = table0.clone()
+    out: dict = {"loss": []}
+    for k, st in enumerate(steps):
+        dev = table.device
+        images = st["images"].to(dev)
+        labels = st["labels"].to(dev).long()
+        x = aug.apply_augment(images, aug.draw_augment(
+            acfg, images.shape, gen_at(st["states"]["augment"], dev), dev),
+            acfg)
+        rows, valid = draw_rows(head, labels, gen_at(st["states"]["sample"],
+                                                     dev))
+        w_rows = table.index_select(0, rows).requires_grad_(True)
+        leaves = {n: v.requires_grad_(True) for n, v in p.items()}
+        emb = forward(model, {**leaves, **stats}, x, True,
+                      gen_at(st["states"]["dropout"], dev), q)
+        per = margin_ce(unit(emb), labels, w_rows, rows, valid, head, q)
+        loss = per[: per.shape[0] // 2].mean() if half_batch else per.mean()
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names]
+                                    + [w_rows])
+        g_enc, g_rows = list(grads[:-1]), grads[-1]
+        total = torch.sqrt(sum(torch.sum(g * g) for g in g_enc))
+        coef = torch.clamp_max(opt["max_grad_norm"] / (total + 1e-6), 1.0)
+        g_enc = [g * coef for g in g_enc]
+        out["loss"].append(float(loss.detach()))
+        with torch.no_grad():
+            delta = {}
+            for n, g in zip(names, g_enc):
+                p[n] = p[n].detach()
+                delta[n] = (mu - 1.0) * mom[n] + g + wd * p[n]
+                mom[n].add_(delta[n])
+                p[n].sub_(lr * mom[n])
+            b_old = head_mom.index_select(0, rows)
+            w = table.index_select(0, rows)
+            head_grad = g_rows + wd * w
+            b = mu * b_old + head_grad
+            table.index_copy_(0, rows, w - lr * b)
+            head_mom.index_copy_(0, rows, b)
+        if k == 0:
+            out["mom1"] = delta
+            out["grad1"] = {n: float(torch.linalg.vector_norm(delta[n]))
+                            for n in names}
+            out["grad1"]["head"] = float(torch.linalg.vector_norm(
+                b - b_old))
+            out["gnorm1"] = {n: float(torch.linalg.vector_norm(g))
+                             for n, g in zip(names, g_enc)}
+            out["gnorm1"]["head"] = float(torch.linalg.vector_norm(g_rows))
+            out["head1"] = (rows, head_grad)
+        del emb, per, loss, grads, g_enc, g_rows, w_rows, b_old, b, w
+    out["change3"] = {n: float(torch.linalg.vector_norm(p[n] - params0[n]))
+                      for n in names}
+    out["change3"]["head"] = float(torch.linalg.vector_norm(table - table0))
+    return out
+
+
+@torch.no_grad()
+def embed(cfg: dict, params: Dict[str, torch.Tensor], images,
+          q: Quant = identity, block: int = 64) -> torch.Tensor:
+    """L2-normalised embeddings of NHWC float images, the encoder in
+    evaluation mode (BN's running statistics), ``block`` images at a time
+    (evaluation mode makes the rows independent)."""
+    return torch.cat([unit(forward(cfg["model"], params,
+                                   images[i:i + block], False, None, q))
+                      for i in range(0, images.shape[0], block)])
+
+
+def fp8_rounding(x: torch.Tensor) -> torch.Tensor:
+    """The control's rounding: x scaled so that its largest magnitude is
+    e4m3's 448, rounded to float8_e4m3fn and scaled back, with the
+    gradient passed straight through."""
+    amax = torch.clamp_min(x.detach().abs().amax(), 1e-30)
+    y = (x.detach() * (448.0 / amax)).to(torch.float8_e4m3fn).float() \
+        * (amax / 448.0)
+    return x + (y - x).detach()
+
+
+class _RoundBF16(torch.autograd.Function):
+    """Rounds a tensor to bfloat16 on the way forward and its gradient on
+    the way back, as a bf16 autocast product holds both."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).float()
+
+
+def bf16_rounding(x: torch.Tensor) -> torch.Tensor:
+    """A witness of the program's own precision: every product's operands
+    and their gradients rounded to bfloat16."""
+    return _RoundBF16.apply(x)
+
+
+def bf16_attention(x: torch.Tensor) -> torch.Tensor:
+    """The same witness for the window attention's two products alone."""
+    return x
+
+
+bf16_attention.attention = bf16_rounding
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """A context in which float32 products stay float32 (TF32 off)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -1,0 +1,112 @@
+"""A copy of the benchmark with small cells added as files only: the way a
+later change adds a configuration, a cell or a metric. The small cells
+keep the real configurations' kinds and shapes of computation at sizes the
+CPU runs in seconds; their limits are set from CPU readings of the program
+(bf16) and of the float8 control at these sizes."""
+
+from __future__ import annotations
+
+import json
+import shutil
+import time
+import types
+from pathlib import Path
+
+from benchmark import harness
+
+ROOT = Path(__file__).resolve().parents[2]
+
+TINY_TRAIN_LIMITS = {"grad1_median_gap": 0.1, "change3_median_gap": 0.15,
+                     "head_grad1_diff": 0.12, "last_grad_median_gap": 0.1,
+                     "last_head_grad_diff": 0.1}
+TINY_EMBED_LIMITS = {"embed_gap": 0.03}
+
+
+def _tiny_configs():
+    r = json.loads((ROOT / "benchmark/configs/r100_wf42m.json").read_text())
+    r["name"] = "tiny_r18"
+    r["program"]["overrides"].update({
+        "network": "ResNet18", "sample_rate": 0.25, "sample_block": 4,
+        "b": 8, "img_size": 32, "emd_size": 64, "n_classes": 254})
+    r["model"].update(network="ResNet18", blocks=[2, 2, 2, 2],
+                      widths=[64, 128, 256, 64], emd_size=64, img_size=32,
+                      pool=2)
+    r["head"].update(num_classes=254, padded_classes=256, sample_block=4,
+                     sampled_columns=64, emd_size=64)
+    r["batch_size"] = 8
+    a = json.loads((ROOT / "benchmark/configs/alternet50_ms1m.json")
+                   .read_text())
+    a["name"] = "tiny_alter"
+    a["program"]["overrides"] = {
+        "network": "AlterNet50", "sample_rate": 0.5, "b": 4,
+        "img_size": 96, "emd_size": 64, "n_classes": 100,
+        "use_fused": False}
+    a["model"].update(emd_size=64, img_size=96, widths=[64, 128, 256, 64])
+    a["head"].update(num_classes=100, padded_classes=100,
+                     sampled_columns=50, emd_size=64)
+    a["batch_size"] = 4
+    return {"tiny_r18": r, "tiny_alter": a}
+
+
+def make_root(dst: Path, precision: str = "bfloat16") -> Path:
+    """BENCHMARK.json and benchmark/ copied to ``dst``, with the small
+    configurations, their cells (tiny_r18.train, tiny_alter.train,
+    tiny_r18.embed) and their limits added."""
+    dst.mkdir(parents=True, exist_ok=True)
+    shutil.copy(ROOT / "BENCHMARK.json", dst / "BENCHMARK.json")
+    shutil.copytree(ROOT / "benchmark", dst / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__", ".cache"))
+    manifest = json.loads((dst / "BENCHMARK.json").read_text())
+    for name, cfg in _tiny_configs().items():
+        cfg["precision"] = precision
+        cfg["program"]["overrides"]["mixed_precision"] = \
+            precision == "bfloat16"
+        path = f"benchmark/configs/{name}.json"
+        (dst / path).write_text(json.dumps(cfg))
+        manifest["configs"].append({"name": name, "source": "test",
+                                    "file": path, "reduced": [],
+                                    "why": "small"})
+    cells = (("tiny_r18.train", "tiny_r18", "train"),
+             ("tiny_alter.train", "tiny_alter", "train"),
+             ("tiny_r18.embed", "tiny_r18", "embed"))
+    for cell, cfg, traffic in cells:
+        manifest["workloads"].append({"name": cell, "config": cfg,
+                                      "traffic": traffic, "chips": 1,
+                                      "why": "small"})
+        like = {"train": "r100_wf42m.train", "embed": "r100_wf42m.embed"}
+        for m in manifest["end_to_end"] + manifest["per_layer"]:
+            if like[traffic] in m.get("workloads", []):
+                m["workloads"].append(cell)
+        own = ({"limits": TINY_TRAIN_LIMITS,
+                "traffic": {"steps_per_epoch": 4, "profiled_steps": 2}}
+               if traffic == "train" else
+               {"limits": TINY_EMBED_LIMITS,
+                "traffic": {"batch": 8, "buffers": 3, "profiled_steps": 2}})
+        (dst / f"benchmark/workloads/{cell}.json").write_text(
+            json.dumps(own))
+    (dst / "BENCHMARK.json").write_text(json.dumps(manifest, indent=1))
+    return dst
+
+
+def run_cpu(root: Path, cell: str, seed: int, seconds: float,
+            trace: bool) -> dict:
+    """A whole run of ``cell`` on the CPU, as ``harness.run_cell`` drives
+    one on the card: set-up, the window, the traced steps with ``trace``,
+    then what follows the window (``harness.conclude``)."""
+    t_start = time.perf_counter()
+    manifest = harness.load_manifest(root)
+    files = harness.cell_files(root, manifest, cell)
+    loop = harness.loop_for(files["traffic"])(files["config"],
+                                              files["traffic"], seed, "cpu")
+    loop.setup()
+    run = types.SimpleNamespace(
+        kind=loop.kind, cfg=files["config"], traffic=files["traffic"],
+        window=None, peak=None, setup_s=time.perf_counter() - t_start,
+        peak_bytes=0, trace=None)
+    run.window = loop.window(seconds)
+    if trace:
+        run.trace = harness.profile(loop, files["traffic"]["profiled_steps"],
+                                    False)
+    return harness.conclude(root, manifest, cell, files, loop, run,
+                            {"platform": "cpu", "kind": "cpu", "count": 1,
+                             "memory_peak_bytes": 0})
