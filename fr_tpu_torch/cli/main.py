@@ -32,7 +32,9 @@ continues the newest matching run. ``--device {cuda,cpu}`` takes the place
 of JAX_PLATFORMS; it raises when CUDA is asked for and absent and never
 switches device on its own; under ``--distributed`` a process runs on
 ``cuda:LOCAL_RANK``. ``--profile N`` records a torch.profiler trace of N
-training steps into <run dir>/profile/trace.json, and training writes
+training steps into <run dir>/profile/trace.json, each step with its spans
+(utils/profiling.py: the encoder, the head, the optimizer, the
+collectives, the loader), and training writes
 TensorBoard scalars into <run dir>/TBLog; on a mesh rank 0 writes the run
 directory and everything in it. With ``--device_corpus`` on a mesh each
 rank uploads only its stripe of the corpus (1/world size of it).
@@ -75,7 +77,8 @@ def parse_args(argv=None):
     p.add_argument("--synthetic_classes", type=int, default=128)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--profile", type=int, default=0,
-                   help="record a torch.profiler trace of N steps")
+                   help="record a torch.profiler trace of N steps, "
+                        "each with its layers' spans")
     p.add_argument("--save_root", type=str, default="save")
     p.add_argument("--distributed", action="store_true")
     p.add_argument("--mesh_data", type=int, default=None)

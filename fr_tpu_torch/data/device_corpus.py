@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from fr_tpu_torch.data.folder import _check_split
+from fr_tpu_torch.utils.profiling import DATA_BATCH, DATA_EPOCH, span
 
 # rows per host → device copy of the upload: a memory-mapped corpus is
 # read a chunk at a time, never whole into host memory
@@ -82,18 +83,25 @@ class DeviceCorpusLoader:
     def epoch(self, epoch: int) -> Iterator[Tuple[torch.Tensor,
                                                   torch.Tensor]]:
         steps, b = self.steps_per_epoch(), self.b_loc
-        # every rank's permutation of its block (the labels need them all)
-        perms = np.stack([
-            np.random.default_rng((self.seed, epoch, r)).permutation(
-                self.n_loc) for r in range(self.process_count)])
-        used = perms[:, :steps * b]
-        # (steps, B): step s's labels, rank 0's b first
-        labels = np.take_along_axis(self.host_labels, used, axis=1).reshape(
-            self.process_count, steps, b).transpose(1, 0, 2).reshape(
-                steps, self.batch_size)
-        order = torch.from_numpy(used[self.process_index]).to(self.device)
-        labels = torch.from_numpy(np.ascontiguousarray(labels)).to(
-            self.device)
+        with span(DATA_EPOCH):
+            # every rank's permutation of its block (the labels need them
+            # all)
+            perms = np.stack([
+                np.random.default_rng((self.seed, epoch, r)).permutation(
+                    self.n_loc) for r in range(self.process_count)])
+            used = perms[:, :steps * b]
+            # (steps, B): step s's labels, rank 0's b first
+            labels = np.take_along_axis(self.host_labels, used, axis=1)
+            labels = labels.reshape(self.process_count, steps, b).transpose(
+                1, 0, 2).reshape(steps, self.batch_size)
+            order = torch.from_numpy(used[self.process_index]).to(
+                self.device)
+            labels = torch.from_numpy(np.ascontiguousarray(labels)).to(
+                self.device)
         for s in range(steps):
-            yield (self.images.index_select(0, order[s * b:(s + 1) * b]),
-                   labels[s])
+            # the span closes before the yield: the consumer's step is not
+            # the loader's
+            with span(DATA_BATCH):
+                batch = (self.images.index_select(
+                    0, order[s * b:(s + 1) * b]), labels[s])
+            yield batch

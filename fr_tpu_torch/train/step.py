@@ -35,10 +35,13 @@ on the expanded index, and the rows move through the grouped kernels of
 ops/sparse_rows.py (gather, then the in-place update). The gradient is taken
 with respect to the gathered rows, so the gather carries no autograd.
 
-The head's four parts of a step (drawing and gathering the rows, the loss,
-its backward, the update) run inside ``record_function`` ranges named
-``pfc_head:*``, so that a profile of the step can tell the head's device
-time from the encoder's; outside a profile the ranges do nothing.
+Each step runs inside spans (utils/profiling.py ``span``), one at every
+layer boundary: the root ``train_step`` holds the augmentation, the head's
+four parts (``pfc_head:rows``, ``:loss``, ``:backward``, ``:update``), the
+encoder's forward and backward, the gradients' collectives and the
+encoder's update, and the embedding step's root ``embed_step`` holds its
+copy in and its encoder. A profile of a step places every kernel in the
+span that launched it; outside a profile the spans do nothing.
 
 Batches reach the step from the host or already on the device:
 ``prefetch_to_device`` copies host batches a few steps ahead on a side CUDA
@@ -62,7 +65,6 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from fr_tpu_torch.data.augment import augment
 from fr_tpu_torch.heads.partial_fc import (PFCConfig, label_columns,
@@ -77,6 +79,8 @@ from fr_tpu_torch.parallel.mesh import Mesh, local_class_slice
 from fr_tpu_torch.train.optim import (clip_by_global_norm, encoder_update,
                                       pfc_row_update)
 from fr_tpu_torch.train.state import TrainState
+from fr_tpu_torch.utils import profiling as spans
+from fr_tpu_torch.utils.profiling import span
 
 MAX_GRAD_NORM = 5.0
 
@@ -141,16 +145,21 @@ def make_train_step(conf, pfc_cfg: PFCConfig, device,
 
     def step(state: TrainState, images, labels, lr: float,
              sample_idx=None, sample_gidx=None) -> Dict:
+        with span(spans.TRAIN_STEP):
+            return _step(state, images, labels, lr, sample_idx, sample_gidx)
+
+    def _step(state, images, labels, lr, sample_idx, sample_gidx):
         gens = state.generators
         # a synchronous copy for host arrays; .to returns a tensor that is
         # already on the device (a prefetched batch) as it is
         images = torch.as_tensor(images).to(device)
         labels = torch.as_tensor(labels).to(device).long()
         if augment_cfg is not None:
-            images = augment(images, augment_cfg, gens["augment"])
+            with span(spans.AUGMENT):
+                images = augment(images, augment_cfg, gens["augment"])
         pfc = state.pfc
         row_size = mesh.model * images.shape[0]
-        with record_function("pfc_head:rows"):
+        with span(spans.HEAD_ROWS):
             idx, gidx, col_valid, w_rows = head_rows(labels, pfc, gens,
                                                      sample_idx, sample_gidx)
             # this data row's labels (fr_tpu/train/step.py:157-167)
@@ -163,27 +172,32 @@ def make_train_step(conf, pfc_cfg: PFCConfig, device,
         encoder.train()
         names, params = zip(*encoder.named_parameters())
         w_act = w_rows.detach().requires_grad_(True)
-        emb = l2_normalize(encoder(images, gens["dropout"]).float())
-        with record_function("pfc_head:loss"):
+        with span(spans.ENCODER_FORWARD):
+            emb = l2_normalize(encoder(images, gens["dropout"]).float())
+        with span(spans.HEAD_LOSS):
             loss = shard_softmax_ce(cfg, all_gather(emb, model_group),
                                     label_cols, w_act, col_valid,
                                     model_group).mean()
         # the head's backward, then the encoder's from the embeddings'
         # gradient: the same graph in two walks
-        with record_function("pfc_head:backward"):
+        with span(spans.HEAD_BACKWARD):
             g_emb, g_rows = torch.autograd.grad(
                 loss / mesh.data if mesh.data > 1 else loss, [emb, w_act])
-        g_enc = list(torch.autograd.grad(emb, params, g_emb))
-        psum_flat_(g_enc, mesh.world_group)
-        psum_flat_([g_rows], mesh.data_group)
-        pmean_flat_([b for b in encoder.buffers()
-                     if b.is_floating_point()], mesh.world_group)
+        with span(spans.ENCODER_BACKWARD):
+            g_enc = list(torch.autograd.grad(emb, params, g_emb))
+        with span(spans.COLLECTIVE_GRADS):
+            psum_flat_(g_enc, mesh.world_group)
+            psum_flat_([g_rows], mesh.data_group)
+            pmean_flat_([b for b in encoder.buffers()
+                         if b.is_floating_point()], mesh.world_group)
 
-        g_enc, grad_norm = clip_by_global_norm(g_enc, MAX_GRAD_NORM)
-        slots = {k: [v[n] for n in names] for k, v in state.opt_slots.items()}
-        encoder_update(optimizer, conf, [p.data for p in params], g_enc,
-                       slots, lr, state.step + 1)
-        with record_function("pfc_head:update"):
+        with span(spans.OPTIM_ENCODER):
+            g_enc, grad_norm = clip_by_global_norm(g_enc, MAX_GRAD_NORM)
+            slots = {k: [v[n] for n in names]
+                     for k, v in state.opt_slots.items()}
+            encoder_update(optimizer, conf, [p.data for p in params], g_enc,
+                           slots, lr, state.step + 1)
+        with span(spans.HEAD_UPDATE):
             pfc_row_update(optimizer, conf, pfc.weight, pfc.slots, idx,
                            g_rows, lr, pfc.count + 1, gidx=gidx,
                            block=cfg.sample_block)
@@ -331,13 +345,15 @@ def make_embed_step(conf, encoder: torch.nn.Module, device) -> Callable:
     device = torch.device(device)
 
     def embed(images) -> torch.Tensor:
-        x = torch.as_tensor(images, dtype=torch.float32).to(device)
-        if x.shape[1] != img_size or x.shape[2] != img_size:
-            x = resize_bilinear(x, img_size, img_size)
-        encoder.eval()
-        with torch.inference_mode():
-            emb = encoder(x)
-            return l2_normalize(emb.float())
+        with span(spans.EMBED_STEP):
+            with span(spans.EMBED_COPY_IN):
+                x = torch.as_tensor(images, dtype=torch.float32).to(device)
+                if x.shape[1] != img_size or x.shape[2] != img_size:
+                    x = resize_bilinear(x, img_size, img_size)
+            encoder.eval()
+            with torch.inference_mode(), span(spans.EMBED_ENCODER):
+                emb = encoder(x)
+                return l2_normalize(emb.float())
 
     return embed
 
