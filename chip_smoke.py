@@ -83,6 +83,18 @@ Phases; any failure exits non-zero and prints no result:
     of both rules larger than the tolerance; times, byte bounds, and
     torch.index_select as the gather's library call, timed against the
     gather in 7 alternating turns (medians and spreads);
+    [kernel_batch_norm] the BatchNorm kernels (csrc/batch_norm.cu) in
+    bf16 at IR-ResNet100's stem, layer-3 and BN1d shapes (b=256) and
+    AlterNet50's stem (b=128, 192 px): bn_stats + bn_apply, the backward
+    pair through autograd and bn_eval against the plain version (one bf16
+    ulp), their device time (profiler) beside their byte bounds (4, 6 and
+    4 B an element at 3.35 TB/s), the plain version and cuDNN's f32 batch
+    norm between two casts (the library path the port no longer calls),
+    over activations cycled past the L2; the main paths ([main], [train],
+    [resnet100], [webface42m]) count the kernels' launches by entry point
+    from 0: 2 forward and 2 backward a training BatchNorm call, 1 an eval
+    call, and one layout copy an IR-ResNet100 training step (the last
+    BN2d's gradient, NCHW from the flatten);
 12. [resnet100] the serving CLI of webface42m at full width (IR-ResNet100,
     112 px, emd 512, bf16), the embedding golden
     (tests/data/resnet100_golden.npz) and the embed throughput;
@@ -417,7 +429,9 @@ def phase_build():
                    "window_attn_qkv_grad_mma_kernel",
                    "margin_ce_stats_tc_kernel",
                    "margin_ce_grad_emb_tc_kernel",
-                   "margin_ce_grad_w_tc_kernel"):
+                   "margin_ce_grad_w_tc_kernel", "bn_stats_kernel",
+                   "bn_apply_kernel", "bn_bwd_reduce_kernel",
+                   "bn_bwd_apply_kernel"):
         check(any(k == kernel for k, *_ in table),
               f"the build log lists no {kernel}")
     for kernel, args, regs, st, ld in table:
@@ -807,18 +821,22 @@ def _ce_loss_err(a, b):
 
 class _EncoderCalls:
     """Counts forward calls of one encoder class (AlterNet by default) in
-    training and in eval mode."""
+    training and in eval mode, and of BatchNorm modules (``bn_train``,
+    ``bn_eval``)."""
 
     def __init__(self, cls=None):
         import torch
         from fr_tpu_torch.models.alternet import AlterNet
+        from fr_tpu_torch.models.common import _FlaxBatchNorm
 
         cls = cls or AlterNet
-        self.counts = {"train": 0, "eval": 0}
+        self.counts = {"train": 0, "eval": 0, "bn_train": 0, "bn_eval": 0}
 
         def hook(module, args, output):
             if isinstance(module, cls):
                 self.counts["train" if module.training else "eval"] += 1
+            elif isinstance(module, _FlaxBatchNorm):
+                self.counts["bn_train" if module.training else "bn_eval"] += 1
 
         self.handle = torch.nn.modules.module.register_module_forward_hook(
             hook)
@@ -828,7 +846,8 @@ class _EncoderCalls:
 
 
 def phase_main_path():
-    """The CLI's serving path; returns (kernel launches, encoder calls)."""
+    """The CLI's serving path; returns (kernel launches, encoder calls, the
+    BatchNorm kernels' launches by entry point)."""
     import numpy as np
     from fr_tpu_torch.ops.fused_window_attn import \
         fused_window_attention_packed as kernel
@@ -840,6 +859,7 @@ def phase_main_path():
         with tempfile.TemporaryDirectory() as tmp, \
                 contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
             kernel.launches = 0
+            _zero_bn()
             _reset_routes()
             msg = cli_main(CLI_ARGS + ["--save_root", tmp])
             launches = kernel.launches
@@ -847,6 +867,7 @@ def phase_main_path():
         calls.close()
     n_calls = calls.counts["eval"]
     print(f"[main] encoder calls {n_calls}, kernel launches {launches}")
+    bn = _bn_launches("[main]", calls, 0)
     _check_routes("[main]", launches, 0)
     check(n_calls >= 1 and launches == 12 * n_calls,
           f"{launches} launches for {n_calls} encoder calls, expected 12 "
@@ -864,7 +885,7 @@ def phase_main_path():
           f"{msg['synthetic'].infer_time:.2f} ms per call of 128 images, "
           f"host to host")
     check(norm_err <= 1e-4, "embeddings are not unit-norm")
-    return launches, n_calls
+    return launches, n_calls, bn
 
 
 def phase_throughput(network: str = "AlterNet50"):
@@ -925,7 +946,7 @@ def phase_golden():
 
 def phase_train():
     """The training CLI at full width; returns (forward launches, backward
-    launches, steps)."""
+    launches, steps, the BatchNorm kernels' launches by entry point)."""
     import numpy as np
     from fr_tpu_torch.cli.main import build_conf, parse_args
     from fr_tpu_torch.cli.main import main as cli_main
@@ -942,6 +963,7 @@ def phase_train():
                 contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
             t0 = time.perf_counter()
             fwd.launches = bwd.launches = 0
+            _zero_bn()
             _reset_routes()
             task = cli_main(TRAIN_ARGS + ["--save_root", tmp])
             launches = fwd.launches, bwd.launches
@@ -953,6 +975,8 @@ def phase_train():
     print(f"[train] {steps} steps, {evals} eval encoder calls, forward "
           f"launches {launches[0]}, backward launches {launches[1]}, "
           f"{wall:.1f} s for the whole run")
+    # AlterNet50's BatchNorms all see (M, C) rows, gradients too
+    bn = _bn_launches("[train]", calls, 0)
     check(steps == expected, f"{steps} training steps, expected {expected}")
     _check_routes("[train]", *launches)
     check(launches[1] == 12 * steps,
@@ -973,7 +997,7 @@ def phase_train():
           "the ROC report was not printed at epoch 5")
     check(snapshots == ["5_epoch_encoder.npz"],
           f"encoder snapshots {snapshots}, expected the epoch-5 one")
-    return launches[0], launches[1], steps
+    return launches[0], launches[1], steps, bn
 
 
 def _head_grad(task, w0, wd):
@@ -2119,9 +2143,191 @@ def phase_kernel_sparse_rows():
     return worst, times, bounds
 
 
+# BatchNorm shapes of the main paths: IR-ResNet100 at batch 256 and 112 px
+# (the stem, layer 3, the BN1d) and AlterNet50 at batch 128 and 192 px (the
+# stem), as (N, C, H, W) or (N, C)
+BN_SHAPES = {"IR-ResNet100 stem": (256, 64, 112, 112),
+             "IR-ResNet100 layer3": (256, 256, 14, 14),
+             "IR-ResNet100 BN1d": (256, 512),
+             "AlterNet50 stem": (128, 64, 96, 96)}
+# compulsory bytes an element in bf16: the forward reads x and writes y; the
+# backward reads x and dy and writes dx; eval reads x and writes y
+BN_BYTES = {"fwd": 4, "bwd": 6, "eval": 4}
+BN_COLD_BYTES = 100e6   # activations cycled per timing: twice the 50 MB L2
+BN_TOL = 2.0 ** -7      # one bf16 ulp, relative (tests/test_torch_batch_norm.py)
+
+
+def _device_ms(call, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of call() by the profiler: every kernel, copy and fill it
+    launches, over iters calls after a warm-up. CUDA events around calls
+    that launch little would time the host's launching instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / iters / 1e3
+
+
+def phase_kernel_batch_norm():
+    """[kernel_batch_norm] the BatchNorm kernels (csrc/batch_norm.cu) in
+    bf16 at the BN_SHAPES: the training forward (bn_stats + bn_apply), the
+    backward pair through autograd on the statistics the forward saved, and
+    bn_eval, each one's device time (profiler) beside its byte bound at
+    3.35 TB/s, the plain version and the library path (cuDNN's f32 batch
+    norm between two casts, which the port no longer calls), each cycled
+    over enough activations to exceed the L2. The output and dx are held
+    against the plain version to one bf16 ulp (relative). Returns {(shape,
+    kind): (ms, plain ms, library ms, bound ms, max abs error)}."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    from fr_tpu_torch.ops import batch_norm as B
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    times, worst = {}, dict.fromkeys(BN_BYTES, 0.0)
+    for tag, shape in BN_SHAPES.items():
+        c, numel = shape[1], math.prod(shape)
+        copies = max(1, math.ceil(BN_COLD_BYTES / (2 * numel)))
+        rows = (shape[0], *shape[2:], c)
+
+        def draw():
+            out = [(torch.randn(rows, device=dev, generator=gen) * 1.5 + 0.3)
+                   .to(torch.bfloat16) for _ in range(copies)]
+            # 4-D: NCHW views of channels_last storage, as the models have
+            return [t.permute(0, 3, 1, 2) if t.dim() == 4 else t for t in out]
+
+        xs, dys = draw(), draw()
+        weight = torch.rand(c, device=dev, generator=gen) + 0.5
+        bias = torch.rand(c, device=dev, generator=gen) - 0.5
+
+        def running():
+            """Running statistics of one side's own: a graph that saved
+            them stays valid while another side updates its own."""
+            return (torch.zeros(c, device=dev), torch.ones(c, device=dev),
+                    torch.zeros((), dtype=torch.int64, device=dev))
+
+        sides = {
+            "kernel": lambda x, training, st: B.batch_norm(
+                x, st[0], st[1], weight, bias, st[2], training, 0.1, 1e-5),
+            "plain": lambda x, training, st: B.batch_norm_reference(
+                x, st[0], st[1], weight, bias, st[2], training, 0.1, 1e-5),
+            "library": lambda x, training, st: F.batch_norm(
+                x.float(), st[0], st[1], weight, bias, training, 0.1,
+                1e-5).to(torch.bfloat16)}
+        stats = {side: running() for side in sides}
+
+        def cycled(fn):
+            turn = [0]
+
+            def call():
+                turn[0] = (turn[0] + 1) % copies
+                return fn(turn[0])
+            return call
+
+        def errors(kind, ours, want):
+            """The largest absolute error, and the check against one bf16
+            ulp of each element (a floor of 1e-5 of the largest)."""
+            ours, want = ours.float(), want.float()
+            err = (ours - want).abs()
+            rel = err / want.abs().clamp_min(1e-5 * float(want.abs().max()))
+            worst[kind] = max(worst[kind], float(rel.max()))
+            return float(err.max())
+
+        errs = {}
+        with torch.no_grad():
+            for kind in ("fwd", "eval"):
+                training = kind == "fwd"
+                # eval: both on the kernel side's running statistics
+                errs[kind] = errors(
+                    kind, sides["kernel"](xs[0], training, stats["kernel"]),
+                    sides["plain"](xs[0], training,
+                                   stats["plain" if training else "kernel"]))
+                times[(tag, kind)] = tuple(
+                    _device_ms(cycled(lambda i, fn=fn, st=stats[side]: fn(
+                        xs[i], training, st)))
+                    for side, fn in sides.items())
+        # the backward: each side's graph of a training forward, built once
+        # a copy, and autograd.grad of x through it
+        graphs = {}
+        for side, fn in sides.items():
+            graphs[side] = []
+            for x in xs:
+                x = x.detach().requires_grad_(True)
+                graphs[side].append((fn(x, True, stats[side]), x))
+
+        def backward(side, i):
+            y, x = graphs[side][i]
+            return torch.autograd.grad(y, x, dys[i], retain_graph=True)[0]
+
+        errs["bwd"] = errors("bwd", backward("kernel", 0),
+                             backward("plain", 0))
+        times[(tag, "bwd")] = tuple(
+            _device_ms(cycled(lambda i, side=side: backward(side, i)))
+            for side in sides)
+        del graphs, xs, dys
+        for kind in BN_BYTES:
+            ms, plain_ms, lib_ms = times[(tag, kind)]
+            nbytes = BN_BYTES[kind] * numel
+            bound = nbytes / 3.35e12 * 1e3
+            times[(tag, kind)] = (ms, plain_ms, lib_ms, bound, errs[kind])
+            print(f"[kernel_batch_norm] {tag:20s} {'x'.join(map(str, shape))}"
+                  f" {kind:4s} kernel {ms:.4f} ms ({nbytes / ms / 1e6:,.0f} "
+                  f"GB/s, {100 * bound / ms:.1f}% of the bound {bound:.4f} "
+                  f"ms)  plain {plain_ms:.4f} ms  library {lib_ms:.4f} ms  "
+                  f"max_abs_err {errs[kind]:.3e}")
+    torch.cuda.empty_cache()
+    for kind, err in worst.items():
+        check(err <= BN_TOL, f"[kernel_batch_norm] {kind}: relative error "
+              f"{err:.3e} beyond one bf16 ulp")
+    print("[kernel_batch_norm] largest error relative to the plain version: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f" (limit {BN_TOL:g})")
+    return times
+
+
+def _zero_bn():
+    """Sets the BatchNorm wrapper's counters to 0."""
+    from fr_tpu_torch.ops.batch_norm import batch_norm
+    batch_norm.launches = batch_norm.layout_copies = 0
+    batch_norm.entry_launches.clear()
+
+
+def _bn_launches(tag, calls, copies_per_step):
+    """The BatchNorm kernels' launches since _zero_bn() by entry point,
+    checked against the BatchNorm calls that ``calls`` counted: 2 forward
+    and 2 backward a training call, 1 an eval call; and copies_per_step
+    layout copies a training encoder call."""
+    from fr_tpu_torch.ops.batch_norm import batch_norm as bn
+    counts = calls.counts
+    got = {k: bn.entry_launches[k]
+           for k in ("bn_forward", "bn_backward", "bn_eval")}
+    print(f"{tag} BatchNorm: {counts['bn_train']} training and "
+          f"{counts['bn_eval']} eval calls in {counts['train']} training and "
+          f"{counts['eval']} eval encoder calls; kernel launches {got}, "
+          f"layout copies {bn.layout_copies}")
+    check(got == {"bn_forward": 2 * counts["bn_train"],
+                  "bn_backward": 2 * counts["bn_train"],
+                  "bn_eval": counts["bn_eval"]}
+          and bn.launches == sum(got.values()),
+          f"{tag} BatchNorm launches {got} (all {bn.launches})")
+    check(bn.layout_copies == copies_per_step * counts["train"],
+          f"{tag} {bn.layout_copies} BatchNorm layout copies for "
+          f"{counts['train']} training steps")
+    return got
+
+
 def phase_resnet100():
     """[resnet100] the serving CLI of webface42m at full width, the
-    embedding golden in f32 and bf16, the embed throughput."""
+    embedding golden in f32 and bf16, the embed throughput. Returns the
+    serving CLI's BatchNorm kernel launches by entry point."""
     import numpy as np
     import torch
     from fr_tpu_torch.cli.main import main as cli_main
@@ -2136,11 +2342,13 @@ def phase_resnet100():
     try:
         with tempfile.TemporaryDirectory() as tmp, \
                 contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+            _zero_bn()
             msg = cli_main(WEBFACE_ARGS + ["--mode", "test", "--test_b", "64",
                                            "--save_root", tmp])
     finally:
         calls.close()
     check(calls.counts["eval"] >= 1, "[resnet100] no encoder call")
+    bn = _bn_launches("[resnet100]", calls, 0)
     check('[Test with "synthetic"]' in captured.getvalue()
           and "- EER" in captured.getvalue(),
           "[resnet100] the ROC report was not printed")
@@ -2176,6 +2384,7 @@ def phase_resnet100():
             check(cos.min() >= 0.99, f"[resnet100] bf16 cosine {cos.min()}")
         del model, embed
     phase_throughput("ResNet100")
+    return bn
 
 
 def _webface_conf(sample_block=WEBFACE_BLOCK, optimizer=None):
@@ -2204,11 +2413,13 @@ def _webface_batches(conf, n, seed=11):
 
 def phase_webface42m(steps: int = 3, timed: int = 8):
     """[webface42m] the training step at the full head. Returns the
-    launches of (grouped_gather, grouped_update_sgd, grouped_update_adamw)
-    and of the three margin-CE kernels over the phase."""
+    launches of (grouped_gather, grouped_update_sgd, grouped_update_adamw),
+    of the three margin-CE kernels and of the BatchNorm kernels by entry
+    point over the phase."""
     import torch
     from fr_tpu_torch.heads.partial_fc import (sample_groups,
                                                shard_group_masks)
+    from fr_tpu_torch.models.resnet import ResNet
     from fr_tpu_torch.ops import fused_pfc as F
     from fr_tpu_torch.ops import sparse_rows as R
     from fr_tpu_torch.train.task import FaceRecognitionTask
@@ -2217,6 +2428,8 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
     ce = (F.margin_ce_stats, F.margin_ce_grad_emb, F.margin_ce_grad_w)
     for k in rows + ce:
         k.launches = 0
+    _zero_bn()
+    calls = _EncoderCalls(ResNet)
     conf = _webface_conf()
     n = steps + timed
     images, labels = _webface_batches(conf, n)
@@ -2334,7 +2547,10 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
           f"kernels on the tensor cores: {results['tensor_cores'][1]:.2f} "
           f"ms; the "
           f"device's side of it is in [profile]")
-    return [k.launches for k in rows], ce_launches
+    calls.close()
+    # the last BN2d's gradient reaches it NCHW from the flatten
+    bn = _bn_launches("[webface42m]", calls, 1)
+    return [k.launches for k in rows], ce_launches, bn
 
 
 def phase_resnet100_train_golden():
@@ -4198,6 +4414,10 @@ def _family(name):
                       ("port sparse-row kernels", ("grouped_gather_kernel",
                                                    "grouped_sgd_kernel",
                                                    "grouped_adamw_kernel")),
+                      ("port BatchNorm kernels", ("bn_stats_kernel",
+                                                  "bn_apply_kernel",
+                                                  "bn_bwd_reduce_kernel",
+                                                  "bn_bwd_apply_kernel")),
                       ("cuDNN BatchNorm", ("bn_", "batch_norm", "batchnorm")),
                       ("convolution", ("conv", "implicit", "dgrad", "wgrad",
                                        "depthwise", "xmma_fprop")),
@@ -4774,12 +4994,13 @@ def main() -> None:
     phase_kernel_plan()
     worst_st_f, worst_st_b, times_st = phase_kernel_stats()
     worst_rows, times_rows, bounds_rows = phase_kernel_sparse_rows()
+    times_bn = phase_kernel_batch_norm()
     errs_v, times_v, launches_grouped = phase_kernel_variants()
     # each main path runs with its counts set to 0 just before it
-    launches_fwd, _ = phase_main_path()
+    launches_fwd, _, bn_main = phase_main_path()
     phase_throughput()
     phase_golden()
-    _, launches_bwd, _ = phase_train()
+    _, launches_bwd, _, bn_train = phase_train()
     launches_ce = phase_train_full_head()
     phase_train_golden()
     packed_stats = phase_stats_switch("AlterNet50")
@@ -4796,8 +5017,8 @@ def main() -> None:
     phase_alternet_sep50()
     phase_alternet_v1_50()
     phase_dw_taps()
-    phase_resnet100()
-    launches_rows, launches_ce_webface = phase_webface42m()
+    bn_resnet100 = phase_resnet100()
+    launches_rows, launches_ce_webface, bn_webface = phase_webface42m()
     phase_resnet100_train_golden()
     phase_resume()
     phase_multi_gpu()
@@ -4933,6 +5154,27 @@ def main() -> None:
                               f"sparse_rows.py:{line}", count,
                               worst_rows[name], ms, plain_ms,
                               bounds_rows[name], lib))
+    # the BatchNorm kernels replace no TPU kernel (flax's BatchNorm is XLA's
+    # there); each shape's launches are those of its network's main paths:
+    # IR-ResNet100's [resnet100] serving and [webface42m] training,
+    # AlterNet50's [main] serving and [train] CLI
+    bn_launches = {
+        net: {k: sum(run[k] for run in runs) for k in runs[0]}
+        for net, runs in (("IR-ResNet100", (bn_resnet100, bn_webface)),
+                          ("AlterNet50", (bn_main, bn_train)))}
+    for kind, label, entry in (
+            ("fwd", "bn_stats + bn_apply", "bn_forward"),
+            ("bwd", "bn_bwd_reduce + bn_bwd_apply", "bn_backward"),
+            ("eval", "bn_eval", "bn_eval")):
+        for tag in BN_SHAPES:
+            ms, plain_ms, lib_ms, bound, err = times_bn[(tag, kind)]
+            kernels.append({
+                "name": f"{label} (BatchNorm, {tag})",
+                "route": "cuda", "source": "fr_tpu_torch/csrc/batch_norm.cu",
+                "replaces": None,
+                "launches": bn_launches[tag.split()[0]][entry],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms})
     kernels += _variant_entries(errs_v, times_v,
                                 dict(launches_routes, grouped=launches_grouped))
     check(all(c > 0 for c in launches_ce_webface.values()),

@@ -7,8 +7,10 @@ kernels.
 
 Mixed precision follows each fr_tpu layer's own ``dtype`` rather than
 ``torch.autocast``: a layer casts its input and its f32 weights to its
-compute dtype on every call. BatchNorm always computes in f32 and casts back
-to its input's dtype (fr_tpu/models/common.py:61-81).
+compute dtype on every call. BatchNorm's statistics and affine arithmetic
+are f32 and its output is rounded to its input's dtype
+(fr_tpu/models/common.py:61-81); on the card the f32 values live only in
+the kernel's registers (ops/batch_norm.py).
 
 Initialisation matches fr_tpu: Xavier-normal (untruncated) conv and dense
 weights, zero biases, BN gamma 1 and beta 0; a module with an ``init_std``
@@ -28,6 +30,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from fr_tpu_torch.ops.batch_norm import batch_norm
 
 
 class Conv(nn.Conv2d):
@@ -51,33 +55,15 @@ class Conv(nn.Conv2d):
 
 class _FlaxBatchNorm:
     """flax BatchNorm semantics (fr_tpu/models/common.py:61-81): eps 1e-5,
-    running statistics updated as 0.9·old + 0.1·batch, statistics and affine
-    math in f32 whatever the input dtype, output cast back to it.
-
-    In training the running variance takes the *biased* batch variance, as
-    flax does; torch's own BatchNorm takes the unbiased one, n/(n−1) larger
-    (a third larger for BN1d over 4 samples). torch's update runs inside
-    its fused BatchNorm, R₁ = (1−m)·R₀ + m·v·n/(n−1); the batch's share is
-    then scaled back by (n−1)/n on the (C,) buffer, which needs no second
-    pass over the activations."""
+    running statistics updated as 0.9·old + 0.1·batch with the biased batch
+    variance, statistics and affine math in f32 whatever the input dtype,
+    output in the input's dtype. ops/batch_norm.py computes it: the plain
+    version on the CPU, the kernels on the card."""
 
     def forward(self, x):
-        xf = x.float()
-        if not self.training:
-            return F.batch_norm(xf, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0,
-                                self.eps).to(x.dtype)
-        m = self.momentum
-        n = xf.numel() // xf.shape[1]
-        # torch updates a copy: autograd keeps the buffer it was given
-        updated = self.running_var.clone()
-        y = F.batch_norm(xf, self.running_mean, updated, self.weight,
-                         self.bias, True, m, self.eps)
-        with torch.no_grad():
-            kept = self.running_var * (1.0 - m)
-            self.running_var.copy_(kept + (updated - kept) * ((n - 1) / n))
-            self.num_batches_tracked.add_(1)
-        return y.to(x.dtype)
+        return batch_norm(x, self.running_mean, self.running_var,
+                          self.weight, self.bias, self.num_batches_tracked,
+                          self.training, self.momentum, self.eps)
 
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):

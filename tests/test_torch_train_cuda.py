@@ -1,5 +1,5 @@
 """The training slice's parts on the card: BatchNorm's flax-style running
-update through cuDNN, dropout and DropPath under CUDA generators, and one
+update through its kernels, dropout and DropPath under CUDA generators, and one
 training step of a small AlterNet with use_fused on, launching every kernel
 of the path. Imports no jax, so it also runs on a machine without it:
 
@@ -34,7 +34,7 @@ def cuda_device():
 @pytest.mark.cuda
 def test_batchnorm_update_on_card_equals_cpu(cuda_device):
     """The CPU update is held to flax's by test_torch_train_parts.py; the
-    card's, through cuDNN, equals it to 1e-6."""
+    card's, through the BatchNorm kernels, equals it to 1e-6."""
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(4, 16, 3, 3, generator=gen) * 2 + 0.5
     bns = []
