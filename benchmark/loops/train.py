@@ -12,14 +12,17 @@ where its learning rate is the configuration's ``lr``.
 Set-up builds the task, loads the benchmark's weights and class table into
 it, and drives it through ``recorded_steps`` steps of the window's own
 call and feed, keeping each batch, the generators' states before it and
-the program's readings (losses, the first step's momentum norms, the
-change of every leaf after the last recorded step); ``warmup_steps`` more
-steps follow. Once the window (and any traced steps) has closed, one more
-step of the same call and feed is recorded from a copy of the program's
-state before it (encoder, momentum, class table and its momentum), so
-that the path the window timed, after its warm-up, is compared too. The
-reference then follows the first steps from the seed's weights and the
-last step from that copy (``reference/train.py``).
+the program's readings (losses, the first step's change of the
+optimizer's read slot, the change of every leaf after the last recorded
+step); ``warmup_steps`` more steps follow. Once the window (and any traced
+steps) has closed, one more step of the same call and feed is recorded
+from a copy of the program's state before it (encoder, the optimizer's
+slots and step counts, class table and its slots), so that the path the
+window timed, after its warm-up, is compared too. The reference then
+follows the first steps from the seed's weights and the last step from
+that copy (``reference/train.py``). The optimizer's module
+(``reference/optimizers/<name>.py``) names the slots, the one read and
+its decay, and the keys of the program's configuration it states.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Dict
 import torch
 
 from benchmark import inputs
+from benchmark.reference.train import optimizer
 
 READINGS = ("loss_gap", "loss1_gap", "grad1_gap", "grad1_median_gap",
             "change3_gap", "change3_median_gap", "grad1_diff",
@@ -41,14 +45,14 @@ def program_conf(cfg: dict):
     """The program's configuration for cfg, refused where it departs from
     what the benchmark's configuration states."""
     from fr_tpu_torch.configs import load_config
+    head, opt, model = cfg["head"], cfg["optimizer"], cfg["model"]
+    optim = optimizer(opt)
     prog = cfg["program"]
     conf = load_config(prog["config"], **prog["overrides"])
-    head, opt, model = cfg["head"], cfg["optimizer"], cfg["model"]
     stated = {"n_classes": head["num_classes"], "emd_size": head["emd_size"],
               "loss_s": head["s"], "loss_m": head["m"],
               "metric": head["margin"], "optimizer_name": opt["name"],
-              "lr": opt["lr"], "mom": opt["momentum"],
-              "wd": opt["weight_decay"], "img_size": model["img_size"],
+              **optim.program_keys(opt), "img_size": model["img_size"],
               "mixed_precision": cfg["precision"] == "bfloat16",
               "b": cfg["batch_size"]}
     for key, want in stated.items():
@@ -101,6 +105,7 @@ class Loop:
     def __init__(self, cfg: dict, traffic: dict, seed: int, device):
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
         self.device = torch.device(device)
+        self.optim = optimizer(cfg["optimizer"])
 
     # -- set-up -----------------------------------------------------------
     def setup(self) -> None:
@@ -133,6 +138,7 @@ class Loop:
         self.batch = b
 
         self.names = names = [n for n, _ in task.encoder.named_parameters()]
+        read = self.optim.READ
         self.recorded, losses = [], []
         for k in range(self.traffic["recorded_steps"]):
             batch = next(self.feed)
@@ -142,16 +148,17 @@ class Loop:
                            for n, g in task.state.generators.items()}})
             losses.append(task.training_step(batch)["loss"])
             if k == 0:
-                mom = task.state.opt_slots["momentum"]
-                grad1 = _norms({n: mom[n] for n in names})
+                # the read slot's change over a first step from zero
+                slot = task.state.opt_slots[read]
+                grad1 = _norms({n: slot[n] for n in names})
                 grad1["head"] = float(torch.linalg.vector_norm(
-                    pfc.slots["momentum"]))
+                    pfc.slots[read]))
                 # kept on the host, out of the window's memory
-                mom1 = {n: mom[n].detach().to("cpu", copy=True)
+                mom1 = {n: slot[n].detach().to("cpu", copy=True)
                         for n in names}
-                head_mom = pfc.slots["momentum"]
-                rows = torch.nonzero(head_mom.abs().amax(dim=1) > 0)[:, 0]
-                head1 = (rows.cpu(), head_mom.index_select(0, rows).cpu())
+                head_slot = pfc.slots[read]
+                rows = torch.nonzero(head_slot.abs().amax(dim=1) > 0)[:, 0]
+                head1 = (rows.cpu(), head_slot.index_select(0, rows).cpu())
         now = dict(task.encoder.named_parameters())
         change = _norms({n: now[n].detach() - params0[n] for n in names})
         change["head"] = float(torch.linalg.vector_norm(pfc.weight - table0))
@@ -204,7 +211,7 @@ class Loop:
     def after_window(self) -> None:
         """Records one more step of the window's call and feed, from a copy
         on the card of the program's state before it."""
-        task, names = self.task, self.names
+        task, names, optim = self.task, self.names, self.optim
         pfc = task.state.pfc
         enc = dict(task.encoder.named_parameters())
         with torch.no_grad():
@@ -212,11 +219,12 @@ class Loop:
                 "params": {n: v.detach().clone()
                            for n, v in task.encoder.named_buffers()
                            if n.endswith(("running_mean", "running_var"))},
-                "mom": {n: v.clone() for n, v in
-                        task.state.opt_slots["momentum"].items()
-                        if n in enc},
+                "slots": {s: {n: v.clone() for n, v in
+                              task.state.opt_slots[s].items() if n in enc}
+                          for s in optim.SLOTS},
                 "table": pfc.weight.detach().clone(),
-                "head_mom": pfc.slots["momentum"].clone()}
+                "head_slots": {s: pfc.slots[s].clone() for s in optim.SLOTS},
+                "count": task.state.step, "head_count": pfc.count}
             snap["params"].update({n: enc[n].detach().clone()
                                    for n in names})
         batch = next(self.feed)
@@ -224,18 +232,19 @@ class Loop:
                 "states": {n: g.get_state()
                            for n, g in task.state.generators.items()}}
         loss = task.training_step(batch)["loss"]
-        mu = self.cfg["optimizer"]["momentum"]
+        read, decay = optim.READ, optim.decay(self.cfg["optimizer"])
         with torch.no_grad():
-            mom = task.state.opt_slots["momentum"]
-            delta = _norms({n: mom[n] - snap["mom"][n] for n in names})
-            head_mom = pfc.slots["momentum"]
-            moved = head_mom - snap["head_mom"]
+            slot, old = task.state.opt_slots[read], snap["slots"][read]
+            delta = _norms({n: slot[n] - old[n] for n in names})
+            head_slot, head_old = pfc.slots[read], snap["head_slots"][read]
+            moved = head_slot - head_old
             rows = torch.nonzero(moved.abs().amax(dim=1) > 0)[:, 0]
             delta["head"] = float(torch.linalg.vector_norm(moved))
             del moved
-            # the gradient as SGD took it: b − μ·b₀ on the rows it moved
-            head = (rows, head_mom.index_select(0, rows)
-                    - mu * snap["head_mom"].index_select(0, rows))
+            # what the step added to the decayed slot, s − decay·s₀, on
+            # the rows it moved
+            head = (rows, head_slot.index_select(0, rows)
+                    - decay * head_old.index_select(0, rows))
         self.last = {"step": step, "snap": snap,
                      "program": {"loss": [float(loss)], "grad1": delta,
                                  "head1": head}}
@@ -313,16 +322,16 @@ def compare(side: dict, ref: dict) -> Dict[str, float]:
     - ``loss_gap``: the largest relative gap of the recorded steps' losses;
       ``loss1_gap``: the first step's;
     - ``grad1_gap`` / ``grad1_median_gap``: the worst leaf's and the median
-      leaf's gap of the first gradient's norms (SGD's g + wd·p₀, the
-      momentum after one step), the leaves being the encoder's parameters
-      and the class table;
+      leaf's gap of the first gradient's norms (the optimizer's read slot
+      after one step from zero: the gradient as the optimizer takes it),
+      the leaves being the encoder's parameters and the class table;
     - ``change3_gap`` / ``change3_median_gap``: the same of the norms of
       the change after the recorded steps, over the leaves whose reference
       gradient is not nought to rounding (at least a thousandth of the
       median leaf's);
-    - ``grad1_diff``: ‖m − m_ref‖ / ‖m_ref‖ of the encoder's first momentum
-      taken whole, element by element;
-    - ``head_grad1_diff``: the same of the class table's first momentum,
+    - ``grad1_diff``: ‖m − m_ref‖ / ‖m_ref‖ of the encoder's read slot
+      after the first step, taken whole, element by element;
+    - ``head_grad1_diff``: the same of the class table's read slot,
       over the rows either side moved. It is a function of the first
       step's embeddings and drawn rows, so it reads the forward's
       precision where the encoder's gradient, chaotic under any rounding
@@ -353,12 +362,13 @@ def compare_last(side: dict, ref: dict) -> Dict[str, float]:
     against the reference's step from the same copy of the program's
     state: ``last_loss_gap``, the loss's relative gap;
     ``last_grad_gap`` / ``last_grad_median_gap``, the worst and the median
-    leaf's gap of the norms of the momentum's change over the step (a
+    leaf's gap of the norms of the read slot's change over the step (a
     step that leaves the state unchanged reads 1); ``last_head_grad_diff``,
-    ‖G − G_ref‖ / ‖G_ref‖ of the class table's gradient as SGD took it,
-    G = b − μ·b₀ = g + wd·w, over the rows either side moved (a step that
-    moves no row reads 1). The gradient, not the momentum's change, since
-    μ·b₀ is common to both sides and would hide a change of precision."""
+    ‖G − G_ref‖ / ‖G_ref‖ of the class table's gradient as the optimizer
+    took it, G = s − d·s₀ (s the read slot, d its decay), over the rows
+    either side moved (a step that moves no row reads 1). The gradient,
+    not the slot's change, since d·s₀ is common to both sides and would
+    hide a change of precision."""
     leaves = list(ref["grad1"])
     g = _leaf_gaps(side["grad1"], ref["grad1"], leaves)
     return {"last_loss_gap": abs(side["loss"][0] - ref["loss"][0])
@@ -386,8 +396,8 @@ def explain(side: dict, ref: dict, top: int = 6) -> dict:
                     for g, n in gaps[:top]]
         out[key + "_median_gap"] = gaps[len(gaps) // 2][0]
         if key == "grad1":
-            # how far the momentum's change is a small difference of the
-            # gradient and the decayed momentum: ‖Δb‖ / ‖g‖ per leaf
+            # how far the read slot's change is a small difference of the
+            # gradient and the decayed slot: ‖Δs‖ / ‖g‖ per leaf
             ratios = sorted(ref[key][n] / max(ref["gnorm1"][n], 1e-30)
                             for n in leaves)
             out["grad1_over_g_median"] = ratios[len(ratios) // 2]

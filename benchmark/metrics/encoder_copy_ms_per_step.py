@@ -1,7 +1,9 @@
 """Of the device milliseconds per training step launched inside
 ``encoder:forward`` and ``encoder:backward``, those of the operations
 launched under an ``aten::copy_`` host operation on the launching thread:
-the casts and the f32 round trips around BatchNorm."""
+the casts of the convolutions' weights to the activations' dtype, and any
+other copy the encoder makes (BatchNorm, a hand-written kernel in the
+activations' dtype, casts nothing)."""
 
 from benchmark import spans
 

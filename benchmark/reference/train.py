@@ -14,8 +14,8 @@ One training step, as the configuration states it:
    cross-entropy, −log(max(p_target, 1e-30)), mean over the batch;
 4. gradients of the encoder and of the drawn rows; the encoder's clipped to
    global norm ``max_grad_norm``;
-5. SGD with momentum and coupled weight decay, b ← μ·b + (g + wd·p),
-   p ← p − lr·b, on the encoder and on the drawn rows only.
+5. the configuration's optimizer, ``optimizers/<optimizer.name
+   lowercased>.py``, on the encoder and on the drawn rows only.
 
 The random numbers (the augmentation's, the draw's, dropout's) come from
 generators that the caller sets to the states the program's generators
@@ -23,17 +23,20 @@ had before each step: this reference follows the program step by step
 from those states and checks what it draws (every positive's group in,
 the count of groups).
 
-The steps start from the weights and class table handed in, with the
-momentum at zero as in a fresh run, or with the momentum handed in
-(``start``). Readings of the steps (``steps``):
+An optimizer's module names its slots (``SLOTS``, the program's names),
+the one the readings take (``READ``) and that slot's decay over a step
+(``decay``), and updates a leaf (``update_leaf``) and the drawn rows
+(``update_rows``) in place. The steps start from the weights and class
+table handed in, with the slots at zero and the step counts at 0 as in a
+fresh run, or with the slots and counts handed in (``start``). Readings of
+the steps (``steps``):
 - ``loss``: each step's loss;
-- ``grad1``: per leaf, the norm of the momentum's change over the first
-  step, μ·b₀ − b₀ + g + wd·p₀; from zero momentum that is the gradient as
-  SGD takes it, g + wd·p₀;
+- ``grad1``: per leaf, the norm of the read slot's change over the first
+  step; from zero slots that is the gradient as the optimizer takes it;
 - ``gnorm1``: per leaf, the norm of the first step's clipped gradient g;
-- ``mom1``: per leaf, the momentum's change over the first step itself;
-- ``head1``: the first step's drawn rows and their gradient as SGD takes
-  it, g + wd·w (from zero momentum, the momentum's change there);
+- ``mom1``: per leaf, the read slot's change over the first step itself;
+- ``head1``: the first step's drawn rows and what the step added to their
+  decayed read slot (from zero slots, the slot's change there);
 - ``change3``: per leaf, ‖p − p₀‖ after the last step.
 The leaves are the encoder's parameters by name, and ``head``, the whole
 class table.
@@ -48,7 +51,14 @@ from typing import Dict, List, Optional
 import torch
 
 from benchmark.reference import augment as aug
+from benchmark.reference import by_file
 from benchmark.reference.encoders import Quant, forward, identity, unit
+
+
+def optimizer(opt: dict):
+    """The module ``optimizers/<opt.name lowercased>.py``; a name with no
+    such file raises BenchError naming it."""
+    return by_file("optimizers", opt["name"].lower())
 
 
 def gen_at(state: torch.Tensor, device) -> torch.Generator:
@@ -117,22 +127,28 @@ def train_steps(cfg: dict, params0: Dict[str, torch.Tensor],
     table table0 (both left as they are). Each step is a dict with
     ``images`` (B, H, W, 3) uint8, ``labels`` (B,) and ``states`` (the
     generators' states: augment, sample, dropout). ``start`` holds the
-    momentum to start from (``mom``: {leaf: tensor}, ``head_mom``: the
-    table's), zero without it. ``half_batch`` takes the loss over the
-    first half of each batch only (a planted fault)."""
+    optimizer's state to start from (``slots``: {slot: {leaf: tensor}},
+    ``head_slots``: {slot: the table's}, ``count`` and ``head_count``: the
+    encoder's and the head's steps so far), zero without it.
+    ``half_batch`` takes the loss over the first half of each batch only
+    (a planted fault)."""
     model, head, opt = cfg["model"], cfg["head"], cfg["optimizer"]
+    optim = optimizer(opt)
     acfg = aug.cfg_from_config(cfg["augmentation"])
-    lr, mu, wd = opt["lr"], opt["momentum"], opt["weight_decay"]
     names = [n for n in params0 if not n.endswith(("running_mean",
                                                    "running_var"))]
     p = {n: params0[n].clone() for n in names}
     stats = {n: v for n, v in params0.items() if n not in p}
     if start is None:
-        mom = {n: torch.zeros_like(v) for n, v in p.items()}
-        head_mom = torch.zeros_like(table0)
+        slots = {s: {n: torch.zeros_like(v) for n, v in p.items()}
+                 for s in optim.SLOTS}
+        head_slots = {s: torch.zeros_like(table0) for s in optim.SLOTS}
+        count = head_count = 0
     else:
-        mom = {n: start["mom"][n].clone() for n in names}
-        head_mom = start["head_mom"].clone()
+        slots = {s: {n: start["slots"][s][n].clone() for n in names}
+                 for s in optim.SLOTS}
+        head_slots = {s: start["head_slots"][s].clone() for s in optim.SLOTS}
+        count, head_count = start["count"], start["head_count"]
     table = table0.clone()
     out: dict = {"loss": []}
     for k, st in enumerate(steps):
@@ -157,30 +173,26 @@ def train_steps(cfg: dict, params0: Dict[str, torch.Tensor],
         coef = torch.clamp_max(opt["max_grad_norm"] / (total + 1e-6), 1.0)
         g_enc = [g * coef for g in g_enc]
         out["loss"].append(float(loss.detach()))
+        count, head_count = count + 1, head_count + 1
         with torch.no_grad():
             delta = {}
             for n, g in zip(names, g_enc):
                 p[n] = p[n].detach()
-                delta[n] = (mu - 1.0) * mom[n] + g + wd * p[n]
-                mom[n].add_(delta[n])
-                p[n].sub_(lr * mom[n])
-            b_old = head_mom.index_select(0, rows)
-            w = table.index_select(0, rows)
-            head_grad = g_rows + wd * w
-            b = mu * b_old + head_grad
-            table.index_copy_(0, rows, w - lr * b)
-            head_mom.index_copy_(0, rows, b)
+                delta[n] = optim.update_leaf(
+                    opt, p[n], g, {s: slots[s][n] for s in optim.SLOTS},
+                    count)
+            moved, added = optim.update_rows(opt, table, rows, g_rows,
+                                             head_slots, head_count)
         if k == 0:
             out["mom1"] = delta
             out["grad1"] = {n: float(torch.linalg.vector_norm(delta[n]))
                             for n in names}
-            out["grad1"]["head"] = float(torch.linalg.vector_norm(
-                b - b_old))
+            out["grad1"]["head"] = float(torch.linalg.vector_norm(moved))
             out["gnorm1"] = {n: float(torch.linalg.vector_norm(g))
                              for n, g in zip(names, g_enc)}
             out["gnorm1"]["head"] = float(torch.linalg.vector_norm(g_rows))
-            out["head1"] = (rows, head_grad)
-        del emb, per, loss, grads, g_enc, g_rows, w_rows, b_old, b, w
+            out["head1"] = (rows, added)
+        del emb, per, loss, grads, g_enc, g_rows, w_rows, moved, added
     out["change3"] = {n: float(torch.linalg.vector_norm(p[n] - params0[n]))
                       for n in names}
     out["change3"]["head"] = float(torch.linalg.vector_norm(table - table0))

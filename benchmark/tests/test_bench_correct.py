@@ -4,7 +4,8 @@ and whole runs of the harness, its look for a card skipped, that come out
 correct on the unbroken program and not correct with the timed path
 broken underneath (a step that leaves the state unchanged, half of the
 batch left out, an answer altered where it is produced) or with the
-float8 control in the program's place."""
+float8 control in the program's place. The training cells cover both
+optimizers: SGD (tiny_r18, tiny_alter) and AdamW (tiny_r18_adamw)."""
 
 import pytest
 import torch
@@ -34,7 +35,8 @@ def _loop(root, cell, seed):
     return d
 
 
-@pytest.mark.parametrize("cell", ["tiny_r18.train", "tiny_alter.train"])
+@pytest.mark.parametrize("cell", ["tiny_r18.train", "tiny_alter.train",
+                                  "tiny_r18_adamw.train"])
 def test_reference_follows_the_float32_program(root_f32, cell):
     """In float32 the first step agrees to rounding: its loss, every leaf's
     first gradient and the class table's; the later steps drift apart only
@@ -55,7 +57,8 @@ def test_reference_embeds_as_the_float32_program(root_f32):
     assert got["embed_gap"] < 1e-4
 
 
-@pytest.mark.parametrize("cell", ["tiny_r18.train", "tiny_r18.embed"])
+@pytest.mark.parametrize("cell", ["tiny_r18.train", "tiny_r18.embed",
+                                  "tiny_r18_adamw.train"])
 def test_unbroken_runs_are_correct(root, cell):
     res = tiny.run_cpu(root, cell, 2 ** 31 + 11, 0.3, False)
     assert res["correct"], res["checks"]
@@ -66,8 +69,15 @@ def _no_update(*args, **kwargs):
     return None
 
 
-@pytest.mark.parametrize("fault", ["state_unchanged", "half_batch"])
-def test_broken_training_step_is_not_correct(root, monkeypatch, fault):
+@pytest.mark.parametrize("cell,fault", [
+    pytest.param("tiny_r18.train", "state_unchanged", id="state_unchanged"),
+    pytest.param("tiny_r18.train", "half_batch", id="half_batch"),
+    pytest.param("tiny_r18_adamw.train", "state_unchanged",
+                 id="adamw-state_unchanged"),
+    pytest.param("tiny_r18_adamw.train", "half_batch",
+                 id="adamw-half_batch")])
+def test_broken_training_step_is_not_correct(root, monkeypatch, cell,
+                                             fault):
     from fr_tpu_torch.train import step as step_mod
     from fr_tpu_torch.train import task as task_mod
     if fault == "state_unchanged":
@@ -82,7 +92,7 @@ def test_broken_training_step_is_not_correct(root, monkeypatch, fault):
             return real(self, (images[:n], labels[:n]))
         monkeypatch.setattr(task_mod.FaceRecognitionTask, "training_step",
                             half)
-    res = tiny.run_cpu(root, "tiny_r18.train", 2 ** 31 + 11, 0.3, False)
+    res = tiny.run_cpu(root, cell, 2 ** 31 + 11, 0.3, False)
     assert not res["correct"], res["checks"]
 
 
@@ -141,15 +151,17 @@ def test_broken_embedding_step_is_not_correct(root, monkeypatch, fault):
 
 @pytest.mark.parametrize("cell,number", [("tiny_r18.train",
                                           "head_grad1_diff"),
-                                         ("tiny_r18.embed", "embed_gap")])
+                                         ("tiny_r18.embed", "embed_gap"),
+                                         ("tiny_r18_adamw.train",
+                                          "head_grad1_diff")])
 def test_float8_control_reads_above_the_program(root, cell, number):
     """At these sizes the control's reading is at least twice the
     program's, on each seed, and above the cell's limit."""
+    limits = harness.cell_files(root, harness.load_manifest(root),
+                                cell)["limits"]
     for seed in (21, 22):
         got = _loop(root, cell, seed).readings(("program", "control"))
         assert got["control"][number] > 2 * got["program"][number], got
-        limits = (tiny.TINY_TRAIN_LIMITS if cell.endswith("train")
-                  else tiny.TINY_EMBED_LIMITS)
         assert got["control"][number] > limits[number] or any(
             got["control"][k] > v for k, v in limits.items()), got
 
@@ -170,6 +182,6 @@ def test_control_fails_the_cells_limits_on_the_card():
         d.after_window()
         d.release()
         got = d.readings(("control",))["control"]
-        assert any(v > files["limits"][k] for k, v in got.items()), got
+        assert any(got[k] > v for k, v in files["limits"].items()), got
         del d
         torch.cuda.empty_cache()

@@ -101,8 +101,8 @@ def _imports(path):
 
 
 def test_reference_imports_neither_jax_nor_either_package():
-    files = list((ROOT / "benchmark" / "reference").glob("*.py"))
-    assert files
+    files = list((ROOT / "benchmark" / "reference").rglob("*.py"))
+    assert {"families", "optimizers"} <= {p.parent.name for p in files}
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
