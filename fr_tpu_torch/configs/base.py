@@ -54,6 +54,9 @@ NETWORKS = [
     "AlterNetSep200",
     "Swin18", "Swin34", "Swin50", "Swin100", "Swin200",
     "EffiAlter_s", "EffiAlter_m", "EffiAlter_l", "EffiAlter_xl",
+    # the port's own: insightface's ViT-L and a tiny preset for tests
+    # (models/vit.py), which fr_tpu lacks
+    "ViT_L", "ViT_T",
 ]
 LOSSES = ["ArcFace", "CosFace", "PartialFC"]
 METRICS = ["ArcFace"]

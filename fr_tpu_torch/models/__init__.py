@@ -6,6 +6,7 @@ from fr_tpu_torch.models.alternet_v1 import build_alternet_v1
 from fr_tpu_torch.models.effialternet import build_effialternet
 from fr_tpu_torch.models.resnet import build_resnet
 from fr_tpu_torch.models.swinv2 import build_swin
+from fr_tpu_torch.models.vit import build_vit
 
 
 def build_encoder(conf):
@@ -20,6 +21,8 @@ def build_encoder(conf):
         return build_alternet(conf)
     if "Swin" in name:
         return build_swin(conf)
+    if "ViT" in name:
+        return build_vit(conf)
     if "ResNet" in name:
         return build_resnet(conf)
     raise ValueError(f"Unknown network {conf.network!r}")

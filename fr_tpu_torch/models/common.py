@@ -135,9 +135,16 @@ def init_weights(module: nn.Module, seed: int = 0) -> nn.Module:
     where the module has an ``init_std``; zero conv and linear biases.
     BatchNorm and the attention parameters keep the values their
     constructors set (gamma 1, beta 0, q/v bias 0, logit_scale ln 10,
-    temperature 1). Call before moving to a device."""
+    temperature 1). A module with an ``init_params(generator)`` method
+    draws every parameter under it itself, from the same generator, in
+    place of this pass (the ViT: insightface's initialisation). Call
+    before moving to a device."""
     gen = torch.Generator().manual_seed(seed)
+    owners = [m for m in module.modules() if hasattr(m, "init_params")]
+    owned = {id(sub) for m in owners for sub in m.modules()}
     for m in module.modules():
+        if id(m) in owned:
+            continue
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             std = getattr(m, "init_std", None)
             if std is None:
@@ -149,4 +156,6 @@ def init_weights(module: nn.Module, seed: int = 0) -> nn.Module:
                 m.weight.mul_(std / _TRUNC_STD)
             if m.bias is not None:
                 m.bias.zero_()
+    for m in owners:
+        m.init_params(gen)
     return module

@@ -34,6 +34,11 @@ TRAIN_SPANS = (AUGMENT, HEAD_ROWS, ENCODER_FORWARD, HEAD_LOSS,
                OPTIM_ENCODER, HEAD_UPDATE)
 # the head's four spans share this prefix
 HEAD_RANGE = "pfc_head:"
+# inside the encoder's spans (models/vit.py): each global attention's
+# forward and backward (ops/global_attn.py), and the token masking's
+# gather and its restore with the mask token
+ENCODER_ATTENTION = "encoder:attention"
+ENCODER_VIT_MASK = "encoder:vit_mask"
 # the embedding step's root and its two layers
 EMBED_STEP = "embed_step"
 EMBED_COPY_IN = "embed:copy_in"

@@ -21,6 +21,7 @@ from fr_tpu_torch.configs import load_config
 from fr_tpu_torch.data.augment import augment_cfg_from_conf
 from fr_tpu_torch.data.device_corpus import DeviceCorpusLoader
 from fr_tpu_torch.heads.partial_fc import PFCConfig
+from fr_tpu_torch.models import build_encoder
 from fr_tpu_torch.models.common import BatchNorm2d, Conv, Dense, init_weights
 from fr_tpu_torch.train.state import init_train_state
 from fr_tpu_torch.train.step import make_embed_step, make_train_step
@@ -32,7 +33,7 @@ IMG, EMB, NCLS, BATCH = 16, 16, 37, 8
 SPAN_NAMES = {
     spans.TRAIN_STEP, *spans.TRAIN_SPANS, spans.EMBED_STEP,
     spans.EMBED_COPY_IN, spans.EMBED_ENCODER, spans.DATA_BATCH,
-    spans.DATA_EPOCH}
+    spans.DATA_EPOCH, spans.ENCODER_ATTENTION, spans.ENCODER_VIT_MASK}
 
 
 class TinyEncoder(nn.Module):
@@ -204,3 +205,61 @@ def test_no_span_on_the_device_timeline(cuda_device):
     outside = [k.name for k in device if k.id in launched and not any(
         a <= launched[k.id] <= b for a, b in roots)]
     assert not outside
+
+
+def _inside(inner, outer) -> int:
+    """How many of the intervals ``inner`` lie inside one of ``outer``."""
+    return sum(any(a0 <= a and b <= b0 for a0, b0 in outer)
+               for a, b in inner)
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_vit_step_records_its_attention_in_both_walks_and_its_masking(
+        device):
+    """A training step of the tiny ViT preset: ``encoder:attention`` opens
+    once a block inside ``encoder:forward`` and once a block inside
+    ``encoder:backward``, where the autograd engine calls the attention's
+    backward (on the card from its own thread); ``encoder:vit_mask`` opens
+    twice inside ``encoder:forward``, at the gather and at the restore.
+    On the card no device event carries either name."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    img = 36
+    conf = load_config("webface42m", network="ViT_T", optimizer="AdamW",
+                       img_size=img, emd_size=EMB, n_classes=NCLS,
+                       mixed_precision=device == "cuda")
+    cfg = PFCConfig(NCLS, EMB, sample_rate=0.5, margin="CosFace", s=64.0,
+                    m=0.4, mixed_precision=conf.mixed_precision,
+                    optimizer="AdamW", sample_block=4)
+    state = init_train_state(conf, init_weights(build_encoder(conf), 0),
+                             cfg, device, 0)
+    step = make_train_step(conf, cfg, device, augment_cfg_from_conf(conf))
+    rng = np.random.default_rng(3)
+    images, labels = (
+        torch.as_tensor(rng.integers(0, 256, (BATCH, img, img, 3),
+                                     dtype=np.uint8)).to(device),
+        torch.as_tensor(rng.integers(0, NCLS, BATCH)).to(device))
+    step(state, images, labels, 1e-3)
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    with profile(activities=acts) as prof:
+        step(state, images, labels, 1e-3)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    got = _spans(prof)
+
+    def where(name):
+        return [(a, b) for a, b, n in got if n == name]
+    depth = len(state.encoder.blocks)
+    attention = where(spans.ENCODER_ATTENTION)
+    assert len(attention) == 2 * depth
+    assert _inside(attention, where(spans.ENCODER_FORWARD)) == depth
+    assert _inside(attention, where(spans.ENCODER_BACKWARD)) == depth
+    masking = where(spans.ENCODER_VIT_MASK)
+    assert len(masking) == 2
+    assert _inside(masking, where(spans.ENCODER_FORWARD)) == 2
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert bool(device_events) == (device == "cuda")
+    assert not [e.name for e in device_events if e.name in SPAN_NAMES]
