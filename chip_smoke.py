@@ -95,6 +95,15 @@ Phases; any failure exits non-zero and prints no result:
     from 0: 2 forward and 2 backward a training BatchNorm call, 1 an eval
     call, and one layout copy an IR-ResNet100 training step (the last
     BN2d's gradient, NCHW from the flatten);
+    [kernel_global_attn] the global-attention kernels
+    (csrc/global_attn.cu) at ViT-L's training layer (384 images, 136
+    tokens, 8 heads of 96, bf16, read from and written to the packed qkv
+    projection): forward and backward against the plain versions of their
+    arithmetic (relative norm 2^-8 and 2^-7) and the f32 plain route, two
+    runs bitwise equal, device times (profiler) beside their bounds, the
+    plain versions' and flash SDPA's (library_ms; the port never calls
+    it); ViT-L's encoder forward and backward on 16 images: one forward
+    and one backward launch a block;
 12. [resnet100] the serving CLI of webface42m at full width (IR-ResNet100,
     112 px, emd 512, bf16), the embedding golden
     (tests/data/resnet100_golden.npz) and the embed throughput;
@@ -235,6 +244,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -431,7 +441,8 @@ def phase_build():
                    "margin_ce_grad_emb_tc_kernel",
                    "margin_ce_grad_w_tc_kernel", "bn_stats_kernel",
                    "bn_apply_kernel", "bn_bwd_reduce_kernel",
-                   "bn_bwd_apply_kernel"):
+                   "bn_bwd_apply_kernel", "global_attn_fwd_kernel",
+                   "global_attn_bwd_kernel"):
         check(any(k == kernel for k, *_ in table),
               f"the build log lists no {kernel}")
     for kernel, args, regs, st, ld in table:
@@ -2291,6 +2302,232 @@ def phase_kernel_batch_norm():
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
           + f" (limit {BN_TOL:g})")
     return times
+
+
+# ViT-L's training layer: images, kept tokens, heads, head dim
+GA_SHAPE = (384, 136, 8, 96)
+# the kernels against the plain versions of their arithmetic, relative
+# norm: both round P (and dS) to bf16 at the same places, so what differs
+# is the f32 sums' order and the roundings it flips (tests/test_torch_vit.py)
+GA_TOL = {"fwd": 2.0 ** -8, "bwd": 2.0 ** -7}
+# bf16 bytes a layer, in units of B·L·D: q, k, v read and o written
+# forward; q, k, v and dO read and dq, dk, dv written backward
+GA_BYTES = {"fwd": 8, "bwd": 14}
+GA_PRODUCTS = {"fwd": 2, "bwd": 5}   # L × L × d products
+
+
+def phase_kernel_global_attn():
+    """[kernel_global_attn] the global-attention kernels (csrc/global_attn.cu)
+    at ViT-L's training layer (GA_SHAPE, bf16, the packed projection): the
+    forward and the backward against the plain versions of their arithmetic
+    (attention_forward_plain, attention_backward_plain on the kernel's
+    log-sum-exp; relative norm within GA_TOL) and the f32 plain route,
+    two runs bitwise equal; their device time (profiler) beside their
+    bound (the larger of GA_BYTES·B·L·D bf16 bytes at 3.35 TB/s and
+    2·B·H·L²·d flops a product at 989 TFLOP/s), the plain versions' and,
+    as library_ms only, PyTorch's flash SDPA forward and backward, which
+    the port never calls; the kernels' dq, dk and dv at 16 images with
+    tokens GA_NEAR_MEAN about their mean, within GA_NEAR_MEAN_TOL of
+    float64 (flash's backward, which takes each row's Σ P·dP from the bf16
+    output, printed beside them); then a ViT-L training step through the
+    port's entry (load_config → FaceRecognitionTask → make_train_step, the
+    vit_l_wf42m cell's settings at GA_STEP_BATCH images, bf16), counting
+    one forward and one backward launch a block. Returns ({kind: (ms,
+    plain ms, library ms, bound ms, bound by, error)}, {kind: launches in
+    the training step})."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from fr_tpu_torch.ops import global_attn as G
+
+    dev = torch.device("cuda")
+    b, n, h, d = GA_SHAPE
+    dim, scale = h * d, d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(23)
+    qkv = torch.randn((b, n, 3 * dim), generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    dout = torch.randn((b, n, dim), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    q, k, v = G.split_heads(qkv, h)
+    dout_h = dout.reshape(b, n, h, d).transpose(1, 2)
+
+    def rel(a, ref):
+        return float((a.float() - ref.float()).norm() / ref.float().norm())
+
+    with torch.no_grad():
+        out, lse = G.global_attn_forward(qkv, h, scale)
+        again = G.global_attn_forward(qkv, h, scale)
+        check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+              "[kernel_global_attn] two forward runs differ")
+        o_plain, lse_plain = G.attention_forward_plain(q, k, v, scale)
+        errs = {"fwd": rel(G.merge_heads(o_plain), out)}
+        lse_err = float((lse - lse_plain).abs().max())
+        ref_err = {"fwd": rel(out, G.attention_reference_packed(qkv.float(), h, scale))}
+        dqkv = G.global_attn_backward(qkv, lse, dout, h, scale)
+        check(torch.equal(dqkv, G.global_attn_backward(qkv, lse, dout, h, scale)),
+              "[kernel_global_attn] two backward runs differ")
+        grads = G.attention_backward_plain(q, k, v, lse, dout_h, scale)
+        plain = torch.stack([t.transpose(1, 2) for t in grads], 2).reshape(
+            b, n, 3 * dim)
+        errs["bwd"] = rel(dqkv, plain)
+        del grads, plain
+    ref = qkv.float().requires_grad_(True)
+    (want,) = torch.autograd.grad(G.attention_reference_packed(ref, h, scale), ref, dout.float())
+    ref_err["bwd"] = rel(dqkv, want)
+    del ref, want
+    print(f"[kernel_global_attn] {b}x{n}x{h}x{d}: relative to the plain "
+          f"versions fwd {errs['fwd']:.2e}, bwd {errs['bwd']:.2e} (limits "
+          f"{GA_TOL['fwd']:g}, {GA_TOL['bwd']:g}), lse max abs {lse_err:.2e}; "
+          f"to the f32 plain route fwd {ref_err['fwd']:.2e}, bwd "
+          f"{ref_err['bwd']:.2e}")
+    for kind in GA_TOL:
+        check(errs[kind] <= GA_TOL[kind], f"[kernel_global_attn] {kind}: "
+              f"{errs[kind]:.3e} from the plain version")
+    check(lse_err <= 1e-4, f"[kernel_global_attn] lse off by {lse_err:.3e}")
+
+    def library_bwd():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            o = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, scale=scale)
+        return o, leaves
+
+    lib_graph = library_bwd()
+    calls = {
+        "fwd": (lambda: G.global_attn_forward(qkv, h, scale),
+                lambda: G.attention_forward_plain(q, k, v, scale),
+                lambda: library_bwd()[0]),
+        "bwd": (lambda: G.global_attn_backward(qkv, lse, dout, h, scale),
+                lambda: G.attention_backward_plain(q, k, v, lse, dout_h,
+                                                   scale),
+                lambda: torch.autograd.grad(lib_graph[0], lib_graph[1],
+                                            dout_h, retain_graph=True))}
+    times = {}
+    for kind, (kernel, plain_fn, library) in calls.items():
+        with torch.no_grad() if kind == "fwd" else contextlib.nullcontext():
+            ms, plain_ms, lib_ms = (_device_ms(fn, iters=10)
+                                    for fn in (kernel, plain_fn, library))
+        nbytes = GA_BYTES[kind] * b * n * dim * 1.0
+        flops = GA_PRODUCTS[kind] * 2.0 * b * h * n * n * d
+        bound, by = max((nbytes / 3.35e12 * 1e3, "bytes"),
+                        (flops / 989e12 * 1e3, "flops"))
+        times[kind] = (ms, plain_ms, lib_ms, bound, by, errs[kind])
+        print(f"[kernel_global_attn] {kind}: kernel {ms:.4f} ms "
+              f"({100 * bound / ms:.1f}% of the bound {bound:.4f} ms, {by}; "
+              f"{nbytes / ms / 1e6:,.0f} GB/s, {flops / ms / 1e9:,.1f} "
+              f"TFLOP/s)  plain {plain_ms:.4f} ms  library (flash SDPA, not "
+              f"called by the port) {lib_ms:.4f} ms")
+    del lib_graph, calls, qkv, dout, q, k, v, dout_h, out, lse, dqkv
+    torch.cuda.empty_cache()
+
+    errs_near, flash_near = _global_attn_near_mean(dev)
+    print(f"[kernel_global_attn] tokens {GA_NEAR_MEAN} about their mean at "
+          f"{GA_NEAR_MEAN_SHAPE}: dq, dk, dv relative to float64 "
+          + ", ".join(f"{e:.3e}" for e in errs_near)
+          + f" (limit {GA_NEAR_MEAN_TOL}); flash SDPA's backward "
+          + ", ".join(f"{e:.3e}" for e in flash_near))
+    check(max(errs_near) <= GA_NEAR_MEAN_TOL, f"[kernel_global_attn] near "
+          f"the mean: dq, dk, dv off by {errs_near}")
+    torch.cuda.empty_cache()
+    return times, _global_attn_step_launches()
+
+
+# tokens spread about a mean they share, as in ViT-L's deeper blocks at
+# the benchmark's weights, where dq and dk are second-order small: the
+# kernels' gradients against float64 (tests/test_torch_vit.py)
+GA_NEAR_MEAN_SHAPE = (16, 8, 136, 96)
+GA_NEAR_MEAN = 0.03
+GA_NEAR_MEAN_TOL = 0.25
+GA_STEP_BATCH = 128
+
+
+def _global_attn_near_mean(dev):
+    """Relative errors of the kernels' (dq, dk, dv) and of flash SDPA's
+    against autograd in float64, at GA_NEAR_MEAN_SHAPE (B, H, L, d), bf16
+    tokens GA_NEAR_MEAN about their mean."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from fr_tpu_torch.ops import global_attn as G
+
+    b, h, n, d = GA_NEAR_MEAN_SHAPE
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def near_mean():
+        mean = torch.randn((b, h, 1, d), generator=gen, device=dev)
+        return (mean + GA_NEAR_MEAN * torch.randn(
+            (b, h, n, d), generator=gen, device=dev)).to(torch.bfloat16)
+
+    q, k, v = (near_mean() for _ in range(3))
+    dout = torch.randn((b, h, n, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    qkv = torch.stack([t.transpose(1, 2) for t in (q, k, v)], 2).reshape(
+        b, n, 3 * h * d)
+    with torch.no_grad():
+        _, lse = G.global_attn_forward(qkv, h, scale)
+        got = G.split_heads(G.global_attn_backward(
+            qkv, lse, G.merge_heads(dout), h, scale), h)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        o = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                             scale=scale)
+    flash = torch.autograd.grad(o, leaves, dout)
+    wide = [t.double().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(G.attention_reference(*wide, scale), wide,
+                               dout.double())
+
+    def rel(a, ref):
+        return float((a.double() - ref).norm() / ref.norm())
+
+    return ([rel(a, w) for a, w in zip(got, want)],
+            [rel(a, w) for a, w in zip(flash, want)])
+
+
+def _global_attn_step_launches():
+    """The global-attention kernels' launches in one ViT-L training step
+    through the port's entry, at the vit_l_wf42m cell's settings
+    (benchmark/configs/vit_l_wf42m.json, program.overrides) but
+    GA_STEP_BATCH images, bf16, after one step of warm-up; checks one
+    forward and one backward launch a block, every attention call on the
+    kernels, and a finite loss."""
+    import torch
+    from fr_tpu_torch.configs import load_config
+    from fr_tpu_torch.ops import global_attn as G
+    from fr_tpu_torch.train.task import FaceRecognitionTask
+
+    conf = load_config("webface42m", network="ViT_L", metric="CosFace",
+                       loss_s=64.0, loss_m=0.4, optimizer="AdamW", lr=0.001,
+                       wd=0.1, sample_rate=0.3, sample_block=64,
+                       b=GA_STEP_BATCH, use_fused=False)
+    check(conf.mixed_precision and conf.n_classes == 2059906,
+          "[kernel_global_attn] the ViT-L step is not webface42m in bf16")
+    task = FaceRecognitionTask(conf, stage="train", device="cuda", seed=0)
+    task.epoch = conf.warmup_steps
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    batches = [(torch.randint(0, 256, (conf.b, conf.img_size, conf.img_size,
+                                       3), dtype=torch.uint8, device="cuda",
+                              generator=gen),
+                torch.randint(0, conf.n_classes, (conf.b,), device="cuda",
+                              generator=gen)) for _ in range(2)]
+    task.training_step(batches[0])
+    torch.cuda.synchronize()
+    G.global_attention.launches.clear()
+    G.global_attention.kernel_launches.clear()
+    loss = float(task.training_step(batches[1])["loss"])
+    torch.cuda.synchronize()
+    launches = dict(G.global_attention.kernel_launches)
+    depth = len(task.encoder.blocks)
+    print(f"[kernel_global_attn] ViT-L training step (load_config → task → "
+          f"make_train_step, {conf.b} images, AdamW): kernel launches "
+          f"{launches} for {depth} blocks, attention calls "
+          f"{dict(G.global_attention.launches)}, loss {loss:.4f}")
+    check(launches == {"fwd": depth, "bwd": depth}
+          and dict(G.global_attention.launches) == launches
+          and math.isfinite(loss),
+          f"[kernel_global_attn] ViT-L step: launches {launches} for "
+          f"{depth} blocks, loss {loss}")
+    del task, batches
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _zero_bn():
@@ -4995,6 +5232,7 @@ def main() -> None:
     worst_st_f, worst_st_b, times_st = phase_kernel_stats()
     worst_rows, times_rows, bounds_rows = phase_kernel_sparse_rows()
     times_bn = phase_kernel_batch_norm()
+    times_ga, launches_ga = phase_kernel_global_attn()
     errs_v, times_v, launches_grouped = phase_kernel_variants()
     # each main path runs with its counts set to 0 just before it
     launches_fwd, _, bn_main = phase_main_path()
@@ -5175,6 +5413,16 @@ def main() -> None:
                 "launches": bn_launches[tag.split()[0]][entry],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms})
+    # the global-attention kernels replace no TPU kernel (fr_tpu has no
+    # ViT); launches from [kernel_global_attn]'s ViT-L training step
+    for kind in ("fwd", "bwd"):
+        ms, plain_ms, lib_ms, bound, by, err = times_ga[kind]
+        kernels.append({
+            "name": f"global_attn_{kind} (ViT-L global attention, G1)",
+            "route": "cuda", "source": "fr_tpu_torch/csrc/global_attn.cu",
+            "replaces": None, "launches": launches_ga[kind],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
     kernels += _variant_entries(errs_v, times_v,
                                 dict(launches_routes, grouped=launches_grouped))
     check(all(c > 0 for c in launches_ce_webface.values()),

@@ -114,11 +114,8 @@ class Attention(nn.Module):
         self.proj = Dense(dim, dim, compute_dtype=compute_dtype)
 
     def forward(self, x):
-        B, L, D = x.shape
-        qkv = self.qkv(x).reshape(B, L, 3, self.heads, D // self.heads)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4)
-        out = global_attention(q, k, v, self.scale)
-        return self.proj(out.transpose(1, 2).reshape(B, L, D))
+        return self.proj(global_attention(self.qkv(x), self.heads,
+                                          self.scale))
 
 
 class Mlp(nn.Module):

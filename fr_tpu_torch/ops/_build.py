@@ -24,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("window_attn_fwd.cu", "window_attn_bwd.cu", "window_attn_stats.cu",
            "window_attn_spatial.cu", "window_attn_qkv.cu", "margin_ce.cu",
-           "sparse_rows.cu", "batch_norm.cu")
+           "sparse_rows.cu", "batch_norm.cu", "global_attn.cu")
 # included by the sources; hashed too
 HEADERS = ("window_attn_common.cuh", "window_attn_bwd.cuh",
            "window_attn_tc.cuh")
@@ -175,6 +175,10 @@ def load_library() -> ctypes.CDLL:
         "bn_backward": [vp, vp, vp, i32, i64, i64, *[vp] * 7, i64, vp, i32,
                         i32, vp],
         "bn_eval": [vp, vp, i32, i64, i64, vp, vp, vp, vp, f64, i32, vp],
+        "global_attn_fwd": [vp, vp, vp, i32, i32, i32, i32, i64, i64, f32,
+                            vp],
+        "global_attn_bwd": [vp, vp, vp, vp, i32, i32, i32, i32, i64, i64,
+                            f32, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
