@@ -12,30 +12,24 @@ Phases; any failure exits non-zero and prints no result:
     function): the window-attention forward and backward at the AlterNet50
     shapes (192 px, 128 images), masked and unmasked, bf16 and f32 (bf16
     on the tensor-core kernels, f32 on the CUDA-core ones, each call's
-    route checked; the CUDA-core body timed on the bf16 inputs beside them;
-    the backward's sums bitwise equal over two runs); the
+    route checked; the backward's sums bitwise equal over two runs); the
     margin-softmax CE kernels at the ms1m_arcface_122 head (128 rows,
     emd 512, 26,007 sampled columns), ArcFace and CosFace, bf16 and f32,
     at the webface42m head (205,952 columns, the labels and the column
     mask made as its step makes them) and at small ragged shapes: the
     bf16 calls of all three (the statistics, row 9, and the backward pair,
     rows 10 and 11) on the tensor cores (each call's body checked, two
-    calls bitwise equal) and again with fused_pfc.TENSOR_CORES off on the
-    CUDA cores, f32 and D = 40 on the CUDA cores; rows 9-11 timed at both
-    heads on each body beside their plain versions and the cuBLAS products
+    calls bitwise equal), f32 and D = 40 on the CUDA cores; rows 9-11
+    timed at both heads beside their plain versions and the cuBLAS products
     they contain;
     [kernel_perhead] the same forward and backward kernels at the Swin50
     and EffiAlter_m N=49 shapes (112 px, 128 images; head dims 32 and 38)
-    and a shift-masked one; [kernel_plan] the tensor-core kernels' launch
-    plan (one wave of the CTAs the card holds) against two waves and a
-    fixed plan, interleaved, at four main-path shapes;
-    [kernel_stats] the stored-stats forward and
-    backward at the N=49 and AlterNet50 shapes, bf16 on the tensor cores
-    and with TENSOR_CORES off on the CUDA cores, f32 and an odd head dim on
-    the CUDA cores, each call's route checked: against their plain versions
-    and the recompute kernels (on the tensor cores out and dqkv equal to
-    the row-1/row-2 kernels' bits), p and the sums bitwise repeatable;
-    times beside both bodies, the recompute kernels and SDPA;
+    and a shift-masked one; [kernel_stats] the stored-stats forward and
+    backward at the N=49 and AlterNet50 shapes, bf16 on the tensor cores,
+    f32 and an odd head dim on the CUDA cores, each call's route checked:
+    against their plain versions and the recompute kernels (on the tensor
+    cores out and dqkv equal to the row-1/row-2 kernels' bits), p and the
+    sums bitwise repeatable; times beside the recompute kernels and SDPA;
  4. [main] drive the serving path once through the CLI (--mode test,
     AlterNet50 at full width: 192 px, emd 512, bf16; 256 synthetic pairs,
     64 pairs per call): forward launches = 12 per encoder call, finite
@@ -50,28 +44,27 @@ Phases; any failure exits non-zero and prints no result:
     encoder snapshot;
  7. [train_full_head] FaceRecognitionTask.training_step at the full
     ms1m_arcface_122 head (86,690 classes, sample_rate 0.3, b=128, random
-    images and labels) from one seed: use_fused off, on (the margin-CE
-    kernels on the tensor cores) and on with fused_pfc.TENSOR_CORES off
-    (on the CUDA cores): each margin-CE kernel launches once per fused
-    step, every launch on its arm's body, the first 3 losses
-    agree to 2e-2 relative, the two bodies' step-1 head gradients to
-    1e-2 norm-wise; ms per step and images/s for each arm;
+    images and labels) from one seed: use_fused off and on (the margin-CE
+    kernels on the tensor cores): each margin-CE kernel launches once per
+    fused step, every launch on the tensor cores, the first 3 losses
+    agree to 2e-2 relative; ms per step and images/s for each arm;
  8. [train_golden] two SGD steps of full-width AlterNet50 in f32 (TF32 off)
     against fr_tpu's training golden (tests/data/alternet50_train_golden.npz);
     [alternet50] three training steps with FR_ATTN_STORED_STATS=1 against
-    =0, body for body (tensor cores, then TENSOR_CORES off): the packed
-    entry's stats kernels launch, every launch on that body, the losses
-    agree to 1e-3; one f32 encoder backward under each arm: every
-    parameter's gradient agrees norm-wise to 1e-3;
+    =0 on the tensor cores: the packed entry's stats kernels launch, every
+    launch on the tensor cores, the losses agree to 1e-3; one f32 encoder
+    backward under each arm (the CUDA-core bodies): every parameter's
+    gradient agrees norm-wise to 1e-3;
  9. [swin50] and [effialter_m], each at full width (112 px, emd 512, bf16):
     the serving CLI (14 and 4 per-head launches per encoder call), the
     goldens (tests/data/{swin50,effialter_m}_golden.npz: f32 max-abs 1e-3,
     bf16 per-row cosine 0.99), the training CLI (b=128, 10 epochs: 14/14
     and 4/4 forward/backward launches per step, a finite loss whose last
     epoch is below the first), and three training steps with
-    FR_ATTN_STORED_STATS=1 against =0 on each body (stats launches seen,
-    every launch on that body, losses within 1e-3 relative, f32 encoder
-    gradients norm-wise within 1e-3; the variable is restored);
+    FR_ATTN_STORED_STATS=1 against =0 on the tensor cores (stats launches
+    seen, every launch on the tensor cores, losses within 1e-3 relative,
+    f32 encoder gradients norm-wise within 1e-3; the variable is
+    restored);
 10. [swin50_train_golden] two SGD steps of full-width Swin50 in f32 against
     tests/data/swin50_train_golden.npz;
 11. [kernel_sparse_rows] the grouped gather, SGD and AdamW kernels against
@@ -109,13 +102,11 @@ Phases; any failure exits non-zero and prints no result:
     (tests/data/resnet100_golden.npz) and the embed throughput;
 13. [webface42m] FaceRecognitionTask.training_step of the webface42m config
     (ResNet100, 2,059,906 classes, sample_rate 0.1, sample_block 64, b=128,
-    bf16, SGD, random images and labels), in the three margin-CE arms of
-    phase 7 from one seed (the switch-off arm untimed): finite losses, the
-    fused arms' first three within 2e-2 relative of the plain CE's, the
-    two bodies' step-1 head gradients within 1e-2 norm-wise, every
-    margin-CE launch on its arm's body, one gather and one grouped SGD
-    update per step, every label's group among the drawn groups and only
-    drawn rows changed, ms per step, images/s, peak memory; three steps
+    bf16, SGD, random images and labels), in the two margin-CE arms of
+    phase 7 from one seed: finite losses, the fused arm's first three
+    within 2e-2 relative of the plain CE's, every margin-CE launch on the
+    tensor cores, one gather and one grouped SGD update per step, every
+    label's group among the drawn groups and only drawn rows changed, ms per step, images/s, peak memory; three steps
     with AdamW; then sample_block 1 (per-row sampling of the same head)
     timed beside it;
 14. [resnet100_train_golden] two SGD steps of ResNet100 under a
@@ -179,9 +170,10 @@ Phases; any failure exits non-zero and prints no result:
     kernels at the AlterNet50 shapes and Swin50's window-7 ones, beside
     partition + row-1/row-2 kernel + reverse; the entry-fused forward and
     all-in-kernel backward at the AlterNet50 shapes (the bf16 forward on
-    the tensor cores, route checked), beside the forward's CUDA-core body,
-    F.linear + the row-1 kernel and the hybrid backward, their sums
-    repeated bit for bit; masked and unmasked, bf16 and f32;
+    the tensor cores, route checked), beside F.linear + the row-1 kernel
+    and the hybrid backward, their sums repeated bit for bit; masked and
+    unmasked, bf16 and f32; and bf16 at C = 72, beyond the tensor-core
+    tile, both on the CUDA cores;
     [alternet50_spatial] / [alternet50_entry_fused] full-width AlterNet50
     through the spatial route and the entry-fused route (hybrid and
     all-in-kernel backward): the golden, three bf16 training steps against
@@ -216,24 +208,25 @@ Phases; any failure exits non-zero and prints no result:
     AlterNet50 and Swin50 with FR_ATTN_STORED_STATS=1 (the stats arm on the
     tensor cores), and of the webface42m step of phase 13 at sample_block
     64 and 1, and with use_fused on (that step at 64, and AlterNet50's at
-    the full ms1m head), the three margin-CE kernels on each body: wall per
-    step, device busy, idle share, launches per step, time by family, and
-    the head's device time inside the step (the kernels launched in
-    train/step.py's pfc_head:* ranges).
+    the full ms1m head), the three margin-CE kernels on the tensor cores:
+    wall per step, device busy, idle share, launches per step, time by
+    family, and the head's device time inside the step (the kernels
+    launched in train/step.py's pfc_head:* ranges).
 
 Every kernel's launches in the JSON line are counted on its main path
 (phases 4, 6, 7, 8, 9 and 13; rows 15/16 on [kernel_variants]'s driven
 calls, rows 17/18 on [alternet50_spatial] and [alternet50_entry_fused],
-rows 3/4 and 7/8 on the stats switch of phases 8 and 9, each body on its
-own arm; rows 9-11 on phase 7's fused arms, each body on its own arm),
-each run with the counts set to 0 just before it. On those
-paths every launch of the attention forward and backward must take the
-tensor-core kernels (fused_window_attn.route_launches, set to 0 with the
-counts): 12 + 12 per AlterNet50 step, 14 + 14 per Swin50 step, 4 + 4 per
+rows 3/4 and 7/8 on the stats switch of phases 8 and 9; rows 9-11 on
+phase 7's fused arm), each run with the counts set to 0 just before it.
+On those paths every launch of the attention forward and backward must
+take the tensor-core kernels (fused_window_attn.route_launches, set to 0
+with the counts): 12 + 12 per AlterNet50 step, 14 + 14 per Swin50 step, 4 + 4 per
 EffiAlter_m step, the stats arm's too; on the entry-fused route 12 + 12
 with the hybrid backward and 12 + 0 with the all-in-kernel one (its
-backward is a CUDA-core kernel of its own). The stats switch's arm with
-TENSOR_CORES off must take the CUDA-core kernels alone.
+backward is a CUDA-core kernel of its own). The CUDA-core bodies are
+held against their plain versions by the f32 and out-of-tile bf16 calls
+of phase 3 and [kernel_variants], and run in f32 by the goldens and the
+stats switch's encoder gradients.
 
 The last three lines are the kernel JSON line, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -374,14 +367,6 @@ def _route_of(call):
     return moved[0].split("_", 1)[1], out
 
 
-def _cuda_core_ms(call, module="fused_window_attn"):
-    """call() timed on the CUDA-core body (the module's TENSOR_CORES off):
-    the one the bf16 main-path shapes took before the tensor-core kernels,
-    and still the body of bf16 shapes beyond their tile."""
-    with _Body(False, module):
-        return time_ms(call)
-
-
 class _Tee(io.TextIOBase):
     def __init__(self, *streams):
         self.streams = streams
@@ -490,21 +475,17 @@ def phase_kernel():
                 bf16 = dt == torch.bfloat16
                 lib = (_library_fwd_ms(qkv, scale, bias16, mask, heads)
                        if bf16 else None)
-                cc = (_cuda_core_ms(lambda: kernel(*args, nw, mask,
-                                                   out_dtype=dt))
-                      if bf16 else None)
                 tag = f"{name} {'masked' if masked else 'unmasked'} " \
                       f"{str(dt).split('.')[-1]}"
                 print(f"[kernel] {tag:26s} ({bw},{n},{3 * c}) "
                       f"max_abs_err {err:.3e} (tol {tol:g})  kernel "
                       f"({route}) {ms:.4f} ms  plain {plain:.4f} ms" +
-                      (f"  sdpa {lib:.4f} ms  CUDA-core bf16 {cc:.4f} ms"
-                       if bf16 else ""))
+                      (f"  sdpa {lib:.4f} ms" if bf16 else ""))
                 check(route == ("tensor_cores" if bf16 else "cuda_cores"),
                       f"{tag} took the {route} body")
                 check(err <= tol, f"{tag}: error {err} > {tol}")
                 worst = max(worst, err)
-                times[(name, masked, dt)] = (ms, plain, lib, cc)
+                times[(name, masked, dt)] = (ms, plain, lib)
     return worst, times
 
 
@@ -571,15 +552,11 @@ def phase_kernel_bwd():
                                                  heads, mask))
                 lib = (_library_bwd_ms(qkv, scale, bias16, mask, heads, g)
                        if bf16 else None)
-                cc = (_cuda_core_ms(lambda: kernel(qkv, scale, bias16, g,
-                                                   heads, nw, mask))
-                      if bf16 else None)
                 print(f"[kernel_bwd] {tag:26s} err/tol {', '.join(errs)}  "
                       f"kernel ({route}) {ms:.4f} ms  plain {plain_ms:.4f} "
-                      f"ms" + (f"  sdpa {lib:.4f} ms  CUDA-core bf16 "
-                               f"{cc:.4f} ms" if bf16 else "") +
+                      f"ms" + (f"  sdpa {lib:.4f} ms" if bf16 else "") +
                       "; sums bitwise equal over two runs")
-                times[(name, masked, dt)] = (ms, plain_ms, lib, cc)
+                times[(name, masked, dt)] = (ms, plain_ms, lib)
     return worst, times
 
 
@@ -633,16 +610,13 @@ def phase_margin_ce():
     ms1m_arcface_122 head, at the webface42m head (205,952 columns, the
     step's own labels and column mask) and at small ragged shapes. Every
     call's body is checked (bf16 with D % 16 == 0 on the tensor cores, f32
-    and D = 40 on the CUDA cores); each bf16 call also runs on the
-    CUDA-core body (fused_pfc.TENSOR_CORES off), which passes the same
-    check and sits within CE_GRAD_RTOL (the statistics within twice
-    CE_STATS_RTOL) of the tensor-core results, and the tensor-core results
-    repeat bit for bit. Timed at both heads, bf16 ArcFace: each row on each
-    body, its plain version and the cuBLAS products it contains (not the
-    same function: no margin, softmax or coeff). Returns ({kernel: max abs
-    error; the statistics' is the loss's}, {(kernel, K): {"ms", "cc_ms",
-    "plain_ms", "cublas_ms"}}); the tensor-core kernels carry the suffix
-    _tc."""
+    and D = 40 on the CUDA cores: those are the CUDA-core kernels' checks),
+    and the tensor-core results repeat bit for bit. Timed at both heads,
+    bf16 ArcFace: each row, its plain version and the cuBLAS products it
+    contains (not the same function: no margin, softmax or coeff). Returns
+    ({kernel: max abs error; the statistics' is the loss's}, {(kernel, K):
+    {"ms", "plain_ms", "cublas_ms"}}); the tensor-core kernels carry the
+    suffix _tc."""
     import torch
     from fr_tpu_torch.heads.partial_fc import PFCConfig
     from fr_tpu_torch.ops import fused_pfc as F
@@ -682,82 +656,57 @@ def phase_margin_ce():
         ref = F.margin_ce_stats_reference(*args, cfg)
         tag = f"{margin} ({n},{d},{k}) {str(dt).split('.')[-1]}"
         tc = F.tensor_core_route(dt, d)
-        bodies = (True, False) if dt == torch.bfloat16 else (True,)
-        stats_out, stats_rels = {}, {}
-        for body in bodies:
-            on_tc = body and tc
-            name = "margin_ce_stats" + ("_tc" if on_tc else "")
-            with _Body(body, "fused_pfc"):
-                _reset_ce_routes()
-                stats = F.margin_ce_stats(*args, cfg)
-                torch.cuda.synchronize()
-                check(_ce_launches(on_tc) == [1, 0, 0]
-                      and _ce_launches(not on_tc) == [0, 0, 0],
-                      f"[margin_ce] {tag}: stats with TENSOR_CORES={body} "
-                      f"took {dict(F.route_launches)}")
-                if on_tc:
-                    again = F.margin_ce_stats(*args, cfg)
-                    torch.cuda.synchronize()
-                    check(all(torch.equal(a, b)
-                              for a, b in zip(stats, again)),
-                          f"[margin_ce] {tag}: two tensor-core stats calls "
-                          f"differ")
-            rel = _ce_stats_rel(stats, ref)
-            check(rel <= CE_STATS_RTOL, f"[margin_ce] {tag} {name}: "
-                  f"elementwise rel {rel} > {CE_STATS_RTOL}")
-            worst[name] = max(worst[name], _ce_loss_err(stats, ref))
-            stats_rels[name] = rel
-            stats_out[on_tc] = stats
-        if len(stats_out) == 2:
-            rel = _ce_stats_rel(stats_out[True], stats_out[False])
-            check(rel <= 2 * CE_STATS_RTOL, f"[margin_ce] {tag} stats: "
-                  f"tensor cores against CUDA cores rel {rel}")
-            stats_rels["margin_ce_stats tc-cc"] = rel
-        stats_err = max(_ce_loss_err(x, ref) for x in stats_out.values())
+        suffix = "_tc" if tc else ""
+        _reset_ce_routes()
+        stats = F.margin_ce_stats(*args, cfg)
+        torch.cuda.synchronize()
+        check(_ce_launches(tc) == [1, 0, 0]
+              and _ce_launches(not tc) == [0, 0, 0],
+              f"[margin_ce] {tag}: stats took {dict(F.route_launches)}")
+        if tc:
+            again = F.margin_ce_stats(*args, cfg)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(stats, again)),
+                  f"[margin_ce] {tag}: two tensor-core stats calls differ")
+        stats_rel = _ce_stats_rel(stats, ref)
+        check(stats_rel <= CE_STATS_RTOL, f"[margin_ce] {tag} "
+              f"margin_ce_stats{suffix}: elementwise rel {stats_rel} > "
+              f"{CE_STATS_RTOL}")
+        stats_err = _ce_loss_err(stats, ref)
+        worst["margin_ce_stats" + suffix] = max(
+            worst["margin_ce_stats" + suffix], stats_err)
         m, dd, _ = ref
         rge, rgw = F.margin_ce_backward_reference(*args, m, dd, g, cfg)
         tol = CE_GRAD_RTOL[str(dt).split(".")[-1]]
-        results, rels = {}, {}
-        for body in bodies:
-            with _Body(body, "fused_pfc"):
-                _reset_ce_routes()
-                out = (F.margin_ce_grad_emb(*args, m, dd, g, cfg),
-                       F.margin_ce_grad_w(*args, m, dd, g, cfg))
-                torch.cuda.synchronize()
-                on_tc = body and tc
-                check(_ce_launches(on_tc) == [0, 1, 1]
-                      and _ce_launches(not on_tc) == [0, 0, 0],
-                      f"[margin_ce] {tag}: TENSOR_CORES={body} took "
-                      f"{dict(F.route_launches)}")
-                suffix = "_tc" if on_tc else ""
-                if on_tc:
-                    again = (F.margin_ce_grad_emb(*args, m, dd, g, cfg),
-                             F.margin_ce_grad_w(*args, m, dd, g, cfg))
-                    torch.cuda.synchronize()
-                    check(all(torch.equal(a, b) for a, b in zip(out, again)),
-                          f"[margin_ce] {tag}: two tensor-core calls differ")
-                    del again
-            for name, a, b in zip(CE_BWD, out, (rge, rgw)):
-                check(bool(torch.isfinite(a).all()),
-                      f"{name}{suffix} is not finite")
-                rel = ((a - b).norm() / b.norm()).item()
-                check(rel <= tol, f"{tag} {name}{suffix}: norm-wise {rel} > "
-                      f"{tol}")
-                worst[name + suffix] = max(worst[name + suffix],
-                                           (a - b).abs().max().item())
-                rels[name + suffix] = rel
-            results[on_tc] = out
-        if len(results) == 2:
-            for name, a, b in zip(CE_BWD, results[True], results[False]):
-                rel = ((a - b).norm() / b.norm()).item()
-                check(rel <= tol, f"{tag} {name}: tensor cores against CUDA "
-                      f"cores norm-wise {rel} > {tol}")
-                rels[f"{name} tc-cc"] = rel
+        _reset_ce_routes()
+        out = (F.margin_ce_grad_emb(*args, m, dd, g, cfg),
+               F.margin_ce_grad_w(*args, m, dd, g, cfg))
+        torch.cuda.synchronize()
+        check(_ce_launches(tc) == [0, 1, 1]
+              and _ce_launches(not tc) == [0, 0, 0],
+              f"[margin_ce] {tag}: the backward took "
+              f"{dict(F.route_launches)}")
+        if tc:
+            again = (F.margin_ce_grad_emb(*args, m, dd, g, cfg),
+                     F.margin_ce_grad_w(*args, m, dd, g, cfg))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  f"[margin_ce] {tag}: two tensor-core calls differ")
+            del again
+        rels = {}
+        for name, a, b in zip(CE_BWD, out, (rge, rgw)):
+            check(bool(torch.isfinite(a).all()),
+                  f"{name}{suffix} is not finite")
+            rel = ((a - b).norm() / b.norm()).item()
+            check(rel <= tol, f"{tag} {name}{suffix}: norm-wise {rel} > "
+                  f"{tol}")
+            worst[name + suffix] = max(worst[name + suffix],
+                                       (a - b).abs().max().item())
+            rels[name + suffix] = rel
         print(f"[margin_ce] {tag:32s} loss err {stats_err:.2e}; stats "
               f"elementwise against the plain version (tol "
-              f"{CE_STATS_RTOL:g}): " + ", ".join(
-                  f"{key} {v:.1e}" for key, v in stats_rels.items())
-              + f"; gradients norm-wise (tol {tol:g}): " + ", ".join(
+              f"{CE_STATS_RTOL:g}): margin_ce_stats{suffix} {stats_rel:.1e}"
+              f"; gradients norm-wise (tol {tol:g}): " + ", ".join(
                   f"{key} {v:.1e}" for key, v in rels.items()))
         if (n, d, k) in (CE_SHAPE, CE_WEBFACE_SHAPE) \
                 and dt == torch.bfloat16 and margin == "ArcFace":
@@ -776,7 +725,6 @@ def phase_margin_ce():
             call = lambda: F.margin_ce_stats(*args, cfg)  # noqa: E731
             times[("margin_ce_stats", k)] = {
                 "ms": time_ms(call),
-                "cc_ms": _cuda_core_ms(call, "fused_pfc"),
                 "plain_ms": time_ms(lambda: F.margin_ce_stats_reference(
                     *args, cfg)),
                 "cublas_ms": time_ms(lambda: emb @ w.t())}
@@ -784,12 +732,11 @@ def phase_margin_ce():
                 call = lambda f=kern[name]: f(  # noqa: E731
                     *args, m, dd, g, cfg)
                 times[(name, k)] = {
-                    "ms": time_ms(call), "cc_ms": _cuda_core_ms(
-                        call, "fused_pfc"),
+                    "ms": time_ms(call),
                     "plain_ms": time_ms(lambda nm=name: plain(nm)),
                     "cublas_ms": time_ms(cublas[name])}
             del coeff
-        del emb, w, stats, stats_out, ref, rge, rgw, results
+        del emb, w, stats, ref, rge, rgw, out
         torch.cuda.empty_cache()
 
     def bound(name, k):
@@ -797,18 +744,18 @@ def phase_margin_ce():
 
     def share(name, k, ms):
         return 100 * _ce_bound(name, (128, 512, k))[0] / ms
-    print("[margin_ce] row 9, bf16 ArcFace, tensor cores against the CUDA "
-          "cores, the plain version and the cuBLAS product emb @ W.T (not "
-          "the same function): " + "; ".join(
+    print("[margin_ce] row 9, bf16 ArcFace, tensor cores against the plain "
+          "version and the cuBLAS product emb @ W.T (not the same "
+          "function): " + "; ".join(
               f"K={k:,} {t['ms']:.4f} ms ({share(nm, k, t['ms']):.1f}% of "
-              f"bound) vs {t['cc_ms']:.4f}, plain {t['plain_ms']:.4f}, "
+              f"bound), plain {t['plain_ms']:.4f}, "
               f"cuBLAS {t['cublas_ms']:.4f}, {bound(nm, k)}"
               for (nm, k), t in times.items() if nm == "margin_ce_stats"))
     print("[margin_ce] rows 10/11, bf16 ArcFace, tensor cores against the "
-          "CUDA cores, the plain version and the cuBLAS products (not the "
-          "same function): " + "; ".join(
-              f"row {10 + CE_BWD.index(nm)} K={k:,} {t['ms']:.4f} ms vs "
-              f"{t['cc_ms']:.4f}, plain {t['plain_ms']:.4f}, cuBLAS "
+          "plain version and the cuBLAS products (not the same function): "
+          + "; ".join(
+              f"row {10 + CE_BWD.index(nm)} K={k:,} {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f}, cuBLAS "
               f"{t['cublas_ms']:.4f}, {bound(nm, k)}"
               for (nm, k), t in times.items() if nm in CE_BWD))
     print(f"[margin_ce] {time.perf_counter() - t0:.1f} s")
@@ -1011,53 +958,31 @@ def phase_train():
     return launches[0], launches[1], steps, bn
 
 
-def _head_grad(task, w0, wd):
-    """The gradient of the head's sampled rows in the first SGD step: the
-    momentum then holds g + wd·w0 on those rows and 0 elsewhere."""
-    mom = task.state.pfc.slots["momentum"]
-    rows = (mom != 0).any(dim=1)
-    return mom[rows] - wd * w0[rows]
+# the margin-CE arms of the training phases: (name, use_fused)
+CE_ARMS = (("plain", False), ("tensor_cores", True))
 
 
-# the margin-CE arms of the training phases: (name, use_fused,
-# fused_pfc.TENSOR_CORES)
-CE_ARMS = (("plain", False, True), ("tensor_cores", True, True),
-           ("cuda_cores", True, False))
-
-
-def _check_ce_arms(tag, losses, grads, launches, steps):
-    """Each fused arm launched every margin-CE kernel (the stats and the
-    backward pair) once per step (of its ``steps[arm]``) on its own body and
-    none on the other, its losses sit within 2e-2 of the plain CE's, and the
-    two bodies' step-1 head gradients within CE_GRAD_RTOL (bf16)
-    norm-wise."""
-    for arm in ("tensor_cores", "cuda_cores"):
-        expect = {body: [steps[arm] if body == arm else 0] * 3
-                  for body in ("tensor_cores", "cuda_cores")}
-        check(launches[arm] == expect, f"{tag} the {arm} arm's margin-CE "
-              f"launches by body {launches[arm]} over {steps[arm]} steps")
-        for a, b in zip(losses["plain"], losses[arm]):
-            check(abs(a - b) <= 2e-2 * abs(a), f"{tag} fused loss on the "
-                  f"{arm} {b} vs plain {a}: beyond 2e-2 relative")
-    a, b = grads["tensor_cores"], grads["cuda_cores"]
-    rel = ((a - b).norm() / b.norm()).item()
-    print(f"{tag} step-1 head gradient ({a.shape[0]:,} sampled rows), "
-          f"tensor cores against CUDA cores: norm-wise {rel:.2e}; losses "
-          + ", ".join(f"{arm} {[round(x, 4) for x in v]}"
-                      for arm, v in losses.items()))
-    check(rel <= CE_GRAD_RTOL["bfloat16"], f"{tag} step-1 head gradients "
-          f"of the two bodies: norm-wise {rel} > {CE_GRAD_RTOL['bfloat16']}")
+def _check_ce_arms(tag, losses, launches, steps):
+    """The fused arm launched every margin-CE kernel (the stats and the
+    backward pair) once per step (of its ``steps``) on the tensor cores and
+    none on the CUDA cores, and its losses sit within 2e-2 of the plain
+    CE's."""
+    expect = {"tensor_cores": [steps] * 3, "cuda_cores": [0] * 3}
+    check(launches == expect, f"{tag} the fused arm's margin-CE launches by "
+          f"body {launches} over {steps} steps")
+    for a, b in zip(losses["plain"], losses["tensor_cores"]):
+        check(abs(a - b) <= 2e-2 * abs(a), f"{tag} fused loss on the "
+              f"tensor cores {b} vs plain {a}: beyond 2e-2 relative")
+    print(f"{tag} losses " + ", ".join(
+        f"{arm} {[round(x, 4) for x in v]}" for arm, v in losses.items()))
 
 
 def phase_train_full_head(steps: int = 3, timed: int = 10):
     """training_step at the full ms1m_arcface_122 head from one seed, in
-    three arms (CE_ARMS): use_fused off; on, the margin-CE kernels on the
-    tensor cores; on with fused_pfc.TENSOR_CORES off, on the CUDA cores.
-    Each margin-CE kernel launches once per fused step, every launch on the
-    arm's body; losses and step-1 head gradients as _check_ce_arms says;
-    ms per step. Returns the fused arms' launches: {kernel: count}, the
-    tensor-core kernels (suffix _tc) from the default arm and the CUDA-core
-    ones from the switch-off arm."""
+    two arms (CE_ARMS): use_fused off, and on, the margin-CE kernels on the
+    tensor cores. Each margin-CE kernel launches once per fused step, every
+    launch on the tensor cores; losses as _check_ce_arms says; ms per step.
+    Returns the fused arm's launches: {kernel (suffix _tc): count}."""
     import torch
     from fr_tpu_torch.cli.main import build_conf, parse_args
     from fr_tpu_torch.ops import fused_pfc as F
@@ -1077,32 +1002,24 @@ def phase_train_full_head(steps: int = 3, timed: int = 10):
     labels = torch.randint(0, conf.n_classes, (n, conf.b), device=dev,
                            generator=gen)
     kernels = (F.margin_ce_stats, F.margin_ce_grad_emb, F.margin_ce_grad_w)
-    losses, grads, routes, launches = {}, {}, {}, {}
-    for arm, fused, tc in CE_ARMS:
+    losses, routes = {}, {}
+    for arm, fused in CE_ARMS:
         conf.use_fused = fused
-        with _Body(tc, "fused_pfc"):
-            task = FaceRecognitionTask(conf, stage="train", device=dev,
-                                       seed=0)
-            for k in kernels:
-                k.launches = 0
-            _reset_ce_routes()
-            w0 = task.state.pfc.weight.clone()
-            losses[arm] = [task.training_step((images[0], labels[0]))[
-                "loss"].item()]
-            if fused:
-                grads[arm] = _head_grad(task, w0, conf.wd)
-            del w0
-            losses[arm] += [task.training_step((images[i], labels[i]))[
-                "loss"].item() for i in range(1, steps)]
-            counts = [k.launches for k in kernels]
-            if fused:
-                routes[arm] = {body: _ce_launches(body == "tensor_cores")
-                               for body in ("tensor_cores", "cuda_cores")}
-            t0 = time.perf_counter()
-            for i in range(steps, n):
-                out = task.training_step((images[i], labels[i]))
-            out["loss"].item()
-            ms = (time.perf_counter() - t0) * 1e3 / timed
+        task = FaceRecognitionTask(conf, stage="train", device=dev, seed=0)
+        for k in kernels:
+            k.launches = 0
+        _reset_ce_routes()
+        losses[arm] = [task.training_step((images[i], labels[i]))[
+            "loss"].item() for i in range(steps)]
+        counts = [k.launches for k in kernels]
+        if fused:
+            routes = {body: _ce_launches(body == "tensor_cores")
+                      for body in ("tensor_cores", "cuda_cores")}
+        t0 = time.perf_counter()
+        for i in range(steps, n):
+            out = task.training_step((images[i], labels[i]))
+        out["loss"].item()
+        ms = (time.perf_counter() - t0) * 1e3 / timed
         print(f"[train_full_head] use_fused={fused}" + (
             f", margin-CE kernels on the {arm}" if fused else "") + f": "
               f"{conf.n_classes:,} classes, {task.pfc_cfg.num_sample:,} "
@@ -1113,14 +1030,9 @@ def phase_train_full_head(steps: int = 3, timed: int = 10):
         check(counts == ([steps] * 3 if fused else [0, 0, 0]),
               f"margin-CE launches {counts} over {steps} steps with "
               f"use_fused={fused}")
-        if fused:
-            suffix = "_tc" if arm == "tensor_cores" else ""
-            launches.update({k + suffix: c for k, c in zip(
-                CE_KERNELS, routes[arm][arm])})
         del task
-    _check_ce_arms("[train_full_head]", losses, grads, routes,
-                   dict.fromkeys(routes, steps))
-    return launches
+    _check_ce_arms("[train_full_head]", losses, routes, steps)
+    return {k + "_tc": c for k, c in zip(CE_KERNELS, routes["tensor_cores"])}
 
 
 def phase_train_golden():
@@ -1323,97 +1235,19 @@ def phase_kernel_perhead():
             t["fwd_lib"] = _library_fwd_ms(qkv, scale, bias16, mask, heads)
             t["bwd_lib"] = _library_bwd_ms(qkv, scale, bias16, mask, heads,
                                            g)
-            cc = ""
-            if bf16:
-                fwd_cc = _cuda_core_ms(lambda: F.fused_window_attention(
-                    *args, nw, mask, out_dtype=dt))
-                bwd_cc = _cuda_core_ms(lambda: F.window_attention_backward(
-                    qkv, scale, bias16, g, heads, nw, mask))
-                cc = (f"; CUDA-core bf16 fwd {fwd_cc:.4f} bwd {bwd_cc:.4f} "
-                      f"ms")
-                t["fwd_cc"], t["bwd_cc"] = fwd_cc, bwd_cc
             print(f"[kernel_perhead] {tag:22s} {tuple(qkv.shape)} h{heads} "
                   f"({route}) fwd err {err:.2e} kernel {t['fwd']:.4f} plain "
                   f"{t['fwd_plain']:.4f} sdpa {t['fwd_lib']:.4f} ms; bwd "
                   f"kernel {t['bwd']:.4f} plain {t['bwd_plain']:.4f} sdpa "
-                  f"{t['bwd_lib']:.4f} ms{cc}")
-            if dt == torch.bfloat16:
+                  f"{t['bwd_lib']:.4f} ms")
+            if bf16:
                 times[name] = t
     return worst_f, worst_b, times
 
 
-# [kernel_plan]: (name, B·nW, N, heads, head dim, windows per image, masked)
-PLAN_SHAPES = [("alternet50_stage3", 512, 36, 8, 32, 4, True),
-               ("alternet50_stage4", 512, 9, 16, 32, 1, False),
-               ("swin50_s3", 512, 49, 8, 32, 4, False),
-               ("n49_h16", 128, 49, 16, 32, 1, False)]
-
-
-def _fixed_plan(N):
-    """The launch plan the tensor-core kernels first had: at most 8 windows
-    per CTA, fewer where the grid would hold under 16 warps per SM (a CTA
-    has one warp per 16 tokens); tensor_core_plan's signature."""
-    import torch
-
-    def plan(n_windows, n_win_per_img, num_heads, masked, slots):
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        groups = n_win_per_img if masked else 1
-        warps = n_windows * num_heads * -(-N // 16)
-        wpc = max(1, min(8, warps // (16 * sms)))
-        return wpc, groups * -(-(n_windows // groups) // wpc)
-    return plan
-
-
-def phase_kernel_plan():
-    """[kernel_plan]: the tensor-core kernels' launch plan at main-path
-    shapes (bf16), interleaved in one run (fixed, 1 wave, 2 waves, 2, 1,
-    fixed; 100 launches each after 10): the shipped plan (the grid within
-    one wave of the CTAs the card holds, fused_window_attn._TC_WAVES = 1)
-    against two waves and against the fixed plan (_fixed_plan). Forward and
-    backward ms, each the mean of its two turns. The plan is restored."""
-    import torch
-    from fr_tpu_torch.ops import fused_window_attn as F
-
-    shipped = (F.tensor_core_plan, F._TC_WAVES)
-    gen = torch.Generator(device="cuda").manual_seed(15)
-    try:
-        for name, bw, n, heads, hd, nw, masked in PLAN_SHAPES:
-            qkv = torch.randn(bw, n, 3 * heads * hd, device="cuda",
-                              generator=gen).to(torch.bfloat16)
-            scale = torch.empty(heads, device="cuda").uniform_(
-                5.0, 20.0, generator=gen)
-            bias16 = 16 * torch.sigmoid(torch.randn(
-                heads, n, n, device="cuda", generator=gen))
-            g = torch.randn(bw, n, heads * hd, device="cuda",
-                            generator=gen).to(torch.bfloat16)
-            mask = (torch.where(torch.rand(nw, n, n, device="cuda",
-                                           generator=gen) < 0.3, -100.0, 0.0)
-                    if masked else None)
-            turns = {}
-            for arm in ("fixed", "1 wave", "2 waves", "2 waves", "1 wave",
-                        "fixed"):
-                F.tensor_core_plan = (_fixed_plan(n) if arm == "fixed"
-                                      else shipped[0])
-                F._TC_WAVES = 2 if arm == "2 waves" else 1
-                f = time_ms(lambda: F.fused_window_attention(
-                    qkv, scale, bias16, heads, nw, mask,
-                    out_dtype=torch.bfloat16), iters=100, warmup=10)
-                b = time_ms(lambda: F.window_attention_backward(
-                    qkv, scale, bias16, g, heads, nw, mask), iters=100,
-                    warmup=10)
-                turns.setdefault(arm, []).append((f, b))
-            print(f"[kernel_plan] {name} ({bw},{n},{3 * heads * hd}) h{heads}"
-                  f"{' masked' if masked else ''}: fwd/bwd ms " + "; ".join(
-                      f"{arm} {sum(t[0] for t in v) / 2:.4f}/"
-                      f"{sum(t[1] for t in v) / 2:.4f}"
-                      for arm, v in turns.items()))
-    finally:
-        F.tensor_core_plan, F._TC_WAVES = shipped
-
-
 def _stats_case(tag, qkv, scale, bias16, g, mask, nw, dt):
-    """One shape of [kernel_stats] on the body of its dtype (the tensor
-    cores for bf16, the CUDA cores for f32 and under TENSOR_CORES off):
+    """One shape of [kernel_stats] on the body its call takes (the tensor
+    cores for bf16 on their tile, the CUDA cores for f32 and beyond it):
     the route of both launches, out and p against the plain version, out
     against the recompute forward's and dq/dk/dv against the recompute
     backward's (bit for bit on the tensor cores: the same helpers in the
@@ -1504,10 +1338,10 @@ def _stats_case(tag, qkv, scale, bias16, g, mask, nw, dt):
 def phase_kernel_stats():
     """Rows 3-4 and 7-8: the stored-stats kernels at the N=49 shapes and
     the AlterNet50 packed shapes (_stats_case): bf16 on the tensor cores,
-    again with TENSOR_CORES off on the CUDA cores, f32 on the CUDA cores,
-    and an odd head dim (33, bf16) beyond the tensor-core tile. Times, bf16:
-    both bodies, the plain versions, the recompute kernels (rows 1/2 and
-    5/6) and SDPA's forward and backward. Returns ({body: max error fwd},
+    f32 on the CUDA cores, and an odd head dim (33, bf16) beyond the
+    tensor-core tile, on the CUDA cores. Times, bf16: the tensor-core
+    body, the plain versions, the recompute kernels (rows 1/2 and 5/6) and
+    SDPA's forward and backward. Returns ({body: max error fwd},
     {body: max error bwd}, {shape: bf16 times})."""
     import torch
     from fr_tpu_torch.ops import fused_window_attn as F
@@ -1526,14 +1360,10 @@ def phase_kernel_stats():
             qkv, scale, bias16, g, mask, nw = make(shape, dt, gen)
             heads = scale.shape[0]
             tag = f"{name} {str(dt).split('.')[-1]}"
-            bodies = [True, False] if dt == torch.bfloat16 else [True]
-            for tensor_cores in bodies:
-                with _Body(tensor_cores):
-                    body, out, p, grads, ef, eb = _stats_case(
-                        tag + ("" if tensor_cores else " TENSOR_CORES off"),
-                        qkv, scale, bias16, g, mask, nw, dt)
-                worst_f[body] = max(worst_f[body], ef)
-                worst_b[body] = max(worst_b[body], eb)
+            body, out, p, grads, ef, eb = _stats_case(
+                tag, qkv, scale, bias16, g, mask, nw, dt)
+            worst_f[body] = max(worst_f[body], ef)
+            worst_b[body] = max(worst_b[body], eb)
             if dt != torch.bfloat16:
                 continue
 
@@ -1545,7 +1375,6 @@ def phase_kernel_stats():
                 return F.window_attention_backward_stats(qkv, scale, p, g,
                                                          heads)
             t = {"fwd": time_ms(fwd), "bwd": time_ms(bwd),
-                 "fwd_cc": _cuda_core_ms(fwd), "bwd_cc": _cuda_core_ms(bwd),
                  "fwd_plain": time_ms(
                      lambda: F.window_attention_forward_stats_reference(
                          qkv, scale, bias16, heads, mask, dt)),
@@ -1561,11 +1390,11 @@ def phase_kernel_stats():
                                            g)
             times[name] = t
             print(f"[kernel_stats] {tag:22s} {tuple(qkv.shape)} h{heads} ms: "
-                  f"fwd_stats {t['fwd']:.4f} (CUDA-core {t['fwd_cc']:.4f}, "
-                  f"plain {t['fwd_plain']:.4f}, recompute fwd "
+                  f"fwd_stats {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, "
+                  f"recompute fwd "
                   f"{t['fwd_recompute']:.4f}, sdpa {t['fwd_lib']:.4f}); "
-                  f"bwd_stats {t['bwd']:.4f} (CUDA-core {t['bwd_cc']:.4f}, "
-                  f"plain {t['bwd_plain']:.4f}, recompute bwd "
+                  f"bwd_stats {t['bwd']:.4f} (plain {t['bwd_plain']:.4f}, "
+                  f"recompute bwd "
                   f"{t['bwd_recompute']:.4f}, sdpa {t['bwd_lib']:.4f})")
     # bf16 beyond the tile: head dim 33 is odd, so the CUDA-core bodies
     qkv, scale, bias16, g, mask, nw = _attention_inputs(
@@ -1716,36 +1545,15 @@ def phase_network(network):
     return {"serve": serve, "train_fwd": fwd, "train_bwd": bwd}, stats
 
 
-class _Body:
-    """Sets a kernel module's TENSOR_CORES switch (fused_window_attn's, or
-    fused_pfc's for the margin-CE backward) for a ``with`` block and
-    restores it after."""
-
-    def __init__(self, tensor_cores, module="fused_window_attn"):
-        self.on, self.module = tensor_cores, module
-
-    def __enter__(self):
-        import importlib
-        self.mod = importlib.import_module(f"fr_tpu_torch.ops.{self.module}")
-        self.saved, self.mod.TENSOR_CORES = self.mod.TENSOR_CORES, self.on
-        return self
-
-    def __exit__(self, *exc):
-        self.mod.TENSOR_CORES = self.saved
-        return False
-
-
 def phase_stats_switch(network, steps: int = 3):
     """Three training_steps with FR_ATTN_STORED_STATS=1 against =0 from one
-    seed (b=128, bf16, the CLI's synthetic head), body for body: on the
-    tensor cores (the default) and with TENSOR_CORES off on the CUDA cores.
-    Each body's stats arm shares its recompute arm's forward arithmetic
-    bit for bit, so per body the stats kernels launch once per attention
-    site and step, every launch on that body (route_launches), and the
-    losses agree to 1e-3 relative. Then the arms' f32 encoder gradients
-    (``_stats_switch_grads``) and the bf16 bodies against f32
-    (_bf16_body_grads). The variable and the switch are restored. Returns
-    {body: [stats forward launches, stats backward launches]}."""
+    seed (b=128, bf16, the CLI's synthetic head), on the tensor cores. The
+    stats arm shares the recompute arm's forward arithmetic bit for bit, so
+    the stats kernels launch once per attention site and step, every launch
+    on the tensor cores (route_launches), and the losses agree to 1e-3
+    relative. Then the arms' f32 encoder gradients, on the CUDA cores
+    (``_stats_switch_grads``). The variable is restored. Returns [stats
+    forward launches, stats backward launches]."""
     import os
     import torch
     from fr_tpu_torch.cli.main import build_conf, parse_args
@@ -1768,124 +1576,38 @@ def phase_stats_switch(network, steps: int = 3):
     labels = torch.randint(0, conf.n_classes, (steps, conf.b),
                            device="cuda", generator=gen)
     saved = os.environ.get("FR_ATTN_STORED_STATS")
-    losses, launches = {}, {}
+    losses = {}
     try:
-        for body, stats in (("tensor_cores", "0"), ("tensor_cores", "1"),
-                            ("cuda_cores", "1"), ("cuda_cores", "0")):
+        for stats in ("0", "1"):
             os.environ["FR_ATTN_STORED_STATS"] = stats
-            with _Body(body == "tensor_cores"):
-                task = FaceRecognitionTask(conf, stage="train",
-                                           device="cuda", seed=0)
-                _reset(counters)
-                _reset_routes()
-                losses[(body, stats)] = [
-                    task.training_step((images[i], labels[i]))[
-                        "loss"].item() for i in range(steps)]
-                del task
-            routes = dict(_routes())
-            n = per_call * steps
-            check(routes == {f"fwd_{b}": n if b == body else 0
-                             for b in ("tensor_cores", "cuda_cores")}
-                  | {f"bwd_{b}": n if b == body else 0
-                     for b in ("tensor_cores", "cuda_cores")},
-                  f"{tag} FR_ATTN_STORED_STATS={stats} on the {body}: "
-                  f"launches by route {routes}, expected {n} forward and "
-                  f"{n} backward on the {body}")
+            task = FaceRecognitionTask(conf, stage="train", device="cuda",
+                                       seed=0)
+            _reset(counters)
+            _reset_routes()
+            losses[stats] = [task.training_step((images[i], labels[i]))[
+                "loss"].item() for i in range(steps)]
+            del task
+            _check_routes(f"{tag} FR_ATTN_STORED_STATS={stats}:",
+                          per_call * steps, per_call * steps)
             if stats == "1":
-                launches[body] = [getattr(f, a) for f, a in counters]
+                launches = [getattr(f, a) for f, a in counters]
     finally:
         if saved is None:
             os.environ.pop("FR_ATTN_STORED_STATS", None)
         else:
             os.environ["FR_ATTN_STORED_STATS"] = saved
     _stats_switch_grads(network, tag)
-    _bf16_body_grads(network, tag)
-    for body in ("tensor_cores", "cuda_cores"):
-        recompute, stats = losses[(body, "0")], losses[(body, "1")]
-        print(f"{tag} on the {body}: FR_ATTN_STORED_STATS=0 losses "
-              f"{[round(x, 5) for x in recompute]}, =1 "
-              f"{[round(x, 5) for x in stats]}; stats launches "
-              f"{launches[body]}; every launch on that body")
-        check(launches[body] == [per_call * steps] * 2,
-              f"{tag} {body} stats launches {launches[body]}, expected "
-              f"{per_call * steps}")
-        for a, b in zip(recompute, stats):
-            check(abs(a - b) <= 1e-3 * abs(a), f"{tag} {body}: stats-arm "
-                  f"loss {b} vs recompute {a}: beyond 1e-3 relative")
+    recompute, stats = losses["0"], losses["1"]
+    print(f"{tag} on the tensor cores: FR_ATTN_STORED_STATS=0 losses "
+          f"{[round(x, 5) for x in recompute]}, =1 "
+          f"{[round(x, 5) for x in stats]}; stats launches {launches}")
+    check(launches == [per_call * steps] * 2,
+          f"{tag} stats launches {launches}, expected {per_call * steps}")
+    for a, b in zip(recompute, stats):
+        check(abs(a - b) <= 1e-3 * abs(a), f"{tag} stats-arm loss {b} vs "
+              f"recompute {a}: beyond 1e-3 relative")
     print(f"{tag} stats switch: {time.perf_counter() - t0:.1f} s")
     return launches
-
-
-def _bf16_body_grads(network, tag, n_img: int = 8):
-    """One bf16 encoder backward through the tensor-core body and one
-    through the CUDA-core body (TENSOR_CORES off), each against the f32
-    gradients (TF32 off; the golden's seeded weights, train mode, a fixed
-    projection of the L2-normalised embeddings as the loss, one dropout
-    seed). Per attention group (qkv, q_bias, logit_scale, cpb_mlp, proj
-    weight) and for the other parameters, the median over tensors of the
-    norm-wise distance to f32 must be within 1.1× the CUDA-core body's:
-    the two sat within 4% of each other there on the card (PERF.md §6),
-    while bf16 sits 12–110% from f32 at init, whichever body runs. v_bias
-    and proj.bias get gradients of rounding noise that the next BatchNorm
-    cancels, and are left out."""
-    import numpy as np
-    import torch
-    from fr_tpu_torch.configs.base import default_img_size
-    from fr_tpu_torch.models.common import l2_normalize
-    from fr_tpu_torch.utils.golden import (golden_encoder, golden_images,
-                                           seeded_state_dict)
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    x = torch.from_numpy(golden_images(0, n_img, default_img_size(network))
-                         ).cuda()
-    r = torch.from_numpy(np.random.default_rng(9).standard_normal(
-        (n_img, 512)).astype(np.float32)).cuda()
-    grads, names = {}, None
-    for arm, dtype, tensor_cores in (("f32", torch.float32, True),
-                                     ("tensor cores", torch.bfloat16, True),
-                                     ("CUDA cores", torch.bfloat16, False)):
-        model = golden_encoder(network, dtype, train=True)
-        model.load_state_dict(seeded_state_dict(model, 0), strict=True)
-        model.cuda().train()
-        names, params = zip(*model.named_parameters())
-        with _Body(tensor_cores):
-            _reset_routes()
-            gen = torch.Generator(device="cuda").manual_seed(8)
-            loss = (l2_normalize(model(x, gen).float()) * r).sum()
-            grads[arm] = [g.float() for g in torch.autograd.grad(loss,
-                                                                 params)]
-        if arm != "f32":
-            body = "tensor_cores" if tensor_cores else "cuda_cores"
-            r_ = _routes()
-            check(r_[f"fwd_{body}"] > 0 and r_[f"bwd_{body}"] > 0 and
-                  sum(r_.values()) == r_[f"fwd_{body}"] + r_[f"bwd_{body}"],
-                  f"{tag} bf16 {arm}: launches by route {r_}")
-        del model
-    medians = {}
-    for arm in ("tensor cores", "CUDA cores"):
-        groups = {}
-        for name, a, b in zip(names, grads[arm], grads["f32"]):
-            if ".v_bias" in name or ".proj.bias" in name:
-                continue
-            n0 = float(b.norm())
-            if n0 <= 1e-6:
-                continue
-            key = next((k for k in ("qkv", "q_bias", "logit_scale",
-                                    "cpb_mlp", "proj") if f".{k}" in name),
-                       "other")
-            groups.setdefault(key, []).append(float((a - b).norm()) / n0)
-        medians[arm] = {k: float(np.median(v)) for k, v in groups.items()}
-    tc, cc = medians["tensor cores"], medians["CUDA cores"]
-    print(f"{tag} bf16 gradients against f32 (median norm-wise distance "
-          f"per group, tensor cores / CUDA cores, tol 1.1x): " + ", ".join(
-              f"{k} {tc[k]:.3e}/{cc[k]:.3e}" for k in sorted(cc)))
-    check(sorted(tc) == sorted(cc) and len(cc) == 6,
-          f"{tag} parameter groups {sorted(tc)} / {sorted(cc)}")
-    for k in cc:
-        check(tc[k] <= 1.1 * cc[k], f"{tag} the tensor-core body's bf16 "
-              f"{k} gradients sit {tc[k]:.3e} from f32, the CUDA-core "
-              f"body's {cc[k]:.3e}")
 
 
 def _stats_switch_grads(network, tag, n_img: int = 8):
@@ -2674,10 +2396,8 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
     def run(conf, tag, n_steps, n_timed, expect):
         """n_steps checked steps, then n_timed on the host clock; expect:
         launches per step of the three grouped kernels. Returns (losses, ms
-        per step, the step-1 head gradient of a fused block-sampled SGD run
-        or None)."""
+        per step)."""
         torch.cuda.reset_peak_memory_stats()
-        head_grad = None
         before = [k.launches for k in rows]
         task = FaceRecognitionTask(conf, stage="train", device="cuda", seed=0)
         cfg = task.pfc_cfg
@@ -2716,8 +2436,6 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
             check(not bool(stayed[~drawn].any()),
                   f"[webface42m] {tag}: a weight row outside the drawn "
                   f"groups changed")
-            head_grad = _head_grad(task, w0, conf.wd) if conf.use_fused \
-                else None
             del w0, moved, stayed
         losses += [task.training_step((images[i], labels[i]))["loss"].item()
                    for i in range(1, n_steps)]
@@ -2745,37 +2463,30 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
               + f"; peak memory {peak:.2f} GB; grouped launches {counts}")
         del task
         torch.cuda.empty_cache()
-        return losses, ms, head_grad
+        return losses, ms
 
-    results, routes, ce_launches, arm_steps = {}, {}, {}, {}
-    for arm, fused, tc in CE_ARMS:
-        # the switch-off arm runs its checked steps only
-        n_timed = 0 if arm == "cuda_cores" else timed
-        arm_steps[arm] = steps + n_timed
+    results, routes = {}, {}
+    for arm, fused in CE_ARMS:
         conf.use_fused = fused
         before = [k.launches for k in ce]
         _reset_ce_routes()
-        with _Body(tc, "fused_pfc"):
-            results[arm] = run(conf, f"SGD use_fused={fused}" + (
-                f", margin-CE kernels on the {arm}" if fused else ""), steps,
-                n_timed, (1, 1, 0))
+        results[arm] = run(conf, f"SGD use_fused={fused}" + (
+            f", margin-CE kernels on the {arm}" if fused else ""), steps,
+            timed, (1, 1, 0))
         if fused:
-            routes[arm] = {body: _ce_launches(body == "tensor_cores")
-                           for body in ("tensor_cores", "cuda_cores")}
+            routes = {body: _ce_launches(body == "tensor_cores")
+                      for body in ("tensor_cores", "cuda_cores")}
         counts = [k.launches - b for k, b in zip(ce, before)]
-        check(counts == ([steps + n_timed] * 3 if fused else [0, 0, 0]),
+        check(counts == ([steps + timed] * 3 if fused else [0, 0, 0]),
               f"[webface42m] margin-CE launches {counts} over "
-              f"{steps + n_timed} steps with use_fused={fused}")
-        if fused:
-            suffix = "_tc" if arm == "tensor_cores" else ""
-            ce_launches.update({k + suffix: c for k, c in zip(
-                CE_KERNELS, routes[arm][arm])})
+              f"{steps + timed} steps with use_fused={fused}")
     _check_ce_arms("[webface42m]", {a: r[0] for a, r in results.items()},
-                   {a: r[2] for a, r in results.items() if r[2] is not None},
-                   routes, arm_steps)
+                   routes, steps + timed)
+    ce_launches = {k + "_tc": c
+                   for k, c in zip(CE_KERNELS, routes["tensor_cores"])}
     run(_webface_conf(optimizer="AdamW"), "AdamW use_fused=False", steps, 0,
         (1, 0, 1))
-    _, ms_row, _ = run(_webface_conf(sample_block=1), "SGD sample_block=1 "
+    _, ms_row = run(_webface_conf(sample_block=1), "SGD sample_block=1 "
                        "(per-row sampling)", steps, timed, (0, 0, 0))
     ms_block = results["plain"][1]
     print(f"[webface42m] sample_block {WEBFACE_BLOCK} against 1, use_fused "
@@ -3863,14 +3574,14 @@ def _qkv_cases():
     and unmasked, bf16 and f32: the forward (bf16 on the tensor-core body,
     f32 on the CUDA-core one, each call's route checked) and the
     all-in-kernel backward (the same two bodies, each call's route
-    checked), its sums repeated bit for bit; times in bf16 with the
-    CUDA-core body on the same inputs, F.linear + the row-1 kernel (the
-    same function, unfused), the hybrid backward, SDPA (not the same
-    function), and the tensor-core backward by part (_qkv_bwd_parts) beside
-    the parts' plain versions and one PyTorch call each for dx
-    (torch.matmul in bf16) and dW (torch.mm, bf16 in, f32 sums and out).
-    bf16 also runs the backward on the CUDA-core body (TENSOR_CORES off),
-    checked against the plain version as the tensor-core one is."""
+    checked), its sums repeated bit for bit; times in bf16 with F.linear +
+    the row-1 kernel (the same function, unfused), the hybrid backward,
+    SDPA (not the same function), and the tensor-core backward by part
+    (_qkv_bwd_parts) beside the parts' plain versions and one PyTorch call
+    each for dx (torch.matmul in bf16) and dW (torch.mm, bf16 in, f32 sums
+    and out). Then bf16 beyond the tensor-core tile, C = 72: both on the
+    CUDA-core body, checked against the plain version as the tensor-core
+    one is."""
     import torch
     import torch.nn.functional as Fn
     from fr_tpu_torch.ops import fused_window_attn as F
@@ -3926,19 +3637,6 @@ def _qkv_cases():
                       f"{tag}: the sums changed between two runs")
                 if dt != torch.bfloat16:
                     continue
-                # bf16 on the CUDA-core body too (TENSOR_CORES off): the
-                # route of bf16 off the tensor-core tile
-                with _Body(False):
-                    route, grads_cc = _route_of(
-                        lambda: V.qkv_attention_backward(
-                            x, w, b, scale, bias16, g, heads, nw, mask))
-                check(route == "cuda_cores",
-                      f"{tag}: TENSOR_CORES off, the backward took the "
-                      f"{route} body")
-                torch.cuda.synchronize()
-                _qkv_check(f"{tag} (CUDA cores)", grads_cc,
-                           V.window_attention_qkv_backward_reference(
-                               x, w, b, scale, bias16, g, heads, mask), dt)
                 # the parts' errors: the attend kernel makes db, dscale and
                 # dbias, the products dx and dW
                 for part, names in (("attend", ("db", "dscale", "dbias")),
@@ -3969,10 +3667,6 @@ def _qkv_cases():
                      "fwd_plain": time_ms(
                          lambda: V.window_attention_qkv_reference(
                              x, w, b, scale, bias16, heads, mask, dt)),
-                     "fwd_cc": _cuda_core_ms(
-                         lambda: V.fused_window_attention_packed_qkv(
-                             x, w, b, scale, bias16, heads, nw, mask,
-                             out_dtype=dt)),
                      "fwd_chain": time_ms(linear_row1),
                      "fwd_lib": _library_fwd_ms(q0, scale, bias16, mask,
                                                 heads),
@@ -3985,8 +3679,6 @@ def _qkv_cases():
                          x, w, b, scale, bias16, g, heads, nw, mask)),
                      "bwd_lib": _library_bwd_ms(q0, scale, bias16, mask,
                                                 heads, g),
-                     "bwd_cc": _cuda_core_ms(lambda: V.qkv_attention_backward(
-                         x, w, b, scale, bias16, g, heads, nw, mask)),
                      "bwd_attend_plain": time_ms(attend_plain),
                      "bwd_dx_plain": time_ms(lambda: torch.matmul(
                          d16.float(), w16.float()).to(dt)),
@@ -4002,13 +3694,12 @@ def _qkv_cases():
                 print(f"[kernel_variants] qkv {name} "
                       f"{'masked' if masked else 'unmasked'} x "
                       f"{tuple(x.shape)} h{heads}: fwd {t['fwd']:.4f} (plain "
-                      f"{t['fwd_plain']:.4f}, CUDA cores {t['fwd_cc']:.4f}, "
-                      f"F.linear+row1 {t['fwd_chain']:.4f}, sdpa "
-                      f"{t['fwd_lib']:.4f}); "
+                      f"{t['fwd_plain']:.4f}, F.linear+row1 "
+                      f"{t['fwd_chain']:.4f}, sdpa {t['fwd_lib']:.4f}); "
                       f"all-in-kernel bwd {t['bwd']:.4f} (plain "
-                      f"{t['bwd_plain']:.4f}, CUDA cores {t['bwd_cc']:.4f}, "
-                      f"hybrid {t['bwd_hybrid']:.4f}, sdpa "
-                      f"{t['bwd_lib']:.4f}) ms; by part (profiler) attend "
+                      f"{t['bwd_plain']:.4f}, hybrid {t['bwd_hybrid']:.4f}, "
+                      f"sdpa {t['bwd_lib']:.4f}) ms; by part (profiler) "
+                      f"attend "
                       f"{t['bwd_attend']:.4f}, dx {t['bwd_dx']:.4f}, dW "
                       f"{t['bwd_dw']:.4f}, sums {t['bwd_sums']:.4f}, other "
                       f"{t['bwd_other']:.4f} (plain attend "
@@ -4016,6 +3707,33 @@ def _qkv_cases():
                       f"{t['bwd_dx_plain']:.4f}, dW {t['bwd_dw_plain']:.4f};"
                       f" torch.matmul bf16 dx {t['bwd_dx_lib']:.4f}, "
                       f"torch.mm bf16 → f32 dW {t['bwd_dw_lib']:.4f}) ms")
+    # bf16 beyond the tile: C = 72 (N 36, 4 heads of 18) is not a multiple
+    # of 16, so the CUDA-core bodies of the forward and the backward
+    dt, heads, c = torch.bfloat16, 4, 72
+    _, scale, bias16, _, mask, nw = _attention_inputs(
+        64, 36, heads, 12, 6, True, dt, gen)
+    x = torch.randn(64, 36, c, device="cuda", generator=gen).to(dt)
+    w = torch.randn(3 * c, c, device="cuda", generator=gen) / c ** 0.5
+    b = 0.1 * torch.randn(3 * c, device="cuda", generator=gen)
+    g = torch.randn(64, 36, c, device="cuda", generator=gen).to(dt)
+    tag = "[kernel_variants] qkv N36 C72 h4 masked bfloat16"
+    route, out = _route_of(lambda: V.fused_window_attention_packed_qkv(
+        x, w, b, scale, bias16, heads, nw, mask, out_dtype=dt))
+    check(route == "cuda_cores", f"{tag}: the forward took the {route} body")
+    route, grads = _route_of(lambda: V.qkv_attention_backward(
+        x, w, b, scale, bias16, g, heads, nw, mask))
+    check(route == "cuda_cores", f"{tag}: the backward took the {route} "
+          f"body")
+    torch.cuda.synchronize()
+    err = (out.float() - V.window_attention_qkv_reference(
+        x, w, b, scale, bias16, heads, mask, dt).float()).abs().max().item()
+    check(bool(torch.isfinite(out.float()).all()) and err <= BF16_TOL,
+          f"{tag}: error {err}")
+    errs = _qkv_check(tag, grads, V.window_attention_qkv_backward_reference(
+        x, w, b, scale, bias16, g, heads, mask), dt)
+    print(f"{tag}: forward and backward on the CUDA cores, forward max-abs "
+          f"{err:.2e}, backward max-abs " + ", ".join(
+              f"{k} {v:.2e}" for k, v in errs.items()))
     return worst, times
 
 
@@ -4600,23 +4318,20 @@ def phase_profile(network, warmup: int = 3, steps: int = 5, conf=None):
 def phase_profile_fused_ce():
     """[profile] of the AlterNet50 step at the full ms1m_arcface_122 head
     (sample_rate 0.3) and of the webface42m step, use_fused on, all three
-    margin-CE kernels on each body (fused_pfc.TENSOR_CORES on, then off):
-    the head's pfc_head:* device time. Returns {(network, body): head ms
-    per step}."""
+    margin-CE kernels on the tensor cores: the head's pfc_head:* device
+    time. Returns {network: head ms per step}."""
     from fr_tpu_torch.cli.main import build_conf, parse_args
     heads = {}
     for network in ("AlterNet50", "ResNet100"):
-        for body in ("tensor_cores", "cuda_cores"):
-            if network == "ResNet100":
-                conf = _webface_conf()
-            else:
-                conf = build_conf(parse_args(_net_args(network, "train")))
-                conf.sample_rate = FULL_HEAD_SAMPLE_RATE
-            conf.use_fused = True
-            print(f"[profile] {network}, use_fused on, the margin-CE "
-                  f"kernels on the {body}")
-            with _Body(body == "tensor_cores", "fused_pfc"):
-                heads[(network, body)] = phase_profile(network, conf=conf)
+        if network == "ResNet100":
+            conf = _webface_conf()
+        else:
+            conf = build_conf(parse_args(_net_args(network, "train")))
+            conf.sample_rate = FULL_HEAD_SAMPLE_RATE
+        conf.use_fused = True
+        print(f"[profile] {network}, use_fused on, the margin-CE kernels on "
+              f"the tensor cores")
+        heads[network] = phase_profile(network, conf=conf)
     return heads
 
 
@@ -5051,7 +4766,7 @@ def _mesh_rank_child(rank, store, out):
 
 def _group_grad(state, w0, gidx, wd):
     """The step-1 SGD gradient of the head rows of groups ``gidx``: the
-    momentum then holds g + wd·w0 (as _head_grad reads it)."""
+    momentum then holds g + wd·w0 on the drawn rows and 0 elsewhere."""
     groups = (-1, WEBFACE_BLOCK, w0.shape[1])
     mom = state.pfc.slots["momentum"].view(groups)[gidx]
     return mom - wd * w0.view(groups)[gidx]
@@ -5228,7 +4943,6 @@ def main() -> None:
     worst_bwd, times_bwd = phase_kernel_bwd()
     worst_ce, times_ce = phase_margin_ce()
     worst_ph_f, worst_ph_b, times_ph = phase_kernel_perhead()
-    phase_kernel_plan()
     worst_st_f, worst_st_b, times_st = phase_kernel_stats()
     worst_rows, times_rows, bounds_rows = phase_kernel_sparse_rows()
     times_bn = phase_kernel_batch_norm()
@@ -5244,13 +4958,12 @@ def main() -> None:
     packed_stats = phase_stats_switch("AlterNet50")
     launches_routes, _ = phase_alternet50_routes()
     perhead = {"fwd": 0, "bwd": 0}
-    perhead_stats = {"tensor_cores": [0, 0], "cuda_cores": [0, 0]}
+    perhead_stats = [0, 0]
     for network in ("Swin50", "EffiAlter_m"):
         counts, stats = phase_network(network)
         perhead["fwd"] += counts["serve"] + counts["train_fwd"]
         perhead["bwd"] += counts["train_bwd"]
-        perhead_stats = {body: [a + b for a, b in zip(v, stats[body])]
-                         for body, v in perhead_stats.items()}
+        perhead_stats = [a + b for a, b in zip(perhead_stats, stats)]
     phase_swin50_train_golden()
     phase_alternet_sep50()
     phase_alternet_v1_50()
@@ -5279,26 +4992,14 @@ def main() -> None:
 
     fwd = _mix(times_fwd, torch.bfloat16)
     bwd = _mix(times_bwd, torch.bfloat16)
-    cc = [sum(count * t[(name, masked, torch.bfloat16)][3]
-              for name, *_, n_unmasked, n_masked in SHAPES
-              for masked, count in ((False, n_unmasked), (True, n_masked)))
-          for t in (times_fwd, times_bwd)]
-    cc += [_perhead_mix(times_ph, k) for k in ("fwd_cc", "bwd_cc")]
-    print("[summary] bf16 mixes in this run, tensor cores against the "
-          "CUDA-core body: " + "; ".join(
-              f"row {row} {ms:.4f} vs {c:.4f} ms" for row, ms, c in zip(
-                  (1, 2, 5, 6), (fwd["ms"], bwd["ms"],
-                                 _perhead_mix(times_ph, "fwd"),
-                                 _perhead_mix(times_ph, "bwd")), cc)))
     stats = {k: (sum(times_st[name][k] * (n_unmasked + n_masked)
                      for name, *_, n_unmasked, n_masked in SHAPES),
                  _perhead_mix(times_st, k))
-             for k in ("fwd", "fwd_cc", "fwd_lib", "fwd_recompute", "bwd",
-                       "bwd_cc", "bwd_lib", "bwd_recompute")}
-    print("[summary] the stats pair, bf16, tensor cores against the "
-          "CUDA-core body, SDPA and the recompute kernel (rows 1/2, 5/6): "
-          + "; ".join(f"row {row} {stats[kind][i]:.4f} vs "
-                      f"{stats[kind + '_cc'][i]:.4f}, sdpa "
+             for k in ("fwd", "fwd_lib", "fwd_recompute", "bwd", "bwd_lib",
+                       "bwd_recompute")}
+    print("[summary] the stats pair, bf16, tensor cores against SDPA and "
+          "the recompute kernel (rows 1/2, 5/6): "
+          + "; ".join(f"row {row} {stats[kind][i]:.4f} vs sdpa "
                       f"{stats[kind + '_lib'][i]:.4f}, recompute "
                       f"{stats[kind + '_recompute'][i]:.4f} ms"
                       for row, kind, i in ((3, "fwd", 0), (4, "bwd", 0),
@@ -5307,22 +5008,21 @@ def main() -> None:
                   for name, *_, n_unmasked, n_masked in SHAPES
                   for masked, count in ((False, n_unmasked),
                                         (True, n_masked)))
-           for k in ("fwd", "fwd_cc", "fwd_chain")}
+           for k in ("fwd", "fwd_chain")}
     print(f"[summary] row 18, bf16, the 12 AlterNet50 sites of one call: "
-          f"tensor cores {qkv['fwd']:.4f} ms against the CUDA-core body "
-          f"{qkv['fwd_cc']:.4f} and F.linear + row 1 {qkv['fwd_chain']:.4f}")
+          f"tensor cores {qkv['fwd']:.4f} ms against F.linear + row 1 "
+          f"{qkv['fwd_chain']:.4f}")
     qkv = {k: sum(count * times_v["qkv"][(name, masked)][k]
                   for name, *_, n_unmasked, n_masked in SHAPES
                   for masked, count in ((False, n_unmasked),
                                         (True, n_masked)))
-           for k in ("bwd", "bwd_cc", "bwd_hybrid", "bwd_attend", "bwd_dx",
+           for k in ("bwd", "bwd_hybrid", "bwd_attend", "bwd_dx",
                      "bwd_dw", "bwd_sums", "bwd_other")}
     print(f"[summary] row 18b, bf16, the 12 AlterNet50 sites of one call: "
           f"tensor cores {qkv['bwd']:.4f} ms (by part: attend "
           f"{qkv['bwd_attend']:.4f}, dx {qkv['bwd_dx']:.4f}, dW "
           f"{qkv['bwd_dw']:.4f}, sums {qkv['bwd_sums']:.4f}, other "
-          f"{qkv['bwd_other']:.4f}) against the CUDA-core body "
-          f"{qkv['bwd_cc']:.4f} and the hybrid backward "
+          f"{qkv['bwd_other']:.4f}) against the hybrid backward "
           f"{qkv['bwd_hybrid']:.4f}")
     attn = "fused_window_attn.py"
     # rows 1, 2, 5, 6, 15-17b: the bf16 bodies on the tensor cores
@@ -5337,22 +5037,17 @@ def main() -> None:
                "window_attn_tc.cuh", f"{attn}:1717", launches_bwd,
                worst_bwd, bwd["ms"], bwd["plain_ms"], _packed_bound("bwd"),
                bwd["library_ms"])]
-    # rows 9-11 at the ms1m head, each on each body, the tensor-core
-    # kernels' launches from [train_full_head]'s default fused arm, the
-    # CUDA-core ones' from its switch-off arm
-    for name, line, label, key in (
-            ("margin_ce_stats_tc", 308, "margin_ce_stats_tc (row 9)", "ms"),
-            ("margin_ce_grad_emb_tc", 406, "margin_ce_grad_emb_tc (row 10)",
-             "ms"),
-            ("margin_ce_grad_w_tc", 425, "margin_ce_grad_w_tc (row 11)", "ms"),
-            ("margin_ce_stats", 308, "margin_ce_stats", "cc_ms"),
-            ("margin_ce_grad_emb", 406, "margin_ce_grad_emb", "cc_ms"),
-            ("margin_ce_grad_w", 425, "margin_ce_grad_w", "cc_ms")):
-        kernel = name.removesuffix("_tc")
+    # rows 9-11 at the ms1m head on the tensor cores, launches from
+    # [train_full_head]'s fused arm
+    for kernel, line, row in (("margin_ce_stats", 308, 9),
+                              ("margin_ce_grad_emb", 406, 10),
+                              ("margin_ce_grad_w", 425, 11)):
+        name = kernel + "_tc"
         t = times_ce[(kernel, CE_SHAPE[2])]
-        kernels.append(_entry(label, "margin_ce.cu", f"fused_pfc.py:{line}",
-                              launches_ce[name], worst_ce[name], t[key],
-                              t["plain_ms"], _ce_bound(kernel), None))
+        kernels.append(_entry(f"{name} (row {row})", "margin_ce.cu",
+                              f"fused_pfc.py:{line}", launches_ce[name],
+                              worst_ce[name], t["ms"], t["plain_ms"],
+                              _ce_bound(kernel), None))
     for kind, line, count, err, row in (
             ("fwd", 1909, perhead["fwd"], worst_ph_f, 5),
             ("bwd", 2002, perhead["bwd"], worst_ph_b, 6)):
@@ -5367,23 +5062,19 @@ def main() -> None:
     packed_mix = {k: sum(times_st[name][k] * (n_unmasked + n_masked)
                          for name, *_, n_unmasked, n_masked in SHAPES)
                   for k in stats_mix}
-    # rows 3-4, 7-8: each on its tensor-core body (the models' bf16 path
-    # under FR_ATTN_STORED_STATS=1) and its CUDA-core body (TENSOR_CORES
-    # off), launches from the stats switch's arm of that body
+    # rows 3-4, 7-8 on the tensor cores (the models' bf16 path under
+    # FR_ATTN_STORED_STATS=1), launches from the stats switch's stats arm
     for kind, i, errs in (("fwd", 0, worst_st_f), ("bwd", 1, worst_st_b)):
         for entry, lines, counts, mix, bound, rows in (
                 ("per-head", (731, 790), perhead_stats, stats_mix,
                  _perhead_bound(f"{kind}_stats"), (7, 8)),
                 ("packed", (1298, 1367), packed_stats, packed_mix,
                  _packed_bound(f"{kind}_stats"), (3, 4))):
-            for body, suffix, key in (("tensor_cores", "_tc", kind),
-                                      ("cuda_cores", "", f"{kind}_cc")):
-                kernels.append(_entry(
-                    f"window_attn_{kind}_stats{suffix} ({entry} entry, row "
-                    f"{rows[i]})", "window_attn_stats.cu",
-                    f"{attn}:{lines[i]}", counts[body][i], errs[body],
-                    mix[key], mix[f"{kind}_plain"], bound,
-                    mix[f"{kind}_lib"]))
+            kernels.append(_entry(
+                f"window_attn_{kind}_stats_tc ({entry} entry, row "
+                f"{rows[i]})", "window_attn_stats.cu", f"{attn}:{lines[i]}",
+                counts[i], errs["tensor_cores"], mix[kind],
+                mix[f"{kind}_plain"], bound, mix[f"{kind}_lib"]))
     for (name, line), count in zip(
             (("grouped_gather", 70), ("grouped_update_sgd", 99),
              ("grouped_update_adamw", 151)), launches_rows):
@@ -5428,11 +5119,9 @@ def main() -> None:
     check(all(c > 0 for c in launches_ce_webface.values()),
           f"[webface42m] margin-CE launches {launches_ce_webface}")
     print("[summary] the head inside the step, use_fused on, the margin-CE "
-          "kernels on the tensor cores against the CUDA cores (ms of "
-          "device time per step): " + "; ".join(
-              f"{net} {head_fused[(net, 'tensor_cores')]:.3f} vs "
-              f"{head_fused[(net, 'cuda_cores')]:.3f}"
-              for net in ("AlterNet50", "ResNet100"))
+          "kernels on the tensor cores (ms of device time per step): "
+          + "; ".join(f"{net} {head_fused[net]:.3f}"
+                      for net in ("AlterNet50", "ResNet100"))
           + f"; ResNet100 with use_fused off {head_block:.3f}")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its "

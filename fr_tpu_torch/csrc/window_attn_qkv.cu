@@ -42,8 +42,8 @@
 //    unchanged (tc_normalize, tc_scores, tc_softmax, tc_to_operand,
 //    tc_times_tile, tc_store_rows). qkv never exists in device memory, and
 //    W is read once per CTA, not once per (window, head).
-//  - window_attn_qkv_fwd (f32, bf16 off that tile, or with TENSOR_CORES
-//    off): one block per (window, head), as the windows API's CUDA-core
+//  - window_attn_qkv_fwd (bf16 beyond the tile, or f32): one block per
+//    (window, head), as the windows API's CUDA-core
 //    forward; it forms this head's 3·hd columns of qkv itself, the x
 //    window and the head's rows of Wt streaming through shared memory in
 //    chunks of 32 channels, f32 accumulators in shared memory, one rounding
@@ -81,7 +81,7 @@
 //    16-byte cp.async in two stages, the chunk sized so the grid fills the
 //    card. (6) window_sum_kernel adds the dWt partials in a fixed order.
 //    The sums are the same bits on every run; no atomics.
-//  - window_attn_qkv_bwd (f32, bf16 off that tile, TENSOR_CORES off), five
+//  - window_attn_qkv_bwd (bf16 beyond the tile, or f32), five
 //    launches: the recompute as the CUDA-core forward, the shared recompute
 //    backward body (bwd_attend, window_attn_bwd.cuh) writing dqkv in f32 to
 //    scratch, then proj_grad_gemm_kernel (64×64 tiles, 16 deep, f32 FMAs)

@@ -55,9 +55,9 @@
 //    registers over the CTA's windows and dscale is the row sums of
 //    dq̂∘q̂ that the L2-norm backward forms (tc_norm_backward_rowsum); one
 //    partial row per CTA, not per (window, head).
-//  - window_attn_fwd_stats, window_attn_bwd_stats: f32 (TF32 would break
-//    the f32 tolerance) and bf16 beyond the tile, or every call with
-//    TENSOR_CORES off. One block per (window, head); every product with
+//  - window_attn_fwd_stats, window_attn_bwd_stats: bf16 beyond the tile,
+//    or f32 (TF32 would break the f32 tolerance). One block per (window,
+//    head); every product with
 //    f32 FMAs on the CUDA cores. The forward is window_attn_common.cuh's
 //    kernel instantiated to store p; the backward stages its operands in
 //    shared memory as f32 and writes one N·N + 1 partial per (window, head).

@@ -21,9 +21,9 @@ dtype, as fr_tpu's do.
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels or
 raises. Each wrapper counts its launches in ``.launches``. All three kernels
 have two bodies: bf16 with D a multiple of 16, at most 512, takes the
-tensor-core kernels (``margin_ce_stats_tc``, ``margin_ce_grad_{emb,w}_tc``)
-while ``TENSOR_CORES`` is on; f32, any other D and the switch off take the
-CUDA-core ones. ``route_launches`` counts every launch by body.
+tensor-core kernels (``margin_ce_stats_tc``, ``margin_ce_grad_{emb,w}_tc``);
+f32 and any other D take the CUDA-core ones. ``route_launches`` counts every
+launch by body.
 
 On a class-sharded head (a model group) each rank's kernels see only its
 shard's columns, and the forward merges the shards' statistics as fr_tpu's
@@ -57,17 +57,11 @@ route_launches = {"stats_tensor_cores": 0, "stats_cuda_cores": 0,
                   "grad_emb_tensor_cores": 0, "grad_emb_cuda_cores": 0,
                   "grad_w_tensor_cores": 0, "grad_w_cuda_cores": 0}
 
-# The bf16 body switch of the three kernels, read at every call: True (the
-# default) puts bf16 calls with D % 16 == 0, D ≤ 512 on the tensor cores;
-# False puts every call on the CUDA-core kernels.
-TENSOR_CORES = True
-
 
 def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
     """Whether a call in compute dtype ``dtype`` takes the tensor-core
-    kernels: bf16, D a multiple of 16 and at most 512, while TENSOR_CORES
-    is on."""
-    return (TENSOR_CORES and dtype == torch.bfloat16 and 0 < D <= _TC_MAX_D
+    kernels: bf16, D a multiple of 16 and at most 512."""
+    return (dtype == torch.bfloat16 and 0 < D <= _TC_MAX_D
             and D % 16 == 0)
 
 

@@ -32,7 +32,7 @@ from one to the other:
                   window_attn_fwd_stats_tc, window_attn_bwd_stats_tc
                   (window_attn_stats.cu, on the same building blocks)
     CUDA cores    f32 (TF32 would break the f32 tolerance and goldens), and
-                  bf16 beyond that tile, or with ``TENSOR_CORES`` off:
+                  bf16 beyond that tile:
                   window_attn_fwd, window_attn_bwd; window_attn_fwd_stats,
                   window_attn_bwd_stats
 
@@ -97,29 +97,18 @@ _BWD_THREADS = 256
 _BWD_SMEM_LIMIT = 227 * 1024
 # The tensor-core kernels pad N and the head dim to tiles of 16, at most 4.
 _TC_MAX = 64
-# CTAs per launch of the tensor-core kernels: at most _TC_WAVES times the
-# CTAs of that kernel the card holds at once (the CUDA occupancy API's count
-# per SM, times the SMs), each walking an equal run of windows.
-_TC_WAVES = 1
 
 # launches of the forward and backward kernels by body, either arm
 route_launches = {"fwd_tensor_cores": 0, "fwd_cuda_cores": 0,
                   "bwd_tensor_cores": 0, "bwd_cuda_cores": 0}
 
-# The bf16 body switch, read at every call: True (the default) puts bf16
-# calls within the tile on the tensor cores; False puts every call on the
-# CUDA-core kernels. chip_smoke.py's stats switch runs both arms on each
-# body, so that the arms share their forward's arithmetic bit for bit
-# (bf16 training at init amplifies any change of rounding; PERF.md §6).
-TENSOR_CORES = True
-
 
 def tensor_core_route(dtype: torch.dtype, N: int, hd: int) -> bool:
     """Whether a call takes the tensor-core kernels (csrc/window_attn_tc.cuh):
     bf16 with N and the head dim at most 64 and the head dim even (its values
-    move in bf16 pairs), while TENSOR_CORES is on. f32 and every other bf16
-    shape take the CUDA-core kernels."""
-    return (TENSOR_CORES and dtype == torch.bfloat16 and 0 < N <= _TC_MAX
+    move in bf16 pairs). f32 and every other bf16 shape take the CUDA-core
+    kernels."""
+    return (dtype == torch.bfloat16 and 0 < N <= _TC_MAX
             and 0 < hd <= _TC_MAX and hd % 2 == 0)
 
 
@@ -130,12 +119,13 @@ def tensor_core_plan(n_windows: int, n_win_per_img: int, num_heads: int,
     the backward's scratch holds one (N·N + 1) row per block. With a mask a
     CTA's windows share one mask slice (w mod n_win_per_img), so that the
     CTA stages it once. The runs are as short as keeps the grid within
-    _TC_WAVES · slots CTAs (slots: the CTAs the card holds at once), so
-    that one wave covers every window and bias16[h] is staged as few times
-    as that allows. csrc/window_attn_tc.cuh (tc_plan) walks the same runs."""
+    slots CTAs (the CTAs of that kernel the card holds at once: the CUDA
+    occupancy API's count per SM, times the SMs), so that one wave covers
+    every window and bias16[h] is staged as few times as that allows.
+    csrc/window_attn_tc.cuh (tc_plan) walks the same runs."""
     groups = n_win_per_img if masked else 1
     per_group = n_windows // groups
-    room = max(1, _TC_WAVES * slots)
+    room = max(1, slots)
     wpc = min(per_group, max(1, -(-n_windows * num_heads // room)))
     while (wpc < per_group
            and num_heads * groups * -(-per_group // wpc) > room):

@@ -25,9 +25,7 @@ opts in, as swin_common.WindowAttention does for a listed (window, dim)
                         projection by mma.sync from the head's slice of W
                         into the row-1 tensor-core body, several windows a
                         CTA in window lanes (qkv_tc_lanes picks how many);
-          CUDA cores    f32, bf16 off that tile, or with
-                        fused_window_attn.TENSOR_CORES off:
-                        window_attn_qkv_fwd.
+          CUDA cores    f32, or bf16 off that tile: window_attn_qkv_fwd.
         Its backward takes one of fr_tpu's two routes by
         ``_PKX_HYBRID_BWD``, read at backward time:
           True (fr_tpu's default), the hybrid: qkv recomputed with
@@ -54,7 +52,7 @@ opts in, as swin_common.WindowAttention does for a listed (window, dim)
                             of that dqkv (dW in row chunks that fill the
                             card, qkv_dw_chunk_rows), every sum in a fixed
                             order;
-              CUDA cores    f32, bf16 off that tile, or TENSOR_CORES off:
+              CUDA cores    f32, or bf16 off that tile:
                             window_attn_qkv_bwd, the f32 dqkv through
                             device memory and 64×64 f32 FMA products.
 
@@ -448,10 +446,10 @@ def _qkv_bwd_tc_smem_bytes(N: int, C: int, hd: int, masked: bool,
 
 def _qkv_tc_fits(x: torch.Tensor, num_heads: int, masked: bool,
                  smem_bytes) -> bool:
-    """bf16 on the row-1 kernel's tile (tensor_core_route, which reads
-    TENSOR_CORES), C a multiple of 16 (whole k-steps of the projection,
-    16-byte copies of x) and a one-lane CTA, ``smem_bytes(N, C, hd, masked,
-    1)``, within the card's 227 KB of shared memory."""
+    """bf16 on the row-1 kernel's tile (tensor_core_route), C a multiple of
+    16 (whole k-steps of the projection, 16-byte copies of x) and a
+    one-lane CTA, ``smem_bytes(N, C, hd, masked, 1)``, within the card's
+    227 KB of shared memory."""
     if x.dim() != 3 or x.shape[2] % num_heads:
         return False
     _, N, C = x.shape

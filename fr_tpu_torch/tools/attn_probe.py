@@ -25,16 +25,16 @@ rows    each tensor-core and entry-fused row's time over its main-path mix
         calls, which hold the wrapper's host time where a call's kernels
         take less.
 lanes   row 18's tensor-core forward per AlterNet50 site at every window
-        lane count that fits, the count the wrapper picks, its CUDA-core
-        body, F.linear + row 1 and F.linear alone.
+        lane count that fits, the count the wrapper picks, F.linear + row 1
+        and F.linear alone.
 bwd     row 18b's tensor-core backward per AlterNet50 site at every window
         lane count that fits (with the occupancy API's CTAs per SM), the
         count the wrapper picks, its kernels by part (chip_smoke's
-        _qkv_bwd_parts: attend, dx, dW, sums, other), the CUDA-core body
-        and the hybrid backward.
-errors  row 18's two bodies against the plain version, at w = 0.1·randn
-        and w = randn/√C: max-abs error, max |ref| and the share of output
-        elements that differ.
+        _qkv_bwd_parts: attend, dx, dW, sums, other) and the hybrid
+        backward.
+errors  row 18's tensor-core body against the plain version, at
+        w = 0.1·randn and w = randn/√C: max-abs error, max |ref| and the
+        share of output elements that differ.
 mask    rows 1 and 18 at the AlterNet50 shapes with no mask, the shift
         mask (0 / −100), the same at −10, and zeros.
 sass    builds the library of --root and prints a SHA-256 of each
@@ -232,7 +232,6 @@ def lanes(torch, cs):
         V._qkv_tc_launch.cache_clear()
         chosen = V._qkv_tc_launch(0, n, c, heads, masked)[0]
         t["chosen"] = cs.time_ms(call)
-        t["cuda_cores"] = cs._cuda_core_ms(call)
         t["linear_row1"] = cs.time_ms(chain)
         t["linear"] = cs.time_ms(lambda: Fn.linear(x, w.to(bf)) + b.to(bf))
         key = f"{name} {'masked' if masked else 'unmasked'}"
@@ -242,7 +241,7 @@ def lanes(torch, cs):
               f"lanes {per_sm}, chosen {chosen}: " + ", ".join(
                   f"{k} {v:.4f}" for k, v in t.items()) + " ms", flush=True)
     mix = {k: sum(v["sites"] * v["ms"][k] for v in out.values())
-           for k in ("L1", "chosen", "cuda_cores", "linear_row1", "linear")}
+           for k in ("L1", "chosen", "linear_row1", "linear")}
     print("[lanes] 12-site mix: " + ", ".join(
         f"{k} {v:.4f}" for k, v in mix.items()) + " ms")
     return {"sites": out, "mix": mix}
@@ -279,7 +278,6 @@ def bwd(torch, cs):
         V._qkv_tc_launch.cache_clear()
         chosen = V._qkv_tc_launch(0, n, c, heads, masked, True)[0]
         t["chosen"] = cs.time_ms(call)
-        t["cuda_cores"] = cs._cuda_core_ms(call)
         t["hybrid"] = cs.time_ms(lambda: V.hybrid_backward(
             x, w, b, scale, bias16, g, heads, nw, mask))
         parts = cs._qkv_bwd_parts(call)
@@ -292,7 +290,7 @@ def bwd(torch, cs):
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + " ms",
               flush=True)
     mix = {k: sum(v["sites"] * v["ms"][k] for v in out.values())
-           for k in ("L1", "chosen", "cuda_cores", "hybrid")}
+           for k in ("L1", "chosen", "hybrid")}
     mix.update({k: sum(v["sites"] * v["parts"][k] for v in out.values())
                 for k in ("attend", "dx", "dw", "sums", "other")})
     print("[bwd] 12-site mix: " + ", ".join(
@@ -317,17 +315,12 @@ def errors(torch, cs):
             ref = V.window_attention_qkv_reference(x, w, b, scale, bias16,
                                                    heads, mask, bf).float()
             route, tc = cs._route_of(call)
-            with cs._Body(False):
-                cc = call()
             torch.cuda.synchronize()
             key = f"{name} {'masked' if masked else 'unmasked'} w={label}"
             out[key] = {
                 "max_ref": ref.abs().max().item(),
                 "err_tensor_cores": (tc.float() - ref).abs().max().item(),
-                "err_cuda_cores": (cc.float() - ref).abs().max().item(),
                 "differ_tensor_cores": (tc.float() != ref).float().mean()
-                .item(),
-                "differ_cuda_cores": (cc.float() != ref).float().mean()
                 .item()}
             print(f"[errors] {key} ({route}): " + ", ".join(
                 f"{k} {v:.3e}" for k, v in out[key].items()), flush=True)

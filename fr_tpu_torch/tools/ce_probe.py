@@ -9,10 +9,10 @@ and column mask), as chip_smoke.phase_margin_ce makes them.
     python3 fr_tpu_torch/tools/ce_probe.py parts
 
 stats   device time (torch.profiler) of each kernel that one call of the
-        stats runs, on the tensor-core and on the CUDA-core body, and of
-        the cuBLAS product emb @ W.T (not the same function), beside the
-        CUDA-event time of back-to-back calls (which holds the wrapper's
-        host time where the kernels take less); the byte bound and the
+        stats runs on the tensor-core body, and of the cuBLAS product
+        emb @ W.T (not the same function), beside the CUDA-event time of
+        back-to-back calls (which holds the wrapper's host time where the
+        kernels take less); the byte bound and the
         tensor-core body's time per class tile of a CTA.
 parts   what the tensor-core kernel's time is made of: builds copies of
         csrc/margin_ce.cu with one part taken out or changed (the online
@@ -102,16 +102,13 @@ def stats(torch, cs):
 
     out = {}
     for k, args, cfg in _heads(torch, cs):
-        row = {}
-        for body in ("tensor_cores", "cuda_cores"):
-            def call():
-                return F.margin_ce_stats(*args, cfg)
-            with cs._Body(body == "tensor_cores", "fused_pfc"):
-                kernels = _device_ms(torch, call)
-                events = cs.time_ms(call)
-            row[body] = {"device_ms": sum(kernels.values()),
-                         "events_ms": events,
-                         "kernels": {_short(n): v for n, v in kernels.items()}}
+        def call():
+            return F.margin_ce_stats(*args, cfg)
+        kernels = _device_ms(torch, call)
+        row = {"tensor_cores": {
+            "device_ms": sum(kernels.values()),
+            "events_ms": cs.time_ms(call),
+            "kernels": {_short(n): v for n, v in kernels.items()}}}
         emb, w = args[:2]
         row["cublas_device_ms"] = sum(_device_ms(
             torch, lambda: emb @ w.t()).values())
@@ -122,8 +119,7 @@ def stats(torch, cs):
         tc = row["tensor_cores"]
         print(f"[stats] K={k:,}: tensor cores {tc['device_ms']:.4f} ms of "
               f"device time ({tc['kernels']}), events {tc['events_ms']:.4f}; "
-              f"CUDA cores {row['cuda_cores']['device_ms']:.4f} (events "
-              f"{row['cuda_cores']['events_ms']:.4f}); cuBLAS emb @ W.T "
+              f"cuBLAS emb @ W.T "
               f"{row['cublas_device_ms']:.4f}; bound {bound:.4f} ({by}); "
               f"{tiles:.1f} class tiles a CTA, "
               f"{1e3 * tc['device_ms'] / tiles:.2f} us a tile")

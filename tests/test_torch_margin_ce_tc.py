@@ -37,16 +37,14 @@ SLOTS = 132   # the stand-in card: 132 SMs of one CTA
 MS1M, WEBFACE = (128, 512, 26007), (128, 512, 205952)
 
 
-def test_route_takes_bf16_with_d_a_multiple_of_16(monkeypatch):
+def test_route_takes_bf16_with_d_a_multiple_of_16():
     """bf16 with D % 16 == 0, 16 ≤ D ≤ 512, takes the tensor cores; f32,
-    D = 40, D beyond 512 and the switch off take the CUDA cores."""
+    D = 40 and D beyond 512 take the CUDA cores."""
     for D in (16, 48, 512):
         assert F.tensor_core_route(torch.bfloat16, D)
     for dtype, D in ((torch.float32, 512), (torch.bfloat16, 40),
                      (torch.bfloat16, 8), (torch.bfloat16, 528)):
         assert not F.tensor_core_route(dtype, D)
-    monkeypatch.setattr(F, "TENSOR_CORES", False)
-    assert not F.tensor_core_route(torch.bfloat16, 512)
 
 
 def test_smem_fits_the_card_at_every_admitted_width():
@@ -167,21 +165,21 @@ def test_backward_call_takes_its_body_without_a_launch(fake_card, case):
         assert fake_card.slots == []
 
 
-def test_tensor_core_switch_moves_the_backward(fake_card, monkeypatch):
-    """fused_pfc.TENSOR_CORES off puts the bf16 pair on the CUDA-core
-    kernels at the ms1m head; switched on again, the next call counts on
-    the tensor cores: route_launches counts by body."""
-    monkeypatch.setattr(F, "TENSOR_CORES", False)
-    _backward_call(*MS1M, torch.bfloat16)
-    monkeypatch.setattr(F, "TENSOR_CORES", True)
-    _backward_call(*MS1M, torch.bfloat16)
+def test_tensor_core_switch_moves_the_backward(fake_card):
+    """The body follows each call alone: at the ms1m and the webface42m
+    heads a bf16 pair at D = 40 takes the CUDA-core kernels and the bf16
+    pair at D = 512 after it the tensor cores, in that order;
+    route_launches counts both by body."""
+    for N, D, K in (MS1M, WEBFACE):
+        _backward_call(N, 40, K, torch.bfloat16)
+        _backward_call(N, D, K, torch.bfloat16)
     assert [name for name, _ in fake_card.calls] == [
         "margin_ce_grad_emb", "margin_ce_grad_w", "margin_ce_grad_emb_tc",
-        "margin_ce_grad_w_tc"]
-    assert F.route_launches == {"grad_emb_tensor_cores": 1,
-                                "grad_emb_cuda_cores": 1,
-                                "grad_w_tensor_cores": 1,
-                                "grad_w_cuda_cores": 1,
+        "margin_ce_grad_w_tc"] * 2
+    assert F.route_launches == {"grad_emb_tensor_cores": 2,
+                                "grad_emb_cuda_cores": 2,
+                                "grad_w_tensor_cores": 2,
+                                "grad_w_cuda_cores": 2,
                                 "stats_tensor_cores": 0,
                                 "stats_cuda_cores": 0}
 
@@ -310,18 +308,18 @@ def test_stats_call_takes_its_body_without_a_launch(fake_card, case):
         assert fake_card.slots == []
 
 
-def test_tensor_core_switch_moves_the_stats(fake_card, monkeypatch):
-    """fused_pfc.TENSOR_CORES off puts the bf16 stats on the CUDA-core
-    kernel at the webface42m head; switched on again, the next call takes
-    the tensor cores: route_launches counts the stats by body."""
-    monkeypatch.setattr(F, "TENSOR_CORES", False)
-    _stats_call(*WEBFACE, torch.bfloat16)
-    monkeypatch.setattr(F, "TENSOR_CORES", True)
-    _stats_call(*WEBFACE, torch.bfloat16)
+def test_tensor_core_switch_moves_the_stats(fake_card):
+    """The body follows each call alone: at the ms1m and the webface42m
+    heads the bf16 stats at D = 40 take the CUDA-core kernel and the bf16
+    stats at D = 512 after them the tensor cores, in that order;
+    route_launches counts the stats by body."""
+    for N, D, K in (MS1M, WEBFACE):
+        _stats_call(N, 40, K, torch.bfloat16)
+        _stats_call(N, D, K, torch.bfloat16)
     assert [name for name, _ in fake_card.calls] == [
-        "margin_ce_stats", "margin_ce_stats_tc"]
+        "margin_ce_stats", "margin_ce_stats_tc"] * 2
     assert F.route_launches == dict.fromkeys(F.route_launches, 0) | {
-        "stats_tensor_cores": 1, "stats_cuda_cores": 1}
+        "stats_tensor_cores": 2, "stats_cuda_cores": 2}
 
 
 @pytest.mark.parametrize("margin", ["ArcFace", "CosFace"])

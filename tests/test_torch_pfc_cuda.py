@@ -170,13 +170,13 @@ TC_SHAPES = [(*FULL, 1.0), (*WEBFACE, 1.0), (130, 512, 131, 1.0),
 @pytest.mark.parametrize("shape", TC_SHAPES,
                          ids=lambda c: "x".join(map(str, c[:3])))
 def test_tensor_core_pair_matches_plain_version_on_card(cuda_device, shape,
-                                                        margin, monkeypatch):
+                                                        margin):
     """bf16: margin_ce_grad_emb_tc and margin_ce_grad_w_tc against the
     plain versions at 1e-2 norm-wise, each call on the tensor cores; two
-    calls give the same bits; the CUDA-core pair (TENSOR_CORES off) on the
-    same inputs passes the same check and sits within 1e-2 of the
-    tensor-core pair. Labels −1, masked columns and a zero cotangent row
-    (at the webface42m head: the step's own labels and column mask)."""
+    calls give the same bits; the same values in f32 take the CUDA-core
+    pair and pass against the f32 plain versions at 1e-4. Labels −1,
+    masked columns and a zero cotangent row (at the webface42m head: the
+    step's own labels and column mask)."""
     n, d, k, scale = shape
     dt = torch.bfloat16
     emb, w, labels, col_valid, g = _problem(n, d, k, torch.float32,
@@ -197,13 +197,16 @@ def test_tensor_core_pair_matches_plain_version_on_card(cuda_device, shape,
         assert _rel(a, b) <= 1e-2, (name, _rel(a, b))
     ge2, gw2, _ = _backward(*args, m, dd, g, cfg)
     assert torch.equal(ge, ge2) and torch.equal(gw, gw2)
-    monkeypatch.setattr(fused_pfc, "TENSOR_CORES", False)
+    del ge2, gw2, rge, rgw
+    args = (emb.float(), w.float(), labels, col_valid)
+    cfg = _cfg(margin, torch.float32)
+    m, dd, _ = fused_pfc.margin_ce_stats_reference(*args, cfg)
     cge, cgw, moved = _backward(*args, m, dd, g, cfg)
     assert moved == {"grad_emb_cuda_cores": 1, "grad_w_cuda_cores": 1}
-    for name, a, b, tc in (("grad_emb", cge, rge, ge),
-                           ("grad_w", cgw, rgw, gw)):
-        assert _rel(a, b) <= 1e-2, (name, _rel(a, b))
-        assert _rel(tc, a) <= 1e-2, (name, _rel(tc, a))
+    for name, a, b in zip(("grad_emb", "grad_w"), (cge, cgw),
+                          fused_pfc.margin_ce_backward_reference(
+                              *args, m, dd, g, cfg)):
+        assert _rel(a, b) <= 1e-4, (name, _rel(a, b))
 
 
 @pytest.mark.cuda
@@ -212,8 +215,8 @@ def test_tensor_core_pair_matches_plain_version_on_card(cuda_device, shape,
 def test_cuda_core_pair_takes_f32_and_other_widths_on_card(cuda_device, dt,
                                                            d):
     """f32 (its contract is f32 products, no TF32) and bf16 at D = 40 take
-    the CUDA-core pair with the switch on, and pass against the plain
-    versions (1e-4 and 1e-2 norm-wise)."""
+    the CUDA-core pair, and pass against the plain versions (1e-4 and 1e-2
+    norm-wise)."""
     n, k = 130, 300
     emb, w, labels, col_valid, g = _problem(n, d, k, dt, cuda_device, seed=9)
     cfg = _cfg("ArcFace", dt)
@@ -261,13 +264,13 @@ STATS_SHAPES = [(*FULL, 1.0), (*WEBFACE, 1.0), (130, 512, 131, 1.0),
 @pytest.mark.parametrize("shape", STATS_SHAPES,
                          ids=lambda c: "x".join(map(str, c[:3])))
 def test_tensor_core_stats_match_plain_version_on_card(cuda_device, shape,
-                                                       margin, monkeypatch):
+                                                       margin):
     """bf16: margin_ce_stats_tc's m, d and t against the plain version at
     CE_STATS_RTOL elementwise, and the loss, the call on the tensor cores;
-    two calls give the same bits; the CUDA-core kernel (TENSOR_CORES off)
-    on the same inputs passes the same check and sits within twice it of
-    the tensor-core body. Labels −1 and masked columns (at the webface42m
-    head: the step's own labels and column mask)."""
+    two calls give the same bits; the same values in f32 take the
+    CUDA-core kernel and pass the same check against the f32 plain
+    version. Labels −1 and masked columns (at the webface42m head: the
+    step's own labels and column mask)."""
     n, d, k, scale = shape
     dt = torch.bfloat16
     emb, w, labels, col_valid, _ = _problem(n, d, k, torch.float32,
@@ -285,11 +288,12 @@ def test_tensor_core_stats_match_plain_version_on_card(cuda_device, shape,
     _stats_close(tc, ref, CE_STATS_RTOL)
     again, _ = _stats(*args, cfg)
     assert all(torch.equal(a, b) for a, b in zip(tc, again))
-    monkeypatch.setattr(fused_pfc, "TENSOR_CORES", False)
+    args = (emb.float(), w.float(), labels, col_valid)
+    cfg = _cfg(margin, torch.float32)
     cc, moved = _stats(*args, cfg)
     assert moved == {"stats_cuda_cores": 1}
-    _stats_close(cc, ref, CE_STATS_RTOL)
-    _stats_close(tc, cc, 2 * CE_STATS_RTOL)
+    _stats_close(cc, fused_pfc.margin_ce_stats_reference(*args, cfg),
+                 CE_STATS_RTOL)
 
 
 @pytest.mark.cuda
@@ -298,8 +302,8 @@ def test_tensor_core_stats_match_plain_version_on_card(cuda_device, shape,
 def test_cuda_core_stats_take_f32_and_other_widths_on_card(cuda_device, dt,
                                                            d):
     """f32 (its contract is f32 products, no TF32) and bf16 at D = 40 take
-    margin_ce_stats_kernel with the switch on, and pass against the plain
-    version at CE_STATS_RTOL."""
+    margin_ce_stats_kernel, and pass against the plain version at
+    CE_STATS_RTOL."""
     emb, w, labels, col_valid, _ = _problem(130, d, 300, dt, cuda_device,
                                             seed=14)
     cfg = _cfg("ArcFace", dt)

@@ -201,15 +201,20 @@ def test_cuda_call_takes_its_body_without_a_launch(fake_card, monkeypatch,
         assert ((rows, 3 * C), torch.float32) in made
 
 
-def test_tensor_core_switch_moves_the_cuda_call(fake_card, monkeypatch):
-    """fused_window_attn.TENSOR_CORES off puts every all-in-kernel backward
-    on the CUDA-core kernels, at every AlterNet50 width."""
-    monkeypatch.setattr(F, "TENSOR_CORES", False)
+def test_tensor_core_switch_moves_the_cuda_call(fake_card):
+    """The body follows each call alone: a bf16 all-in-kernel backward at
+    C = 72, which _qkv_tc_fits turns away (C % 16 != 0), takes the
+    CUDA-core kernels, and the AlterNet50 call after it (C 128) the tensor
+    cores, in that order; every AlterNet50 width sits on the tile."""
+    assert not V._qkv_bwd_tc_route(_x(36, 72), 4, True)
     for N, C, heads, *_ in ALTERNET50:
-        assert not V._qkv_bwd_tc_route(_x(N, C), heads, True)
+        assert V._qkv_bwd_tc_route(_x(N, C), heads, True)
+    _bwd_call(36, 72, 4, torch.bfloat16, True, 16)
     _bwd_call(36, 128, 4, torch.bfloat16, True, 16)
-    assert [name for name, _ in fake_card.calls] == ["window_attn_qkv_bwd"]
-    assert F.route_launches["bwd_cuda_cores"] == 1
+    assert [name for name, _ in fake_card.calls] == [
+        "window_attn_qkv_bwd", "window_attn_qkv_bwd_tc"]
+    assert F.route_launches == {"fwd_tensor_cores": 0, "fwd_cuda_cores": 0,
+                                "bwd_tensor_cores": 1, "bwd_cuda_cores": 1}
 
 
 @pytest.mark.parametrize("masked", [False, True])

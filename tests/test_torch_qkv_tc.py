@@ -122,13 +122,14 @@ def test_tensor_core_route(case):
         assert V._qkv_tc_route(_x(N, C, dtype), heads, masked) is expected
 
 
-def test_tensor_core_switch_puts_the_forward_on_the_cuda_cores(monkeypatch):
-    """fused_window_attn.TENSOR_CORES off routes every entry-fused forward
-    to the CUDA-core kernel, as it does the windows API's."""
-    assert V._qkv_tc_route(_x(36, 128), 4, True)
-    monkeypatch.setattr(F, "TENSOR_CORES", False)
-    for N, C, heads, *_ in ALTERNET50:
+def test_tensor_core_switch_puts_the_forward_on_the_cuda_cores():
+    """The body follows each call alone: a bf16 entry-fused forward at
+    C = 72 (C % 16 != 0) or N = 81 (beyond the tile) goes to the CUDA-core
+    kernel, and every AlterNet50 site after it to the tensor cores."""
+    for N, C, heads in ((36, 72, 4), (81, 256, 8)):
         assert not V._qkv_tc_route(_x(N, C), heads, True)
+        for n, c, h, *_ in ALTERNET50:
+            assert V._qkv_tc_route(_x(n, c), h, True)
 
 
 class _Library:
@@ -216,11 +217,16 @@ def test_cuda_call_takes_its_body_without_a_launch(fake_card, case):
                                          masked, 264)[0]
 
 
-def test_tensor_core_switch_moves_the_cuda_call(fake_card, monkeypatch):
-    monkeypatch.setattr(F, "TENSOR_CORES", False)
+def test_tensor_core_switch_moves_the_cuda_call(fake_card):
+    """A bf16 call at C = 72 launches the CUDA-core forward and the
+    AlterNet50 call after it (C 128) the tensor-core one, in that order,
+    each counted on route_launches by body."""
+    _entry_call(36, 72, 4, torch.bfloat16, True, 16, torch.bfloat16)
     _entry_call(36, 128, 4, torch.bfloat16, True, 16, torch.bfloat16)
-    assert [name for name, _ in fake_card.calls] == ["window_attn_qkv_fwd"]
-    assert F.route_launches["fwd_cuda_cores"] == 1
+    assert [name for name, _ in fake_card.calls] == [
+        "window_attn_qkv_fwd", "window_attn_qkv_fwd_tc"]
+    assert F.route_launches == {"fwd_tensor_cores": 1, "fwd_cuda_cores": 1,
+                                "bwd_tensor_cores": 0, "bwd_cuda_cores": 0}
 
 
 @pytest.mark.parametrize("masked", [False, True])

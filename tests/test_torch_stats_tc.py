@@ -199,17 +199,21 @@ def test_stats_call_takes_its_body_without_a_launch(fake_card, monkeypatch,
 
 
 def test_tensor_core_switch_moves_the_stats_calls(fake_card, monkeypatch):
-    """fused_window_attn.TENSOR_CORES off puts the bf16 stats pair on the
-    CUDA-core kernels at the AlterNet50 and N=49 shapes."""
-    monkeypatch.setattr(F, "TENSOR_CORES", False)
+    """The body follows each call alone: a bf16 stats pair at an odd head
+    dim (N 36, head dim 33) takes the CUDA-core kernels, and the bf16 pair
+    at the N=49 shape after it (head dim 38) the tensor cores, in that
+    order, with the occupancy queried for the tensor-core pair only; the
+    AlterNet50 shapes sit on the tile too."""
     for N, heads, hd in ((36, 4, 32), (9, 16, 32), (49, 8, 38)):
-        assert not F.tensor_core_route(torch.bfloat16, N, hd)
+        assert F.tensor_core_route(torch.bfloat16, N, hd)
+    _stats_call(36, 4, 33, torch.bfloat16, False, 1, monkeypatch)
     _stats_call(49, 8, 38, torch.bfloat16, True, 4, monkeypatch)
     assert [name for name, _ in fake_card.calls] == [
-        "window_attn_fwd_stats", "window_attn_bwd_stats"]
-    assert F.route_launches["fwd_cuda_cores"] == 1
-    assert F.route_launches["bwd_cuda_cores"] == 1
-    assert fake_card.slots == []
+        "window_attn_fwd_stats", "window_attn_bwd_stats",
+        "window_attn_fwd_stats_tc", "window_attn_bwd_stats_tc"]
+    assert F.route_launches == dict.fromkeys(F.route_launches, 1)
+    assert [s[0] for s in fake_card.slots] == [
+        "window_attn_stats_tc_occupancy"] * 2
 
 
 def test_the_models_stats_arm_takes_the_tensor_cores(fake_card, monkeypatch):

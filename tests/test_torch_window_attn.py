@@ -183,11 +183,11 @@ def test_tensor_core_plan_covers_each_window_and_head_once(plan):
     assert set(seen) == {(w, h) for w in range(n_windows)
                          for h in range(heads)}
     per_slice = n_windows // (nw if masked else 1)
-    assert ctas * heads <= F._TC_WAVES * slots or wpc == per_slice
+    assert ctas * heads <= slots or wpc == per_slice
     # and no shorter run would have fit one wave
     if wpc > 1:
         shorter = -(-per_slice // (wpc - 1)) * (nw if masked else 1)
-        assert shorter * heads > F._TC_WAVES * slots
+        assert shorter * heads > slots
 
 
 def test_tensor_core_route_and_shared_memory():
@@ -209,12 +209,15 @@ def test_tensor_core_route_and_shared_memory():
         4 * 49 * 72 + 2 * (40 + 6 * 49 * 40)
 
 
-def test_tensor_core_switch_routes_every_call_to_the_cuda_cores(monkeypatch):
-    """With fused_window_attn.TENSOR_CORES off, bf16 within the tile takes
-    the CUDA-core kernels too (the arithmetic the stored-stats and
-    entry-fused kernels share); the default is on."""
-    assert F.TENSOR_CORES is True
-    monkeypatch.setattr(F, "TENSOR_CORES", False)
-    assert not F.tensor_core_route(torch.bfloat16, 49, 32)
-    assert not F._windows_route(torch.empty(2, 49, 3 * 64,
-                                            dtype=torch.bfloat16), 2)
+def test_tensor_core_switch_routes_every_call_to_the_cuda_cores():
+    """The body is a function of the call alone: bf16 at an odd head dim
+    (33) or beyond the 64-token tile (N 81) takes the CUDA-core kernels,
+    and the in-tile bf16 call after it the tensor cores, through
+    tensor_core_route and the windows API's route alike."""
+    bf = torch.bfloat16
+    for n, hd in ((49, 33), (81, 32)):
+        assert not F.tensor_core_route(bf, n, hd)
+        assert not F._windows_route(torch.empty(2, n, 3 * 2 * hd, dtype=bf),
+                                    2)
+        assert F.tensor_core_route(bf, 49, 32)
+        assert F._windows_route(torch.empty(2, 49, 3 * 64, dtype=bf), 2)

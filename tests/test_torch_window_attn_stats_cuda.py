@@ -6,8 +6,8 @@ Swin50 / EffiAlter_m shapes and the AlterNet50 packed shapes; their sums are
 the same bit for bit on every run; both entries' stats arms launch them.
 Both bodies: bf16 on the tensor cores (window_attn_{fwd,bwd}_stats_tc),
 whose out and dq/dk/dv are the row-1 and row-2 tensor-core kernels' bits;
-f32, an odd head dim and TENSOR_CORES off on the CUDA cores. Imports no
-jax:
+f32 and bf16 beyond the tile (an odd head dim, N 81) on the CUDA cores.
+Imports no jax:
 
     python -m pytest tests/test_torch_window_attn_stats_cuda.py --noconftest -q
 
@@ -205,23 +205,21 @@ def test_tensor_core_stats_pair_is_the_recompute_kernels_bits(cuda_device,
     assert torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2])
 
 
-# (N, heads, head dim, dtype, TENSOR_CORES): the calls that keep the
-# CUDA-core stats kernels
-CUDA_CORE_CALLS = {"f32": (49, 8, 32, torch.float32, True),
-                   "bf16_odd_head_dim": (36, 4, 33, torch.bfloat16, True),
-                   "bf16_switch_off": (49, 8, 38, torch.bfloat16, False)}
+# (N, heads, head dim, dtype): the calls that keep the CUDA-core stats
+# kernels
+CUDA_CORE_CALLS = {"f32": (49, 8, 32, torch.float32),
+                   "bf16_odd_head_dim": (36, 4, 33, torch.bfloat16),
+                   "bf16_n81": (81, 2, 16, torch.bfloat16)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CUDA_CORE_CALLS))
-def test_cuda_core_stats_pair_still_serves_its_calls(cuda_device,
-                                                     monkeypatch, case):
-    """f32, bf16 beyond the tensor-core tile (an odd head dim) and bf16
-    with TENSOR_CORES off launch the CUDA-core stats kernels, which stay
+def test_cuda_core_stats_pair_still_serves_its_calls(cuda_device, case):
+    """f32 and bf16 beyond the tensor-core tile (an odd head dim; N 81,
+    beyond 64 tokens) launch the CUDA-core stats kernels, which stay
     within their tolerances of the plain versions (f32 max-abs, bf16
     norm-wise) and repeat their sums bit for bit."""
-    n, heads, hd, dt, tensor_cores = CUDA_CORE_CALLS[case]
-    monkeypatch.setattr(F, "TENSOR_CORES", tensor_cores)
+    n, heads, hd, dt = CUDA_CORE_CALLS[case]
     dtype = "f32" if dt == torch.float32 else "bf16"
     gen = torch.Generator(device=cuda_device).manual_seed(n + hd)
     c = heads * hd

@@ -2,8 +2,9 @@
 versions, on the card: the spatial forward and backward
 (csrc/window_attn_spatial.cu; in bf16 the tensor-core kernels of
 window_attn_tc.cuh on the spatial row layout), the entry-fused forward
-(csrc/window_attn_qkv.cu: in bf16 the tensor-core body, held also against
-the CUDA-core one) and all-in-kernel backward, and the grouped route of
+(csrc/window_attn_qkv.cu: in bf16 the tensor-core body, and the
+CUDA-core one in f32 and off the tile) and all-in-kernel backward, and the
+grouped route of
 the packed entry (the row-1 and row-2 kernels at the grouped shapes). Imports no jax,
 so it also runs on a machine without it:
 
@@ -192,18 +193,15 @@ def test_entry_fused_backward_at_an_odd_head_dim(cuda_device, masked):
 @pytest.mark.parametrize("shape", ALTERNET50 + [(12, 6, 4, 18)],
                          ids=lambda s: f"r{s[0]}ws{s[1]}h{s[2]}"
                          + (f"hd{s[3]}" if len(s) > 3 else ""))
-def test_entry_fused_backward_cuda_cores_bf16(cuda_device, shape, masked,
-                                              monkeypatch):
+def test_entry_fused_backward_cuda_cores_bf16(cuda_device, shape, masked):
     """The bf16 all-in-kernel backward on the CUDA-core body, one launch on
-    route_launches["bwd_cuda_cores"], against the plain version: at the
-    AlterNet50 shapes with TENSOR_CORES off, and at C = 72 (N 36, head dim
-    18: C % 16 != 0, off the tensor-core tile) with it on."""
+    route_launches["bwd_cuda_cores"], against the plain version, off the
+    tensor-core tile: at the AlterNet50 windows with an odd head dim (33),
+    and at C = 72 (N 36, head dim 18: C % 16 != 0)."""
     res, ws, heads, *hd = shape
     x, w, b, scale, bias16, g, mask, nw = _entry_inputs(
         res, ws, heads, masked, torch.bfloat16, cuda_device,
-        seed=3 * res + heads, hd=hd[0] if hd else 32)
-    if not hd:
-        monkeypatch.setattr(F, "TENSOR_CORES", False)
+        seed=3 * res + heads, hd=hd[0] if hd else 33)
     grads, moved = routes_moved(lambda: V.qkv_attention_backward(
         x, w, b, scale, bias16, g, heads, nw, mask))
     torch.cuda.synchronize()
@@ -339,29 +337,25 @@ def test_grouped_route_runs_on_tensor_cores(cuda_device):
 @pytest.mark.parametrize("shape", ALTERNET50,
                          ids=lambda s: f"r{s[0]}ws{s[1]}h{s[2]}")
 def test_entry_fused_forward_tensor_cores(cuda_device, shape, masked,
-                                          out_dtype, monkeypatch):
+                                          out_dtype):
     """bf16 x at the AlterNet50 shapes takes the tensor-core forward, one
     launch on route_launches["fwd_tensor_cores"], and matches the plain
-    version and the CUDA-core body (TENSOR_CORES off, one launch on
-    "fwd_cuda_cores") in bf16 and f32 output."""
+    version in bf16 and f32 output; the same windows at an odd head dim
+    (33), off the tile, take the CUDA-core body (one launch on
+    "fwd_cuda_cores") and match theirs."""
     res, ws, heads = shape
     dt, odt = torch.bfloat16, DTYPES[out_dtype]
-    x, w, b, scale, bias16, _, mask, nw = _entry_inputs(
-        res, ws, heads, masked, dt, cuda_device, seed=2 * res + heads)
-
-    def call():
-        return V.fused_window_attention_packed_qkv(
-            x, w, b, scale, bias16, heads, nw, mask, out_dtype=odt)
-    out, moved = routes_moved(call)
-    monkeypatch.setattr(F, "TENSOR_CORES", False)
-    cuda_cores, moved_cc = routes_moved(call)
-    torch.cuda.synchronize()
-    assert moved == {"fwd_tensor_cores": 1}
-    assert moved_cc == {"fwd_cuda_cores": 1}
-    assert out.dtype == odt
-    _assert_out(out, V.window_attention_qkv_reference(
-        x, w, b, scale, bias16, heads, mask, odt), "bf16")
-    _assert_out(out, cuda_cores, "bf16")
+    for hd, body in ((32, "fwd_tensor_cores"), (33, "fwd_cuda_cores")):
+        x, w, b, scale, bias16, _, mask, nw = _entry_inputs(
+            res, ws, heads, masked, dt, cuda_device, seed=2 * res + heads,
+            hd=hd)
+        out, moved = routes_moved(lambda: V.fused_window_attention_packed_qkv(
+            x, w, b, scale, bias16, heads, nw, mask, out_dtype=odt))
+        torch.cuda.synchronize()
+        assert moved == {body: 1}
+        assert out.dtype == odt
+        _assert_out(out, V.window_attention_qkv_reference(
+            x, w, b, scale, bias16, heads, mask, odt), "bf16")
 
 
 @pytest.mark.cuda
