@@ -21,7 +21,13 @@ Phases; any failure exits non-zero and prints no result:
     rows 10 and 11) on the tensor cores (each call's body checked, two
     calls bitwise equal), f32 and D = 40 on the CUDA cores; rows 9-11
     timed at both heads beside their plain versions and the cuBLAS products
-    they contain;
+    they contain; the backward pair with two coefficient terms (the plain
+    CE's) at both heads and the vit_l_wf42m head against its two-term plain
+    twin (1e-4 norm-wise, which the one-term body fails; two calls bitwise
+    equal) and timed beside it; the plain CE's route on the kernels (the
+    stats and the two-term pair) timed at the vit_l_wf42m and r100_wf42m
+    heads beside the plain CE in PyTorch, and counted in one ViT-L
+    training step;
     [kernel_perhead] the same forward and backward kernels at the Swin50
     and EffiAlter_m N=49 shapes (112 px, 128 images; head dims 32 and 38)
     and a shift-masked one; [kernel_stats] the stored-stats forward and
@@ -44,10 +50,14 @@ Phases; any failure exits non-zero and prints no result:
     encoder snapshot;
  7. [train_full_head] FaceRecognitionTask.training_step at the full
     ms1m_arcface_122 head (86,690 classes, sample_rate 0.3, b=128, random
-    images and labels) from one seed: use_fused off and on (the margin-CE
-    kernels on the tensor cores): each margin-CE kernel launches once per
-    fused step, every launch on the tensor cores, the first 3 losses
-    agree to 2e-2 relative; ms per step and images/s for each arm;
+    images and labels) from one seed, in three arms: use_fused off with
+    the plain CE kept in PyTorch, off (the plain CE on the margin-CE
+    kernels, its backward with two coefficient terms), and on: each
+    margin-CE kernel launches once per step in the kernel arms, every
+    launch on its tensor-core body, none in the PyTorch arm; the first 3
+    losses of the kernel arms against the PyTorch arm's, the first within
+    1e-4 (the plain CE on the kernels) or 2e-2 (fused), the rest within
+    2e-2; ms per step and images/s for each arm;
  8. [train_golden] two SGD steps of full-width AlterNet50 in f32 (TF32 off)
     against fr_tpu's training golden (tests/data/alternet50_train_golden.npz);
     [alternet50] three training steps with FR_ATTN_STORED_STATS=1 against
@@ -102,10 +112,9 @@ Phases; any failure exits non-zero and prints no result:
     (tests/data/resnet100_golden.npz) and the embed throughput;
 13. [webface42m] FaceRecognitionTask.training_step of the webface42m config
     (ResNet100, 2,059,906 classes, sample_rate 0.1, sample_block 64, b=128,
-    bf16, SGD, random images and labels), in the two margin-CE arms of
-    phase 7 from one seed: finite losses, the fused arm's first three
-    within 2e-2 relative of the plain CE's, every margin-CE launch on the
-    tensor cores, one gather and one grouped SGD update per step, every
+    bf16, SGD, random images and labels), in the three margin-CE arms of
+    phase 7 from one seed: finite losses, held as there, every margin-CE
+    launch on its tensor-core body, one gather and one grouped SGD update per step, every
     label's group among the drawn groups and only drawn rows changed, ms per step, images/s, peak memory; three steps
     with AdamW; then sample_block 1 (per-row sampling of the same head)
     timed beside it;
@@ -251,11 +260,15 @@ F32_TOL = 5e-5      # kernel vs plain version, TF32 off
 BF16_TOL = 3.2e-2   # two bf16 ulps at |x| < 4: p and the output round to bf16
 # margin-CE kernels vs plain versions: statistics rtol 1e-4 (logit rounding
 # ×s=30 through exp); gradients norm-wise 1e-4 (f32) and 1e-2 (bf16: coeff
-# rounds to bf16 before the products)
+# rounds to bf16 before the products); the tensor-core pair with two
+# coefficient terms against the plain twin with two (f32 products of the
+# f32 sum of the terms) 1e-4, which the one-term body fails (~1e-3)
 CE_STATS_RTOL = 1e-4
 CE_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+CE_GRAD_2TERM_RTOL = 1e-4
 CE_SHAPE = (128, 512, 26007)   # ms1m_arcface_122: b, emd, int(0.3·86,690)
 CE_WEBFACE_SHAPE = (128, 512, 205952)   # webface42m at sample_block 64
+CE_VIT_L_SHAPE = (384, 512, 617984)   # vit_l_wf42m: b 384, 0.3 in groups
 # AlterNet50 at 192 px, 128 images: (stage, B·nW, N, heads, resolution,
 # window, launches per encoder call unmasked, masked)
 SHAPES = [("stage2", 2048, 36, 4, 24, 6, 1, 1),
@@ -600,9 +613,11 @@ def _ce_launches(tc):
 
 
 def _reset_ce_routes():
+    from fr_tpu_torch.heads.partial_fc import shard_softmax_ce
     from fr_tpu_torch.ops.fused_pfc import route_launches
     for key in route_launches:
         route_launches[key] = 0
+    shard_softmax_ce.routes.clear()
 
 
 def phase_margin_ce():
@@ -613,18 +628,21 @@ def phase_margin_ce():
     and D = 40 on the CUDA cores: those are the CUDA-core kernels' checks),
     and the tensor-core results repeat bit for bit. Timed at both heads,
     bf16 ArcFace: each row, its plain version and the cuBLAS products it
-    contains (not the same function: no margin, softmax or coeff). Returns
-    ({kernel: max abs error; the statistics' is the loss's}, {(kernel, K):
-    {"ms", "plain_ms", "cublas_ms"}}); the tensor-core kernels carry the
-    suffix _tc."""
+    contains (not the same function: no margin, softmax or coeff). At the
+    two heads and ViT-L's (CE_2TERM_SHAPES) the backward pair also runs
+    with two coefficient terms, the plain CE's (_ce_two_terms), timed by
+    the profiler beside its plain twin. Returns ({kernel: max abs error;
+    the statistics' is the loss's}, {(kernel, K): {"ms", "plain_ms",
+    "cublas_ms"}}); the tensor-core kernels carry the suffix _tc, the
+    two-term bodies _tc_2term (errors) and _2term (times)."""
     import torch
     from fr_tpu_torch.heads.partial_fc import PFCConfig
     from fr_tpu_torch.ops import fused_pfc as F
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = dict.fromkeys((*CE_KERNELS, *(f"{k}_tc" for k in CE_KERNELS)),
-                          0.0)
+    worst = dict.fromkeys((*CE_KERNELS, *(f"{k}_tc" for k in CE_KERNELS),
+                           *(f"{k}_tc_2term" for k in CE_BWD)), 0.0)
     times = {}
     for margin, (n, d, k), dt in (
             ("ArcFace", CE_SHAPE, torch.bfloat16),
@@ -632,6 +650,7 @@ def phase_margin_ce():
             ("CosFace", CE_SHAPE, torch.bfloat16),
             ("ArcFace", CE_WEBFACE_SHAPE, torch.bfloat16),
             ("ArcFace", CE_WEBFACE_SHAPE, torch.float32),
+            ("CosFace", CE_VIT_L_SHAPE, torch.bfloat16),
             ("CosFace", (130, 512, 131), torch.bfloat16),
             ("ArcFace", (10, 48, 300), torch.bfloat16),
             ("ArcFace", (10, 48, 65), torch.bfloat16),
@@ -708,18 +727,21 @@ def phase_margin_ce():
               f"{CE_STATS_RTOL:g}): margin_ce_stats{suffix} {stats_rel:.1e}"
               f"; gradients norm-wise (tol {tol:g}): " + ", ".join(
                   f"{key} {v:.1e}" for key, v in rels.items()))
+        if tc and (n, d, k) in CE_2TERM_SHAPES:
+            _ce_two_terms(tag, args, m, dd, g, cfg, out, worst)
         if (n, d, k) in (CE_SHAPE, CE_WEBFACE_SHAPE) \
                 and dt == torch.bfloat16 and margin == "ArcFace":
             coeff = F.margin_ce_coeff_reference(*args, m, dd, g, cfg).to(dt)
 
-            def plain(name):
-                c = F.margin_ce_coeff_reference(*args, m, dd, g, cfg).to(
-                    dt).float()
+            def plain(name, terms=1):
+                c = F.coeff_terms(F.margin_ce_coeff_reference(
+                    *args, m, dd, g, cfg), dt, terms)
                 return (c @ w.float() if name == "margin_ce_grad_emb"
                         else c.t() @ emb.float())
-            cublas = {"margin_ce_grad_emb": lambda: (emb @ w.t(), coeff @ w),
-                      "margin_ce_grad_w": lambda: (emb @ w.t(),
-                                                   coeff.t() @ emb)}
+            product = {"margin_ce_grad_emb": lambda: coeff @ w,
+                       "margin_ce_grad_w": lambda: coeff.t() @ emb}
+            cublas = {nm: lambda p=p: (emb @ w.t(), p())
+                      for nm, p in product.items()}
             kern = {"margin_ce_grad_emb": F.margin_ce_grad_emb,
                     "margin_ce_grad_w": F.margin_ce_grad_w}
             call = lambda: F.margin_ce_stats(*args, cfg)  # noqa: E731
@@ -735,6 +757,15 @@ def phase_margin_ce():
                     "ms": time_ms(call),
                     "plain_ms": time_ms(lambda nm=name: plain(nm)),
                     "cublas_ms": time_ms(cublas[name])}
+                # the two-term body, device time by the profiler; its
+                # cuBLAS products: the logits and one per term
+                call = lambda f=kern[name]: f(  # noqa: E731
+                    *args, m, dd, g, cfg, 2)
+                times[(name + "_2term", k)] = {
+                    "ms": _device_ms(call),
+                    "plain_ms": _device_ms(lambda nm=name: plain(nm, 2)),
+                    "cublas_ms": _device_ms(lambda nm=name: (
+                        cublas[nm](), product[nm]()))}
             del coeff
         del emb, w, stats, ref, rge, rgw, out
         torch.cuda.empty_cache()
@@ -758,8 +789,139 @@ def phase_margin_ce():
               f"plain {t['plain_ms']:.4f}, cuBLAS "
               f"{t['cublas_ms']:.4f}, {bound(nm, k)}"
               for (nm, k), t in times.items() if nm in CE_BWD))
+    print("[margin_ce] rows 10/11 with two coefficient terms (the plain "
+          "CE's), bf16 ArcFace, device ms (profiler) against the two-term "
+          "plain twin and the cuBLAS products (the logits, one per term): "
+          + "; ".join(
+              f"row {10 + CE_BWD.index(nm[:-6])} K={k:,} {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f}, cuBLAS {t['cublas_ms']:.4f}, "
+              "bound {:.4f} ({})".format(*_ce_bound(nm[:-6], (128, 512, k),
+                                                    terms=2))
+              for (nm, k), t in times.items() if nm.endswith("_2term")))
+    _ce_plain_route()
     print(f"[margin_ce] {time.perf_counter() - t0:.1f} s")
     return worst, times
+
+
+# the heads at which [margin_ce] checks the two-term backward pair
+CE_2TERM_SHAPES = (CE_SHAPE, CE_WEBFACE_SHAPE, CE_VIT_L_SHAPE)
+
+
+def _ce_two_terms(tag, args, m, dd, g, cfg, one_term, worst):
+    """The backward pair with two coefficient terms (the plain CE's) at one
+    case of [margin_ce]: one launch each on the two-term body per call, two
+    calls bit for bit equal, within CE_GRAD_2TERM_RTOL norm-wise of the
+    two-term plain twin, which the one-term results (one_term) exceed."""
+    import torch
+    from fr_tpu_torch.ops import fused_pfc as F
+
+    ref = F.margin_ce_backward_reference(*args, m, dd, g, cfg, terms=2)
+    _reset_ce_routes()
+    out = [(F.margin_ce_grad_emb(*args, m, dd, g, cfg, 2),
+            F.margin_ce_grad_w(*args, m, dd, g, cfg, 2)) for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = {key: v for key, v in F.route_launches.items() if v}
+    check(launches == {"grad_emb_tensor_cores_2term": 2,
+                       "grad_w_tensor_cores_2term": 2},
+          f"[margin_ce] {tag}: two two-term backward calls took {launches}")
+    check(all(torch.equal(a, b) for a, b in zip(*out)),
+          f"[margin_ce] {tag}: two two-term calls differ")
+    rels = {}
+    for name, a, a1, b in zip(CE_BWD, out[0], one_term, ref):
+        key = name + "_tc_2term"
+        check(bool(torch.isfinite(a).all()), f"{key} is not finite")
+        rel = ((a - b).norm() / b.norm()).item()
+        rel1 = ((a1 - b).norm() / b.norm()).item()
+        check(rel <= CE_GRAD_2TERM_RTOL < rel1, f"[margin_ce] {tag} {key}: "
+              f"norm-wise {rel} from the two-term twin, the one-term body "
+              f"{rel1} (limit {CE_GRAD_2TERM_RTOL:g}: two terms within it, "
+              f"one beyond)")
+        worst[key] = max(worst[key], (a - b).abs().max().item())
+        rels[key] = (rel, rel1)
+    print(f"[margin_ce] {tag:32s} two coefficient terms, norm-wise against "
+          f"the two-term twin (tol {CE_GRAD_2TERM_RTOL:g}): " + ", ".join(
+              f"{key} {r:.1e} (the one-term body {r1:.1e})"
+              for key, (r, r1) in rels.items()))
+
+
+# the train cells' heads the plain CE runs at: (cell, N, D, K, margin, s, m)
+CE_PLAIN_HEADS = (("vit_l_wf42m", 384, 512, 617984, "CosFace", 64.0, 0.4),
+                  ("r100_wf42m", 256, 512, 411968, "CosFace", 64.0, 0.4))
+
+
+def _ce_plain_route():
+    """The plain CE (use_fused off) on the card at the CE_PLAIN_HEADS:
+    device ms (profiler) of its three launches on the kernels (the stats,
+    the pair with two coefficient terms), and of the whole CE, forward and
+    backward through shard_softmax_ce from the f32 rows, on the kernels and
+    in plain PyTorch (plain_kernel_route patched off), whose per-sample
+    losses agree to 1e-4 relative. Then one ViT-L training step
+    (_vit_l_step): 1 stats, 1 + 1 two-term launches, every CE call on the
+    kernels. Returns {cell: {part: ms}}."""
+    import torch
+    from fr_tpu_torch.heads import partial_fc as P
+    from fr_tpu_torch.models.common import l2_normalize
+    from fr_tpu_torch.ops import fused_pfc as F
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for cell, n, d, k, margin, s, m in CE_PLAIN_HEADS:
+        cfg = P.PFCConfig(num_classes=k, embedding_size=d, margin=margin,
+                          s=s, m=m, mixed_precision=True)
+        emb = l2_normalize(torch.randn(n, d, device="cuda", generator=gen))
+        w = 0.01 * torch.randn(k, d, device="cuda", generator=gen)
+        labels = torch.randint(0, k, (n,), device="cuda", generator=gen)
+        cv = torch.arange(k, device="cuda") < k - 40
+        args = (emb.to(torch.bfloat16), l2_normalize(w).to(torch.bfloat16),
+                labels, cv)
+        md, dd, _ = F.margin_ce_stats(*args, cfg)
+        g = torch.full((n,), 1.0 / n, device="cuda")
+        ms = {"stats": _device_ms(lambda: F.margin_ce_stats(*args, cfg),
+                                  iters=10),
+              "grad_emb_2term": _device_ms(lambda: F.margin_ce_grad_emb(
+                  *args, md, dd, g, cfg, 2), iters=10),
+              "grad_w_2term": _device_ms(lambda: F.margin_ce_grad_w(
+                  *args, md, dd, g, cfg, 2), iters=10)}
+        e, ww = emb.requires_grad_(True), w.requires_grad_(True)
+
+        def ce():
+            loss = P.shard_softmax_ce(cfg, e, labels, ww, cv)
+            torch.autograd.grad(loss.mean(), [e, ww])
+            return loss.detach()
+        losses = {}
+        for route in ("plain_kernels", "plain_torch"):
+            with _ce_arm(route):
+                losses[route] = ce()
+                ms[f"ce_{route}"] = _device_ms(ce, iters=5)
+                check(set(P.shard_softmax_ce.routes) == {route},
+                      f"[margin_ce] {cell}: the CE took "
+                      f"{dict(P.shard_softmax_ce.routes)}, not {route}")
+        rel = ((losses["plain_kernels"] - losses["plain_torch"]).abs()
+               / losses["plain_torch"]).max().item()
+        check(rel <= 1e-4, f"[margin_ce] {cell}: the plain CE's losses on "
+              f"the kernels and in PyTorch differ by {rel} relative")
+        print(f"[margin_ce] plain CE at the {cell} head ({n}, {d}, {k:,}) "
+              f"{margin}, device ms (profiler): stats {ms['stats']:.3f}, "
+              f"grad_emb two-term {ms['grad_emb_2term']:.3f}, grad_w "
+              f"two-term {ms['grad_w_2term']:.3f}; the CE forward and "
+              f"backward on the kernels {ms['ce_plain_kernels']:.3f} against "
+              f"{ms['ce_plain_torch']:.3f} in plain PyTorch; losses "
+              f"{rel:.1e} relative apart")
+        out[cell] = ms
+        del emb, w, e, ww, args, md, dd, losses
+        torch.cuda.empty_cache()
+    loss, _ = _vit_l_step("[margin_ce]")
+    launches = {key: v for key, v in F.route_launches.items() if v}
+    routes = dict(P.shard_softmax_ce.routes)
+    print(f"[margin_ce] one ViT-L training step: margin-CE launches "
+          f"{launches}, CE routes {routes}, loss {loss:.4f}")
+    check(launches == {"stats_tensor_cores": 1,
+                       "grad_emb_tensor_cores_2term": 1,
+                       "grad_w_tensor_cores_2term": 1}
+          and routes == {"plain_kernels": 1} and math.isfinite(loss),
+          f"[margin_ce] ViT-L step: launches {launches}, routes {routes}, "
+          f"loss {loss}")
+    return out
 
 
 def _ce_stats_rel(a, b):
@@ -958,31 +1120,74 @@ def phase_train():
     return launches[0], launches[1], steps, bn
 
 
-# the margin-CE arms of the training phases: (name, use_fused)
-CE_ARMS = (("plain", False), ("tensor_cores", True))
+# the margin-CE arms of the training phases, each named by the route its
+# CE calls take (shard_softmax_ce.routes): (name, use_fused)
+CE_ARMS = (("plain_torch", False), ("plain_kernels", False), ("fused", True))
+# the margin-CE launches by body of each arm's step, at a bf16 D 512 head
+CE_ARM_BODIES = {
+    "plain_torch": (),
+    "plain_kernels": ("stats_tensor_cores", "grad_emb_tensor_cores_2term",
+                      "grad_w_tensor_cores_2term"),
+    "fused": ("stats_tensor_cores", "grad_emb_tensor_cores",
+              "grad_w_tensor_cores")}
+
+
+@contextlib.contextmanager
+def _ce_arm(arm):
+    """Within it, the plain CE of the plain_torch arm (CE_ARMS) stays in
+    PyTorch on the card (fused_pfc.plain_kernel_route patched off); the
+    margin-CE counters are cleared on entry. The arm's use_fused is the
+    caller's to set."""
+    from fr_tpu_torch.ops import fused_pfc as F
+    route = F.plain_kernel_route
+    if arm == "plain_torch":
+        F.plain_kernel_route = lambda emb, cfg: False
+    _reset_ce_routes()
+    try:
+        yield
+    finally:
+        F.plain_kernel_route = route
+
+
+def _ce_arm_launches():
+    """The margin-CE launches by body and the CE calls by route since
+    _reset_ce_routes(), the bodies and routes with a count only."""
+    from fr_tpu_torch.heads.partial_fc import shard_softmax_ce
+    from fr_tpu_torch.ops.fused_pfc import route_launches
+    return ({k: v for k, v in route_launches.items() if v},
+            {k: v for k, v in shard_softmax_ce.routes.items() if v})
 
 
 def _check_ce_arms(tag, losses, launches, steps):
-    """The fused arm launched every margin-CE kernel (the stats and the
-    backward pair) once per step (of its ``steps``) on the tensor cores and
-    none on the CUDA cores, and its losses sit within 2e-2 of the plain
-    CE's."""
-    expect = {"tensor_cores": [steps] * 3, "cuda_cores": [0] * 3}
-    check(launches == expect, f"{tag} the fused arm's margin-CE launches by "
-          f"body {launches} over {steps} steps")
-    for a, b in zip(losses["plain"], losses["tensor_cores"]):
-        check(abs(a - b) <= 2e-2 * abs(a), f"{tag} fused loss on the "
-              f"tensor cores {b} vs plain {a}: beyond 2e-2 relative")
+    """Each arm launched each margin-CE kernel of its bodies (CE_ARM_BODIES)
+    once per step (of its ``steps``) and no other (launches: {arm:
+    _ce_arm_launches()}), every CE call on its arm's route; the losses of
+    the plain CE on the kernels sit within 1e-4 of the plain CE in PyTorch
+    at the first step (the same weights) and within 2e-2 after, the fused
+    CE's within 2e-2."""
+    expect = {arm: (dict.fromkeys(CE_ARM_BODIES[arm], steps), {arm: steps})
+              for arm, _ in CE_ARMS}
+    check(launches == expect, f"{tag} the margin-CE launches and CE routes "
+          f"by arm {launches} over {steps} steps, not {expect}")
+    plain = losses["plain_torch"]
+    for arm, first in (("plain_kernels", 1e-4), ("fused", 2e-2)):
+        for i, (a, b) in enumerate(zip(plain, losses[arm])):
+            tol = first if i == 0 else 2e-2
+            check(abs(a - b) <= tol * abs(a), f"{tag} loss {i} of the "
+                  f"{arm} CE {b} vs the plain CE in PyTorch {a}: beyond "
+                  f"{tol:g} relative")
     print(f"{tag} losses " + ", ".join(
         f"{arm} {[round(x, 4) for x in v]}" for arm, v in losses.items()))
 
 
 def phase_train_full_head(steps: int = 3, timed: int = 10):
     """training_step at the full ms1m_arcface_122 head from one seed, in
-    two arms (CE_ARMS): use_fused off, and on, the margin-CE kernels on the
-    tensor cores. Each margin-CE kernel launches once per fused step, every
-    launch on the tensor cores; losses as _check_ce_arms says; ms per step.
-    Returns the fused arm's launches: {kernel (suffix _tc): count}."""
+    the three arms of CE_ARMS: use_fused off with the plain CE kept in
+    PyTorch, off (the plain CE on the kernels, two coefficient terms), and
+    on. Launches and losses as _check_ce_arms says; ms per step. Returns
+    the launches of the stats and the two-term pair (suffixes _tc,
+    _tc_2term) in the plain_kernels arm, the main path's, and of the
+    one-term pair (_tc) in the fused arm, each over ``steps`` steps."""
     import torch
     from fr_tpu_torch.cli.main import build_conf, parse_args
     from fr_tpu_torch.ops import fused_pfc as F
@@ -1005,34 +1210,38 @@ def phase_train_full_head(steps: int = 3, timed: int = 10):
     losses, routes = {}, {}
     for arm, fused in CE_ARMS:
         conf.use_fused = fused
-        task = FaceRecognitionTask(conf, stage="train", device=dev, seed=0)
-        for k in kernels:
-            k.launches = 0
-        _reset_ce_routes()
-        losses[arm] = [task.training_step((images[i], labels[i]))[
-            "loss"].item() for i in range(steps)]
-        counts = [k.launches for k in kernels]
-        if fused:
-            routes = {body: _ce_launches(body == "tensor_cores")
-                      for body in ("tensor_cores", "cuda_cores")}
-        t0 = time.perf_counter()
-        for i in range(steps, n):
-            out = task.training_step((images[i], labels[i]))
-        out["loss"].item()
-        ms = (time.perf_counter() - t0) * 1e3 / timed
-        print(f"[train_full_head] use_fused={fused}" + (
-            f", margin-CE kernels on the {arm}" if fused else "") + f": "
+        with _ce_arm(arm):
+            task = FaceRecognitionTask(conf, stage="train", device=dev,
+                                       seed=0)
+            for k in kernels:
+                k.launches = 0
+            losses[arm] = [task.training_step((images[i], labels[i]))[
+                "loss"].item() for i in range(steps)]
+            counts = [k.launches for k in kernels]
+            routes[arm] = _ce_arm_launches()
+            t0 = time.perf_counter()
+            for i in range(steps, n):
+                out = task.training_step((images[i], labels[i]))
+            out["loss"].item()
+            ms = (time.perf_counter() - t0) * 1e3 / timed
+        print(f"[train_full_head] use_fused={fused}, the CE {arm}: "
               f"{conf.n_classes:,} classes, {task.pfc_cfg.num_sample:,} "
               f"sampled, b={conf.b}: losses "
               f"{[round(x, 4) for x in losses[arm]]}; {ms:.2f} ms per step, "
               f"{conf.b * 1e3 / ms:.1f} imgs/s (host clock over {timed} "
               f"steps); margin-CE launches {counts}")
-        check(counts == ([steps] * 3 if fused else [0, 0, 0]),
-              f"margin-CE launches {counts} over {steps} steps with "
-              f"use_fused={fused}")
+        want = [0] * 3 if arm == "plain_torch" else [steps] * 3
+        check(counts == want, f"margin-CE launches {counts} over {steps} "
+              f"steps in the {arm} arm")
         del task
     _check_ce_arms("[train_full_head]", losses, routes, steps)
-    return {k + "_tc": c for k, c in zip(CE_KERNELS, routes["tensor_cores"])}
+    main, fused = routes["plain_kernels"][0], routes["fused"][0]
+    return {"margin_ce_stats_tc": main["stats_tensor_cores"],
+            "margin_ce_grad_emb_tc": fused["grad_emb_tensor_cores"],
+            "margin_ce_grad_w_tc": fused["grad_w_tensor_cores"],
+            "margin_ce_grad_emb_tc_2term":
+                main["grad_emb_tensor_cores_2term"],
+            "margin_ce_grad_w_tc_2term": main["grad_w_tensor_cores_2term"]}
 
 
 def phase_train_golden():
@@ -2204,13 +2413,12 @@ def _global_attn_near_mean(dev):
             [rel(a, w) for a, w in zip(flash, want)])
 
 
-def _global_attn_step_launches():
-    """The global-attention kernels' launches in one ViT-L training step
-    through the port's entry, at the vit_l_wf42m cell's settings
-    (benchmark/configs/vit_l_wf42m.json, program.overrides) but
-    GA_STEP_BATCH images, bf16, after one step of warm-up; checks one
-    forward and one backward launch a block, every attention call on the
-    kernels, and a finite loss."""
+def _vit_l_step(tag):
+    """One ViT-L training step through the port's entry, at the vit_l_wf42m
+    cell's settings (benchmark/configs/vit_l_wf42m.json, program.overrides)
+    but GA_STEP_BATCH images, bf16, after one step of warm-up, with the
+    global-attention kernels' counters, the margin-CE route_launches and
+    shard_softmax_ce.routes cleared before it. Returns (loss, blocks)."""
     import torch
     from fr_tpu_torch.configs import load_config
     from fr_tpu_torch.ops import global_attn as G
@@ -2221,7 +2429,7 @@ def _global_attn_step_launches():
                        wd=0.1, sample_rate=0.3, sample_block=64,
                        b=GA_STEP_BATCH, use_fused=False)
     check(conf.mixed_precision and conf.n_classes == 2059906,
-          "[kernel_global_attn] the ViT-L step is not webface42m in bf16")
+          f"{tag} the ViT-L step is not webface42m in bf16")
     task = FaceRecognitionTask(conf, stage="train", device="cuda", seed=0)
     task.epoch = conf.warmup_steps
     gen = torch.Generator(device="cuda").manual_seed(29)
@@ -2234,12 +2442,25 @@ def _global_attn_step_launches():
     torch.cuda.synchronize()
     G.global_attention.launches.clear()
     G.global_attention.kernel_launches.clear()
+    _reset_ce_routes()
     loss = float(task.training_step(batches[1])["loss"])
     torch.cuda.synchronize()
-    launches = dict(G.global_attention.kernel_launches)
     depth = len(task.encoder.blocks)
+    del task, batches
+    torch.cuda.empty_cache()
+    return loss, depth
+
+
+def _global_attn_step_launches():
+    """The global-attention kernels' launches in one ViT-L training step
+    (_vit_l_step); checks one forward and one backward launch a block,
+    every attention call on the kernels, and a finite loss."""
+    from fr_tpu_torch.ops import global_attn as G
+
+    loss, depth = _vit_l_step("[kernel_global_attn]")
+    launches = dict(G.global_attention.kernel_launches)
     print(f"[kernel_global_attn] ViT-L training step (load_config → task → "
-          f"make_train_step, {conf.b} images, AdamW): kernel launches "
+          f"make_train_step, {GA_STEP_BATCH} images, AdamW): kernel launches "
           f"{launches} for {depth} blocks, attention calls "
           f"{dict(G.global_attention.launches)}, loss {loss:.4f}")
     check(launches == {"fwd": depth, "bwd": depth}
@@ -2247,8 +2468,6 @@ def _global_attn_step_launches():
           and math.isfinite(loss),
           f"[kernel_global_attn] ViT-L step: launches {launches} for "
           f"{depth} blocks, loss {loss}")
-    del task, batches
-    torch.cuda.empty_cache()
     return launches
 
 
@@ -2373,8 +2592,9 @@ def _webface_batches(conf, n, seed=11):
 def phase_webface42m(steps: int = 3, timed: int = 8):
     """[webface42m] the training step at the full head. Returns the
     launches of (grouped_gather, grouped_update_sgd, grouped_update_adamw),
-    of the three margin-CE kernels and of the BatchNorm kernels by entry
-    point over the phase."""
+    of the margin-CE kernels by arm and body ("<arm> <body>", the two kernel
+    arms' steps) and of the BatchNorm kernels by entry point over the
+    phase."""
     import torch
     from fr_tpu_torch.heads.partial_fc import (sample_groups,
                                                shard_group_masks)
@@ -2467,34 +2687,31 @@ def phase_webface42m(steps: int = 3, timed: int = 8):
 
     results, routes = {}, {}
     for arm, fused in CE_ARMS:
-        conf.use_fused = fused
         before = [k.launches for k in ce]
-        _reset_ce_routes()
-        results[arm] = run(conf, f"SGD use_fused={fused}" + (
-            f", margin-CE kernels on the {arm}" if fused else ""), steps,
-            timed, (1, 1, 0))
-        if fused:
-            routes = {body: _ce_launches(body == "tensor_cores")
-                      for body in ("tensor_cores", "cuda_cores")}
+        conf.use_fused = fused
+        with _ce_arm(arm):
+            results[arm] = run(conf, f"SGD use_fused={fused}, the CE {arm}",
+                               steps, timed, (1, 1, 0))
+            routes[arm] = _ce_arm_launches()
         counts = [k.launches - b for k, b in zip(ce, before)]
-        check(counts == ([steps + timed] * 3 if fused else [0, 0, 0]),
-              f"[webface42m] margin-CE launches {counts} over "
-              f"{steps + timed} steps with use_fused={fused}")
+        want = [0] * 3 if arm == "plain_torch" else [steps + timed] * 3
+        check(counts == want, f"[webface42m] margin-CE launches {counts} "
+              f"over {steps + timed} steps in the {arm} arm")
     _check_ce_arms("[webface42m]", {a: r[0] for a, r in results.items()},
                    routes, steps + timed)
-    ce_launches = {k + "_tc": c
-                   for k, c in zip(CE_KERNELS, routes["tensor_cores"])}
+    ce_launches = {f"{arm} {body}": c for arm in ("plain_kernels", "fused")
+                   for body, c in routes[arm][0].items()}
     run(_webface_conf(optimizer="AdamW"), "AdamW use_fused=False", steps, 0,
         (1, 0, 1))
     _, ms_row = run(_webface_conf(sample_block=1), "SGD sample_block=1 "
                        "(per-row sampling)", steps, timed, (0, 0, 0))
-    ms_block = results["plain"][1]
+    ms_block = results["plain_kernels"][1]
     print(f"[webface42m] sample_block {WEBFACE_BLOCK} against 1, use_fused "
           f"off: {ms_block:.2f} vs {ms_row:.2f} ms per step on the host "
-          f"clock ({ms_row / ms_block:.2f}x); use_fused on, the margin-CE "
-          f"kernels on the tensor cores: {results['tensor_cores'][1]:.2f} "
-          f"ms; the "
-          f"device's side of it is in [profile]")
+          f"clock ({ms_row / ms_block:.2f}x); the plain CE in PyTorch "
+          f"{results['plain_torch'][1]:.2f} ms, use_fused on "
+          f"{results['fused'][1]:.2f} ms; the device's side of it is in "
+          f"[profile]")
     calls.close()
     # the last BN2d's gradient reaches it NCHW from the flatten
     bn = _bn_launches("[webface42m]", calls, 1)
@@ -4410,17 +4627,18 @@ def _packed_bound(kind):
     return total, by
 
 
-def _ce_bound(kind, shape=CE_SHAPE):
+def _ce_bound(kind, shape=CE_SHAPE, terms=1):
     """The margin-CE kernels at shape (N, D, K) in bf16: stats reads emb,
     W, labels (int64), col_valid and writes m, d, t; the two gradients also
     read m, d and g and write (N, D) or (K, D) f32. Products: the logits
-    (2·N·K·D), and for a gradient also coeff·W or coeffᵀ·emb."""
+    (2·N·K·D), and for a gradient also coeff·W or coeffᵀ·emb once per
+    coefficient term."""
     n, d, k = shape
     inputs = n * d * 2 + k * d * 2 + n * 8 + k
     nbytes = {"margin_ce_stats": inputs + 3 * n * 4,
               "margin_ce_grad_emb": inputs + 3 * n * 4 + n * d * 4,
               "margin_ce_grad_w": inputs + 3 * n * 4 + k * d * 4}[kind]
-    flops = (2 if kind == "margin_ce_stats" else 4) * n * k * d
+    flops = (2 if kind == "margin_ce_stats" else 2 + 2 * terms) * n * k * d
     t_bytes, t_ops = nbytes / 3.35e12, flops / 989e12
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -5038,16 +5256,24 @@ def main() -> None:
                worst_bwd, bwd["ms"], bwd["plain_ms"], _packed_bound("bwd"),
                bwd["library_ms"])]
     # rows 9-11 at the ms1m head on the tensor cores, launches from
-    # [train_full_head]'s fused arm
-    for kernel, line, row in (("margin_ce_stats", 308, 9),
-                              ("margin_ce_grad_emb", 406, 10),
-                              ("margin_ce_grad_w", 425, 11)):
-        name = kernel + "_tc"
-        t = times_ce[(kernel, CE_SHAPE[2])]
-        kernels.append(_entry(f"{name} (row {row})", "margin_ce.cu",
-                              f"fused_pfc.py:{line}", launches_ce[name],
-                              worst_ce[name], t["ms"], t["plain_ms"],
-                              _ce_bound(kernel), None))
+    # [train_full_head]: the stats and the two-term pair from its
+    # plain_kernels arm (the main path), the one-term pair from its fused
+    # arm; the two-term pair replaces fr_tpu's plain CE and its autodiff
+    for kernel, line, row, terms in (
+            ("margin_ce_stats", "ops/fused_pfc.py:308", 9, 1),
+            ("margin_ce_grad_emb", "ops/fused_pfc.py:406", 10, 1),
+            ("margin_ce_grad_w", "ops/fused_pfc.py:425", 11, 1),
+            ("margin_ce_grad_emb", "heads/partial_fc.py:211", 10, 2),
+            ("margin_ce_grad_w", "heads/partial_fc.py:211", 11, 2)):
+        name = kernel + ("_tc_2term" if terms == 2 else "_tc")
+        t = times_ce[(kernel + ("_2term" if terms == 2 else ""),
+                      CE_SHAPE[2])]
+        entry = _entry(f"{name} (row {row}" + (
+            ", two coefficient terms)" if terms == 2 else ")"),
+            "margin_ce.cu", "", launches_ce[name], worst_ce[name], t["ms"],
+            t["plain_ms"], _ce_bound(kernel, terms=terms), None)
+        entry["replaces"] = f"fr_tpu/{line}"
+        kernels.append(entry)
     for kind, line, count, err, row in (
             ("fwd", 1909, perhead["fwd"], worst_ph_f, 5),
             ("bwd", 2002, perhead["bwd"], worst_ph_b, 6)):

@@ -25,7 +25,9 @@ The rows and the environment variables that define them are fr_tpu's
                      images resident on the card and the on-device
                      augmentation
 
-BENCH_FUSED=1 turns on the margin-CE kernels (rows 9-11) and
+BENCH_FUSED=1 turns on the fused CE's contract (rows 9-11 with the
+backward's coefficient rounded to bf16; the default CE takes the same
+kernels on the card with it kept at f32) and
 FR_ATTN_STORED_STATS=1 the stored-stats attention (rows 3/4, 7/8); neither
 is a default. BENCH_FUSED is one of the workload variables that the matrix
 pins for every row, as bench.py does, so its arm runs one workload at a

@@ -15,6 +15,8 @@
 //   coeff = g·(p − onehot)·margin′(z)·s, zero where raw left [−1, 1] or
 //           the column is invalid, rounded to T;  p = exp(y − m)/d;
 //   grad_emb = coeff·W,  grad_W = coeffᵀ·emb  (f32).
+// The tensor-core backward can also keep coeff at f32 as the sum of two
+// bf16 terms (the plain route's contract; notes above those kernels).
 //
 // What bounds it on the card: arithmetic. At the ms1m_arcface_122 shapes
 // (N=128, D=512, K=26,007) W is 26.6 MB in bf16 and every kernel recomputes
@@ -519,12 +521,24 @@ __global__ void __launch_bounds__(kThreads) margin_ce_grad_w_kernel(
 // emb·Wᵀ with f32 sums, and coeff·W or coeffᵀ·emb from the bf16 coeff,
 // which is exactly the A operand the mma takes.
 //
+// Coefficient terms (TERMS, a template argument the entries take as
+// `terms`): with 1, coeff is rounded to bf16 before the products, as
+// _bwd_jnp rounds it (use_fused's contract). With 2, the f32 coeff c goes
+// in as hi = bf16(c) and lo = bf16(c − hi), both through the mma against
+// the same bf16 tile into one f32 accumulator: the products carry about 16
+// bits of c, and c − hi − lo is under 2⁻¹⁶·|c|. That is the plain route's
+// contract (heads/partial_fc.py: coeff kept in f32, the f32 products
+// rounded to bf16 where autograd meets the bf16 operands), which the
+// wrapper does after the kernel. The second term costs a second coeff tile
+// and a second mma per W (or emb) fragment.
+//
 // What bounds them: bytes. Each reads emb, W (bf16), the labels and
 // col_valid once: 26.8 MB at the ms1m_arcface_122 head (N 128, D 512, K
 // 26,007), 211.2 MB at webface42m's (K 205,952). grad_W also writes its
 // (K, D) f32 result, its largest term: 53.3 MB and 421.8 MB, so 0.024 and
 // 0.189 ms at 3.35 TB/s against grad_emb's 0.008 and 0.063; the 4·N·K·D
-// flops take 0.007 and 0.055 ms at 989 TFLOP/s.
+// flops take 0.007 and 0.055 ms at 989 TFLOP/s (6·N·K·D with two coeff
+// terms).
 //
 // Design: a CTA of 8 warps keeps a 64 × D f32 accumulator in registers (D/4
 // floats a thread at D 512), so one CTA an SM, and holds one operand's tile
@@ -554,15 +568,16 @@ constexpr int kTcMaxD = 512;    // the widest accumulator a CTA holds
 constexpr int kTcThreads = 256;
 constexpr int kTcChunks = kTcMaxD / 32;  // 16-wide D chunks per warp
 constexpr int kTcLdc = kTcTile + 8;      // row stride of the coeff tile
+constexpr int kTcCoeff = kTcTile * kTcLdc;  // elements of one coeff tile
 
 using bf16 = __nv_bfloat16;
 
 // Shared memory of either kernel: three (64, D + 8) bf16 tiles (the
-// resident one and two stages) and the (64, 72) coeff tile. The Python
-// wrapper computes the same size (fused_pfc.tc_smem_bytes).
-__host__ __device__ inline size_t tc_smem_bytes(int D) {
+// resident one and two stages) and a (64, 72) coeff tile per term. The
+// Python wrapper computes the same size (fused_pfc.tc_smem_bytes).
+__host__ __device__ inline size_t tc_smem_bytes(int D, int terms) {
   return 2 * (3 * static_cast<size_t>(kTcTile) * (D + 8) +
-              static_cast<size_t>(kTcTile) * kTcLdc);
+              static_cast<size_t>(terms) * kTcCoeff);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -667,9 +682,12 @@ __device__ __forceinline__ TcRow tc_row(int row, int N, const int* labels,
   return TcRow{true, labels[row], m_row[row], d_row[row], g_row[row]};
 }
 
-// The bf16 coeff of the warp's logits into the (64, 72) tile cs[row][class]
-// (local row 16·wr + lane/4 + 8h, class 32·wc + 8j + 2·(lane % 4) + i);
-// c0 is the tile's first class.
+// The coeff of the warp's logits into the (64, 72) tile cs[row][class]
+// (local row 16·wr + lane/4 + 8h, class 32·wc + 8j + 2·(lane % 4) + i),
+// as bf16(c); with TERMS 2 also bf16(c − bf16(c)) into the tile after it
+// (c − bf16(c) is exact in f32). bf16(c) of the f32 c is the bf16 that
+// coeff_of<bf16> rounds to. c0 is the tile's first class.
+template <int TERMS>
 __device__ __forceinline__ void tc_coeff_tile(bf16* cs,
                                               const float (&raw)[4][4],
                                               const TcRow (&rows)[2], int c0,
@@ -691,20 +709,25 @@ __device__ __forceinline__ void tc_coeff_tile(bf16* cs,
       float v[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        v[i] = coeff_of<bf16>(raw[j][2 * h + i], r.in && valid[i],
-                              c0 + lc + i == r.label, r.m, r.d, r.g, mg);
-      const __nv_bfloat162 pair = __floats2bfloat162_rn(v[0], v[1]);
-      *reinterpret_cast<__nv_bfloat162*>(
-          cs + (16 * wr + (lane >> 2) + 8 * h) * kTcLdc + lc) = pair;
+        v[i] = coeff_of<float>(raw[j][2 * h + i], r.in && valid[i],
+                               c0 + lc + i == r.label, r.m, r.d, r.g, mg);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[0], v[1]);
+      bf16* at = cs + (16 * wr + (lane >> 2) + 8 * h) * kTcLdc + lc;
+      *reinterpret_cast<__nv_bfloat162*>(at) = hi;
+      if (TERMS == 2)
+        *reinterpret_cast<__nv_bfloat162*>(at + kTcCoeff) =
+            __floats2bfloat162_rn(v[0] - __low2float(hi),
+                                  v[1] - __high2float(hi));
     }
   }
 }
 
 // acc += A·B for the warp's output rows and D chunks ch = 2q + wc: A's
-// 16 × 16 fragment a (k = 16·kk..), B the (64, D + 8) tile b read
-// transposed (its rows are k).
+// 16 × 16 fragments a, one a term (k = 16·kk..), each against the same B
+// fragment of the (64, D + 8) tile b read transposed (its rows are k).
+template <int TERMS>
 __device__ __forceinline__ void tc_times(float (&acc)[kTcChunks][2][4],
-                                         const uint32_t (&a)[4],
+                                         const uint32_t (&a)[TERMS][4],
                                          const bf16* b, int kk, int wc,
                                          int D) {
   const int lane = threadIdx.x & 31;
@@ -718,8 +741,11 @@ __device__ __forceinline__ void tc_times(float (&acc)[kTcChunks][2][4],
     if (ch < n_chunks) {
       uint32_t f[4];
       ldsm_x4_t(f, bp + 16 * ch);
-      mma_bf16(acc[q][0], a, f[0], f[1]);
-      mma_bf16(acc[q][1], a, f[2], f[3]);
+#pragma unroll
+      for (int u = 0; u < TERMS; ++u) {
+        mma_bf16(acc[q][0], a[u], f[0], f[1]);
+        mma_bf16(acc[q][1], a[u], f[2], f[3]);
+      }
     }
   }
 }
@@ -751,6 +777,7 @@ __device__ __forceinline__ void tc_store(const float (&acc)[kTcChunks][2][4],
 
 // grid (row tiles, splits): split s takes class tiles [s·T/S, (s+1)·T/S)
 // of the T tiles. Writes partial[split][row][d] for rows < N.
+template <int TERMS>
 __global__ void __launch_bounds__(kTcThreads, 1) margin_ce_grad_emb_tc_kernel(
     const bf16* __restrict__ emb, const bf16* __restrict__ w,
     const int* __restrict__ labels, const uint8_t* __restrict__ col_valid,
@@ -804,15 +831,18 @@ __global__ void __launch_bounds__(kTcThreads, 1) margin_ce_grad_emb_tc_kernel(
     __syncthreads();
     float raw[4][4];
     tc_logits(raw, es, wt, wr, wc, D);
-    tc_coeff_tile(cs, raw, rows, t * kTcTile, K, col_valid, wr, wc, mg);
+    tc_coeff_tile<TERMS>(cs, raw, rows, t * kTcTile, K, col_valid, wr, wc,
+                         mg);
     __syncthreads();
     // acc += coeff·W_tile: A = coeff rows 16·wr.., k = the tile's classes
 #pragma unroll
     for (int kk = 0; kk < kTcTile / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, cs + (16 * wr + (lane & 15)) * kTcLdc + 16 * kk +
-                     (lane >> 4) * 8);
-      tc_times(acc, a, wt, kk, wc, D);
+      uint32_t a[TERMS][4];
+#pragma unroll
+      for (int u = 0; u < TERMS; ++u)
+        ldsm_x4(a[u], cs + u * kTcCoeff + (16 * wr + (lane & 15)) * kTcLdc +
+                          16 * kk + (lane >> 4) * 8);
+      tc_times<TERMS>(acc, a, wt, kk, wc, D);
     }
     __syncthreads();  // the next tile overwrites cs and this stage's twin
   }
@@ -821,6 +851,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) margin_ce_grad_emb_tc_kernel(
 }
 
 // grid (class tiles): CTA c owns classes [64c, 64c + 64) of grad_W.
+template <int TERMS>
 __global__ void __launch_bounds__(kTcThreads, 1) margin_ce_grad_w_tc_kernel(
     const bf16* __restrict__ emb, const bf16* __restrict__ w,
     const int* __restrict__ labels, const uint8_t* __restrict__ col_valid,
@@ -868,16 +899,20 @@ __global__ void __launch_bounds__(kTcThreads, 1) margin_ce_grad_w_tc_kernel(
                        labels, m_row, d_row, g_row);
     float raw[4][4];
     tc_logits(raw, et, ws, wr, wc, D);
-    tc_coeff_tile(cs, raw, rows, c0, K, col_valid, wr, wc, mg);
+    tc_coeff_tile<TERMS>(cs, raw, rows, c0, K, col_valid, wr, wc, mg);
     __syncthreads();
     // acc += coeffᵀ·emb_tile: A = coeffᵀ, classes 16·wr.. by the tile's
     // rows, read from cs[row][class] through ldmatrix.trans
 #pragma unroll
     for (int kk = 0; kk < kTcTile / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4_t(a, cs + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * kTcLdc +
-                       16 * wr + ((lane >> 3) & 1) * 8);
-      tc_times(acc, a, et, kk, wc, D);
+      uint32_t a[TERMS][4];
+#pragma unroll
+      for (int u = 0; u < TERMS; ++u)
+        ldsm_x4_t(a[u], cs + u * kTcCoeff +
+                            (16 * kk + (lane & 7) + ((lane >> 4) << 3)) *
+                                kTcLdc +
+                            16 * wr + ((lane >> 3) & 1) * 8);
+      tc_times<TERMS>(acc, a, et, kk, wc, D);
     }
     __syncthreads();  // the next row tile overwrites cs and this stage's twin
   }
@@ -1311,17 +1346,19 @@ cudaError_t grad_w(const void* emb, const void* w, const int* labels,
   return cudaGetLastError();
 }
 
+template <int TERMS>
 cudaError_t grad_emb_tc(const void* emb, const void* w, const int* labels,
                         const uint8_t* cv, const float* m, const float* d,
                         const float* g, int N, int K, int D, Margin mg,
                         int splits, float* partial, float* out,
                         cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(D);
+  const size_t smem = tc_smem_bytes(D, TERMS);
   cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(margin_ce_grad_emb_tc_kernel), smem);
+      reinterpret_cast<const void*>(margin_ce_grad_emb_tc_kernel<TERMS>),
+      smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kTcTile - 1) / kTcTile, splits);
-  margin_ce_grad_emb_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
+  margin_ce_grad_emb_tc_kernel<TERMS><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(emb), static_cast<const bf16*>(w), labels, cv,
       m, d, g, N, K, D, mg, partial);
   err = cudaGetLastError();
@@ -1367,16 +1404,17 @@ int tc_occupancy(const void* kernel, int threads, size_t smem) {
   return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }
 
+template <int TERMS>
 cudaError_t grad_w_tc(const void* emb, const void* w, const int* labels,
                       const uint8_t* cv, const float* m, const float* d,
                       const float* g, int N, int K, int D, Margin mg,
                       float* out, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(D);
+  const size_t smem = tc_smem_bytes(D, TERMS);
   cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(margin_ce_grad_w_tc_kernel), smem);
+      reinterpret_cast<const void*>(margin_ce_grad_w_tc_kernel<TERMS>), smem);
   if (err != cudaSuccess) return err;
-  margin_ce_grad_w_tc_kernel<<<(K + kTcTile - 1) / kTcTile, kTcThreads, smem,
-                               stream>>>(
+  margin_ce_grad_w_tc_kernel<TERMS><<<(K + kTcTile - 1) / kTcTile, kTcThreads,
+                                      smem, stream>>>(
       static_cast<const bf16*>(emb), static_cast<const bf16*>(w), labels, cv,
       m, d, g, N, K, D, mg, out);
   return cudaGetLastError();
@@ -1464,9 +1502,10 @@ extern "C" int margin_ce_grad_w(const void* emb, const void* w,
 }
 
 // The tensor-core twins of margin_ce_grad_emb and margin_ce_grad_w: the
-// same arguments, bf16 only (dtype 1), D a multiple of 16 and at most 512;
-// emb and w 16-byte aligned. grad_emb's partial: splits·N·D floats, split
-// s taking class tiles [s·T/S, (s+1)·T/S) of the T = ⌈K/64⌉.
+// same arguments and the number of coeff terms (1 or 2, see the notes
+// above the kernels), bf16 only (dtype 1), D a multiple of 16 and at most
+// 512; emb and w 16-byte aligned. grad_emb's partial: splits·N·D floats,
+// split s taking class tiles [s·T/S, (s+1)·T/S) of the T = ⌈K/64⌉.
 extern "C" int margin_ce_grad_emb_tc(const void* emb, const void* w,
                                      const void* labels,
                                      const void* col_valid, const void* m_row,
@@ -1475,18 +1514,20 @@ extern "C" int margin_ce_grad_emb_tc(const void* emb, const void* w,
                                      float s, float cos_m, float sin_m,
                                      float theta, float sinmm, float m,
                                      int splits, void* partial, void* out,
-                                     void* stream) {
-  if (!tc_shape_ok(N, K, D, dtype, kind) || splits <= 0 || splits > 65535)
+                                     int terms, void* stream) {
+  if (!tc_shape_ok(N, K, D, dtype, kind) || splits <= 0 || splits > 65535 ||
+      terms < 1 || terms > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  return grad_emb_tc(emb, w, static_cast<const int*>(labels),
-                     static_cast<const uint8_t*>(col_valid),
-                     static_cast<const float*>(m_row),
-                     static_cast<const float*>(d_row),
-                     static_cast<const float*>(g_row), N, K, D,
-                     make_margin(kind, s, cos_m, sin_m, theta, sinmm, m),
-                     splits, static_cast<float*>(partial),
-                     static_cast<float*>(out),
-                     static_cast<cudaStream_t>(stream));
+  auto* launch = terms == 1 ? grad_emb_tc<1> : grad_emb_tc<2>;
+  return launch(emb, w, static_cast<const int*>(labels),
+                static_cast<const uint8_t*>(col_valid),
+                static_cast<const float*>(m_row),
+                static_cast<const float*>(d_row),
+                static_cast<const float*>(g_row), N, K, D,
+                make_margin(kind, s, cos_m, sin_m, theta, sinmm, m),
+                splits, static_cast<float*>(partial),
+                static_cast<float*>(out),
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int margin_ce_grad_w_tc(const void* emb, const void* w,
@@ -1495,28 +1536,32 @@ extern "C" int margin_ce_grad_w_tc(const void* emb, const void* w,
                                    const void* g_row, int N, int K, int D,
                                    int dtype, int kind, float s, float cos_m,
                                    float sin_m, float theta, float sinmm,
-                                   float m, void* out, void* stream) {
-  if (!tc_shape_ok(N, K, D, dtype, kind))
+                                   float m, void* out, int terms,
+                                   void* stream) {
+  if (!tc_shape_ok(N, K, D, dtype, kind) || terms < 1 || terms > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  return grad_w_tc(emb, w, static_cast<const int*>(labels),
-                   static_cast<const uint8_t*>(col_valid),
-                   static_cast<const float*>(m_row),
-                   static_cast<const float*>(d_row),
-                   static_cast<const float*>(g_row), N, K, D,
-                   make_margin(kind, s, cos_m, sin_m, theta, sinmm, m),
-                   static_cast<float*>(out),
-                   static_cast<cudaStream_t>(stream));
+  auto* launch = terms == 1 ? grad_w_tc<1> : grad_w_tc<2>;
+  return launch(emb, w, static_cast<const int*>(labels),
+                static_cast<const uint8_t*>(col_valid),
+                static_cast<const float*>(m_row),
+                static_cast<const float*>(d_row),
+                static_cast<const float*>(g_row), N, K, D,
+                make_margin(kind, s, cos_m, sin_m, theta, sinmm, m),
+                static_cast<float*>(out),
+                static_cast<cudaStream_t>(stream));
 }
 
-// CTAs of margin_ce_grad_emb_tc_kernel that one SM holds at once at this D
-// (the occupancy API; the wrapper sizes the splits to one wave of them), or
-// the negated CUDA error.
-extern "C" int margin_ce_grad_emb_tc_occupancy(int D) {
-  if (D <= 0 || D % 16 != 0 || D > kTcMaxD)
+// CTAs of margin_ce_grad_emb_tc_kernel with `terms` coeff terms that one
+// SM holds at once at this D (the occupancy API; the wrapper sizes the
+// splits to one wave of them), or the negated CUDA error.
+extern "C" int margin_ce_grad_emb_tc_occupancy(int D, int terms) {
+  if (D <= 0 || D % 16 != 0 || D > kTcMaxD || terms < 1 || terms > 2)
     return -static_cast<int>(cudaErrorInvalidValue);
   return tc_occupancy(
-      reinterpret_cast<const void*>(margin_ce_grad_emb_tc_kernel),
-      kTcThreads, tc_smem_bytes(D));
+      terms == 1
+          ? reinterpret_cast<const void*>(margin_ce_grad_emb_tc_kernel<1>)
+          : reinterpret_cast<const void*>(margin_ce_grad_emb_tc_kernel<2>),
+      kTcThreads, tc_smem_bytes(D, terms));
 }
 
 // The tensor-core twin of margin_ce_stats: the same arguments, bf16 only

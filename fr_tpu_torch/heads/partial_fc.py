@@ -21,13 +21,22 @@ divergences from the per-row draw are fr_tpu's: negatives of one group come
 together, and negatives that share a group with one of the batch's positives
 are always in.
 
-The default CE (use_fused=False) is plain PyTorch, as it is plain XLA in
-fr_tpu; use_fused=True takes the margin-softmax CE kernels of
-ops/fused_pfc.py.
+The default CE (use_fused=False) is fr_tpu's plain XLA CE: f32 products of
+the compute-dtype operands and an f32 softmax, whose backward keeps the
+logits' gradient in f32. On the CPU it is that in plain PyTorch
+(``plain_softmax_ce``). On the
+card, a bf16 call at a width the tensor-core kernels take, with ArcFace or
+CosFace, runs it in the margin-CE kernels of ops/fused_pfc.py instead, at
+its own precision (the backward's coefficient as two bf16 terms), without
+the (N, K) logits; any other call stays plain PyTorch. use_fused=True
+takes the same kernels under fr_tpu's fused contract, whose backward rounds
+the coefficient to the compute dtype. ``shard_softmax_ce.routes`` counts
+the calls by route.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
@@ -35,6 +44,7 @@ import torch
 
 from fr_tpu_torch.heads.margins import get_margin_fn
 from fr_tpu_torch.models.common import l2_normalize
+from fr_tpu_torch.ops import fused_pfc
 from fr_tpu_torch.parallel.collectives import pmax, psum
 from fr_tpu_torch.parallel.mesh import local_class_slice
 
@@ -198,16 +208,34 @@ def shard_softmax_ce(cfg: PFCConfig, emb_row: torch.Tensor,
     on another shard or was not sampled; w_act (K, D) this shard's (sampled)
     class centres; col_valid (K,) False for padding columns; model_group the
     model axis's process group, None for one shard. Returns the per-sample
-    loss (N,) f32, the same on every rank of the group."""
+    loss (N,) f32, the same on every rank of the group. The route (the
+    module's note) is counted on ``shard_softmax_ce.routes``."""
     compute = cfg.compute_dtype
     if cfg.use_fused:
-        from fr_tpu_torch.ops.fused_pfc import fused_margin_softmax_ce
-        return fused_margin_softmax_ce(
+        shard_softmax_ce.routes["fused"] += 1
+        return fused_pfc.fused_margin_softmax_ce(
             l2_normalize(emb_row.float()).to(compute),
             l2_normalize(w_act.float()).to(compute),
             label_cols, col_valid, cfg, model_group)
     ne = l2_normalize(emb_row).to(compute)
     nw = l2_normalize(w_act).to(compute)
+    if fused_pfc.plain_kernel_route(ne, cfg):
+        shard_softmax_ce.routes["plain_kernels"] += 1
+        return fused_pfc.fused_margin_softmax_ce(
+            ne, nw, label_cols, col_valid, cfg, model_group, terms=2)
+    shard_softmax_ce.routes["plain_torch"] += 1
+    return plain_softmax_ce(cfg, ne, label_cols, nw, col_valid, model_group)
+
+
+shard_softmax_ce.routes = collections.Counter()
+
+
+def plain_softmax_ce(cfg: PFCConfig, ne: torch.Tensor,
+                     label_cols: torch.Tensor, nw: torch.Tensor,
+                     col_valid: torch.Tensor,
+                     model_group=None) -> torch.Tensor:
+    """The plain CE in PyTorch: shard_softmax_ce's arguments, with ne and nw
+    L2-normalised in the compute dtype."""
     # f32 products of the compute-dtype operands: fr_tpu's
     # preferred_element_type=f32 (a bf16 matmul here would round the logits)
     logits = torch.matmul(ne.float(), nw.float().t())

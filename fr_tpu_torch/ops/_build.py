@@ -156,10 +156,10 @@ def load_library() -> ctypes.CDLL:
         "margin_ce_grad_w": [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
                              *margin, vp, vp],
         "margin_ce_grad_emb_tc": [*[vp] * 7, i32, i32, i32, i32, *margin,
-                                  i32, vp, vp, vp],
+                                  i32, vp, vp, i32, vp],
         "margin_ce_grad_w_tc": [*[vp] * 7, i32, i32, i32, i32, *margin, vp,
-                                vp],
-        "margin_ce_grad_emb_tc_occupancy": [i32],
+                                i32, vp],
+        "margin_ce_grad_emb_tc_occupancy": [i32, i32],
         "margin_ce_stats_tc": [vp, vp, vp, vp, i32, i32, i32, i32, *margin,
                                i32, vp, vp, vp, vp, vp],
         "margin_ce_stats_tc_occupancy": [i32],

@@ -25,6 +25,12 @@ tensor-core kernels (``margin_ce_stats_tc``, ``margin_ce_grad_{emb,w}_tc``);
 f32 and any other D take the CUDA-core ones. ``route_launches`` counts every
 launch by body.
 
+The same Function also runs the plain CE of heads/partial_fc.py on the card
+(``plain_kernel_route``): there the backward's coefficient stays f32, which
+the tensor-core pair carries as two bf16 terms, hi = bf16(c) and
+lo = bf16(c − hi), through the same products (``terms`` = 2; the fused CE's
+``_bwd_jnp`` contract is one term, c rounded to the compute dtype).
+
 On a class-sharded head (a model group) each rank's kernels see only its
 shard's columns, and the forward merges the shards' statistics as fr_tpu's
 ``_fwd_impl`` does (fused_pfc.py:347-357): m_g = pmax(m), then d and t
@@ -52,10 +58,13 @@ _STATS_ROWS, _EMB_ROWS, _CLASS_TILE = 32, 16, 64   # the kernels' tiles
 # accumulator per backward CTA, so D at most 512.
 _TC_TILE, _TC_MAX_D = 64, 512
 
-# launches of the three kernels by body
+# launches of the three kernels by body (_2term: the backward pair with the
+# coefficient as two bf16 terms)
 route_launches = {"stats_tensor_cores": 0, "stats_cuda_cores": 0,
                   "grad_emb_tensor_cores": 0, "grad_emb_cuda_cores": 0,
-                  "grad_w_tensor_cores": 0, "grad_w_cuda_cores": 0}
+                  "grad_w_tensor_cores": 0, "grad_w_cuda_cores": 0,
+                  "grad_emb_tensor_cores_2term": 0,
+                  "grad_w_tensor_cores_2term": 0}
 
 
 def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
@@ -65,11 +74,20 @@ def tensor_core_route(dtype: torch.dtype, D: int) -> bool:
             and D % 16 == 0)
 
 
-def tc_smem_bytes(D: int) -> int:
-    """Shared memory of a tensor-core CTA (csrc/margin_ce.cu,
+def plain_kernel_route(emb: torch.Tensor, cfg) -> bool:
+    """Whether the plain CE (heads/partial_fc.py, use_fused off) of a call
+    runs on the kernels: a CUDA tensor, the tensor-core route at the
+    compute dtype and emb's width, and a margin the kernels know."""
+    return (_on_card(emb)
+            and tensor_core_route(cfg.compute_dtype, emb.shape[-1])
+            and cfg.margin in _MARGIN_CODE)
+
+
+def tc_smem_bytes(D: int, terms: int = 1) -> int:
+    """Shared memory of a tensor-core backward CTA (csrc/margin_ce.cu,
     tc_smem_bytes): three (64, D + 8) bf16 tiles, the resident one and two
-    stages, and the (64, 72) bf16 coeff tile."""
-    return 2 * (3 * _TC_TILE * (D + 8) + _TC_TILE * (_TC_TILE + 8))
+    stages, and a (64, 72) bf16 coeff tile per coefficient term."""
+    return 2 * (3 * _TC_TILE * (D + 8) + terms * _TC_TILE * (_TC_TILE + 8))
 
 
 def stats_tc_smem_bytes(D: int) -> int:
@@ -176,15 +194,32 @@ def margin_ce_coeff_reference(emb, w, label_cols, col_valid, m_g, d_g, g,
     return torch.where(clamp_pass & valid, coeff, 0.0)
 
 
+def coeff_terms(coeff, compute, terms: int = 1) -> torch.Tensor:
+    """The f32 coefficient as the products apply it: rounded to the compute
+    dtype (one term), or that plus the compute-dtype rounding of what it
+    left (two terms; the sum is exact in f32)."""
+    hi = coeff.to(compute).float()
+    if terms == 1:
+        return hi
+    return hi + (coeff - hi).to(compute).float()
+
+
 def margin_ce_backward_reference(emb, w, label_cols, col_valid, m_g, d_g, g,
-                                 cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of ``_bwd_jnp``: (grad_emb (N, D), grad_W (K, D)) f32."""
+                                 cfg, terms: int = 1
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of ``_bwd_jnp`` (``terms`` 1), or of the plain route's
+    backward on the kernels (2): (grad_emb (N, D), grad_W (K, D)) f32."""
     compute = cfg.compute_dtype
-    coeff = margin_ce_coeff_reference(emb, w, label_cols, col_valid, m_g,
-                                      d_g, g, cfg).to(compute).float()
+    coeff = coeff_terms(margin_ce_coeff_reference(
+        emb, w, label_cols, col_valid, m_g, d_g, g, cfg), compute, terms)
     ge = torch.matmul(coeff, w.to(compute).float())
     gw = torch.matmul(coeff.t(), emb.to(compute).float())
     return ge, gw
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether t is a CUDA tensor (tests stand a card in for it)."""
+    return t.device.type == "cuda"
 
 
 def _route(emb: torch.Tensor) -> bool:
@@ -205,30 +240,32 @@ def margin_ce_stats(emb, w, label_cols, col_valid, cfg):
     return out
 
 
-def margin_ce_grad_emb(emb, w, label_cols, col_valid, m_g, d_g, g, cfg):
-    """grad_emb = coeff·W, (N, D) f32."""
+def margin_ce_grad_emb(emb, w, label_cols, col_valid, m_g, d_g, g, cfg,
+                       terms: int = 1):
+    """grad_emb = coeff·W, (N, D) f32; ``terms`` as coeff_terms."""
     if not _route(emb):
         compute = cfg.compute_dtype
         coeff = margin_ce_coeff_reference(emb, w, label_cols, col_valid,
                                           m_g, d_g, g, cfg)
-        return torch.matmul(coeff.to(compute).float(),
+        return torch.matmul(coeff_terms(coeff, compute, terms),
                             w.to(compute).float())
     out = _launch_grad(emb, w, label_cols, col_valid, m_g, d_g, g, cfg,
-                       "margin_ce_grad_emb")
+                       "margin_ce_grad_emb", terms)
     margin_ce_grad_emb.launches += 1
     return out
 
 
-def margin_ce_grad_w(emb, w, label_cols, col_valid, m_g, d_g, g, cfg):
-    """grad_W = coeffᵀ·emb, (K, D) f32."""
+def margin_ce_grad_w(emb, w, label_cols, col_valid, m_g, d_g, g, cfg,
+                     terms: int = 1):
+    """grad_W = coeffᵀ·emb, (K, D) f32; ``terms`` as coeff_terms."""
     if not _route(emb):
         compute = cfg.compute_dtype
         coeff = margin_ce_coeff_reference(emb, w, label_cols, col_valid,
                                           m_g, d_g, g, cfg)
-        return torch.matmul(coeff.to(compute).float().t(),
+        return torch.matmul(coeff_terms(coeff, compute, terms).t(),
                             emb.to(compute).float())
     out = _launch_grad(emb, w, label_cols, col_valid, m_g, d_g, g, cfg,
-                       "margin_ce_grad_w")
+                       "margin_ce_grad_w", terms)
     margin_ce_grad_w.launches += 1
     return out
 
@@ -240,10 +277,10 @@ margin_ce_grad_w.launches = 0
 
 class _FusedMarginCE(torch.autograd.Function):
     """fr_tpu's custom_vjp: saves the operands and (m, d, p), recomputes the
-    logits in the backward."""
+    logits in the backward, whose coefficient takes ``terms`` terms."""
 
     @staticmethod
-    def forward(ctx, emb, w, label_cols, col_valid, cfg, model_group):
+    def forward(ctx, emb, w, label_cols, col_valid, cfg, model_group, terms):
         m, d, t = margin_ce_stats(emb, w, label_cols, col_valid, cfg)
         if model_group is not None:
             m_g = pmax(m, model_group)
@@ -253,7 +290,7 @@ class _FusedMarginCE(torch.autograd.Function):
             m = m_g
         p = t / d
         ctx.save_for_backward(emb, w, label_cols, col_valid, m, d, p)
-        ctx.cfg = cfg
+        ctx.cfg, ctx.terms = cfg, terms
         return -torch.log(torch.clamp_min(p, 1e-30))
 
     @staticmethod
@@ -266,27 +303,30 @@ class _FusedMarginCE(torch.autograd.Function):
         ge = gw = None
         if ctx.needs_input_grad[0]:
             ge = margin_ce_grad_emb(emb, w, label_cols, col_valid, m, d, g,
-                                    cfg).to(emb.dtype)
+                                    cfg, ctx.terms).to(emb.dtype)
         if ctx.needs_input_grad[1]:
             gw = margin_ce_grad_w(emb, w, label_cols, col_valid, m, d, g,
-                                  cfg).to(w.dtype)
-        return ge, gw, None, None, None, None
+                                  cfg, ctx.terms).to(w.dtype)
+        return ge, gw, None, None, None, None, None
 
 
 def fused_margin_softmax_ce(emb: torch.Tensor, w: torch.Tensor,
                             label_cols: torch.Tensor,
                             col_valid: torch.Tensor, cfg,
-                            model_group=None) -> torch.Tensor:
+                            model_group=None, terms: int = 1) -> torch.Tensor:
     """Per-sample margin-softmax CE over the class columns of every shard
     of the model group (one shard when it is None).
 
     emb (N, D) and w (K, D): L2-normalised, in the compute dtype (fed that
     way by shard_softmax_ce), w this shard's columns; label_cols (N,) int,
     −1 where the target is not among them; col_valid (K,) bool; cfg a
-    PFCConfig (margin, s, m, easy_margin, mixed_precision). Returns the
-    per-sample loss (N,) f32, the same on every rank of the group."""
+    PFCConfig (margin, s, m, easy_margin, mixed_precision); terms the
+    backward coefficient's (coeff_terms): 1 for use_fused, 2 for the plain
+    route on the kernels. Returns the per-sample loss (N,) f32, the same on
+    every rank of the group; the gradients come back in emb's and w's
+    dtype."""
     return _FusedMarginCE.apply(emb, w, label_cols, col_valid, cfg,
-                                model_group)
+                                model_group, terms)
 
 
 # ---------------------------------------------------------------------------
@@ -371,9 +411,11 @@ def _launch_stats(emb, w, label_cols, col_valid, cfg):
     return m, d, t
 
 
-def _launch_grad(emb, w, label_cols, col_valid, m_g, d_g, g, cfg, name):
+def _launch_grad(emb, w, label_cols, col_valid, m_g, d_g, g, cfg, name,
+                 terms):
     """One launch of the backward kernel ``name`` on the body that
-    tensor_core_route picks, counted on route_launches."""
+    tensor_core_route picks, with ``terms`` coefficient terms (two only on
+    the tensor cores), counted on route_launches."""
     from fr_tpu_torch.ops._build import check_launch, load_library
 
     emb, w, labels, cv, N, K, D, code = _operands(emb, w, label_cols,
@@ -384,10 +426,15 @@ def _launch_grad(emb, w, label_cols, col_valid, m_g, d_g, g, cfg, name):
     if any(tuple(t.shape) != (N,) for t in rows):
         raise ValueError(f"m, d and g must be ({N},)")
     tc = tensor_core_route(cfg.compute_dtype, D)
+    if terms not in (1, 2) or (terms == 2 and not tc):
+        raise ValueError(f"{terms} coefficient terms: the CUDA-core body "
+                         f"takes 1, the tensor-core body 1 or 2")
     if tc:
         emb, w = _aligned16(emb, w)
     lib = load_library()
     entry = name + ("_tc" if tc else "")
+    # the tensor-core entries take the number of terms before the stream
+    last = (terms,) if tc else ()
     with torch.cuda.device(dev):
         stream = _stream(dev)
         common = (emb.data_ptr(), w.data_ptr(), labels.data_ptr(),
@@ -395,17 +442,19 @@ def _launch_grad(emb, w, label_cols, col_valid, m_g, d_g, g, cfg, name):
                   code, *_margin_args(cfg))
         if name == "margin_ce_grad_emb":
             splits = (tc_splits(N, K, _tc_slots(
-                "margin_ce_grad_emb_tc_occupancy", dev.index or 0, D)) if tc
+                "margin_ce_grad_emb_tc_occupancy", dev.index or 0, D,
+                terms)) if tc
                 else _splits(-(-N // _EMB_ROWS), -(-K // _CLASS_TILE)))
             partial = torch.empty((splits, N, D), dtype=torch.float32,
                                   device=dev)
             out = torch.empty((N, D), dtype=torch.float32, device=dev)
             err = getattr(lib, entry)(*common, splits, partial.data_ptr(),
-                                      out.data_ptr(), stream)
+                                      out.data_ptr(), *last, stream)
         else:
             out = torch.empty((K, D), dtype=torch.float32, device=dev)
-            err = getattr(lib, entry)(*common, out.data_ptr(), stream)
+            err = getattr(lib, entry)(*common, out.data_ptr(), *last, stream)
     check_launch(lib, err, entry)
     route_launches[name[len("margin_ce_"):] + (
-        "_tensor_cores" if tc else "_cuda_cores")] += 1
+        "_tensor_cores" if tc else "_cuda_cores")
+        + ("_2term" if terms == 2 else "")] += 1
     return out

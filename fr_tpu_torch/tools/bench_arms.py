@@ -3,7 +3,7 @@
     python -m fr_tpu_torch.tools.bench_arms \
         [--rows alternet50,webface42m_head] [--rounds 3]
 
-Arms: ``default``; ``fused`` (BENCH_FUSED=1: the margin-CE kernels);
+Arms: ``default``; ``fused`` (BENCH_FUSED=1: the fused CE's contract);
 ``stats`` (FR_ATTN_STORED_STATS=1: the stored-stats attention). Each round
 runs every row under each arm, one bench row process at a time
 (fr_tpu_torch/bench.py ``_run_row``, each within BENCH_ROW_TIMEOUT), the

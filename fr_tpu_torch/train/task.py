@@ -38,7 +38,8 @@ from fr_tpu_torch.train.step import (embed_global_batch, make_embed_step,
 
 def pfc_config_from_conf(conf, model_size: int = 1) -> PFCConfig:
     """The head's configuration, split over ``model_size`` shards; use_fused
-    (the margin-softmax CE kernels) comes from conf as in fr_tpu, default
+    (fr_tpu's fused margin-softmax CE, whose backward rounds its
+    coefficient to the compute dtype) comes from conf as in fr_tpu, default
     off."""
     return PFCConfig(
         num_classes=conf.n_classes, embedding_size=conf.emd_size,

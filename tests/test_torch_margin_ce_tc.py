@@ -4,17 +4,20 @@ margin_ce_grad_emb_tc, margin_ce_grad_w_tc in csrc/margin_ce.cu) and which
 the CUDA-core ones, the tensor-core CTAs' shared memory, the launch each
 body makes (with the library replaced, so no card is needed) with the split
 count and partial buffer its plan gives at the ms1m_arcface_122 and
-webface42m heads, and the port's plain statistics and backward against
-fr_tpu's ``_stats_jnp`` and ``_bwd_jnp`` (what fr_tpu's own ``_stats`` and
-``_bwd_rule`` run off the TPU) at the shapes the tensor-core route makes
-new: three 64-row tiles, ragged classes, D = 48, labels −1, masked columns,
-a zero cotangent row and logits beyond [−1, 1]. The kernels themselves are
-checked on the card by test_torch_pfc_cuda.py.
+webface42m heads; which calls of the plain CE (use_fused off) run on the
+kernels, with the backward's coefficient as two bf16 terms, and how close
+that twin comes to float64; and the port's plain statistics and backward
+against fr_tpu's ``_stats_jnp`` and ``_bwd_jnp`` (what fr_tpu's own
+``_stats`` and ``_bwd_rule`` run off the TPU) at the shapes the tensor-core
+route makes new: three 64-row tiles, ragged classes, D = 48, labels −1,
+masked columns, a zero cotangent row and logits beyond [−1, 1]. The kernels
+themselves are checked on the card by test_torch_pfc_cuda.py.
 
 Tolerances are those of tests/test_torch_pfc.py (bf16 operands; the f32
 products of both sides agree to rtol 2e-4 / atol 1e-6, the statistics to
 rtol 1e-5). About 12 s on one torch thread."""
 
+import collections
 import contextlib
 import dataclasses
 
@@ -25,7 +28,8 @@ import torch
 
 from fr_tpu.heads import partial_fc as jax_pfc
 from fr_tpu.ops import fused_pfc as jax_fused
-from fr_tpu_torch.heads.partial_fc import PFCConfig
+from fr_tpu_torch.heads import partial_fc
+from fr_tpu_torch.heads.partial_fc import MASK_VALUE, PFCConfig
 from fr_tpu_torch.ops import _build
 from fr_tpu_torch.ops import fused_pfc as F
 from test_torch_cpu_threads import one_torch_thread  # noqa: F401
@@ -48,13 +52,16 @@ def test_route_takes_bf16_with_d_a_multiple_of_16():
 
 
 def test_smem_fits_the_card_at_every_admitted_width():
-    """Three (64, D + 8) bf16 tiles and the (64, 72) coeff tile: 208,896
-    bytes at D = 512, the widest the route admits, within 227 KB."""
+    """Three (64, D + 8) bf16 tiles and a (64, 72) coeff tile per term:
+    208,896 bytes at D = 512, the widest the route admits, with one term
+    and 218,112 with two, within 227 KB."""
     assert F.tc_smem_bytes(512) == 2 * (3 * 64 * 520 + 64 * 72) == 208896
+    assert F.tc_smem_bytes(512, 2) == 208896 + 64 * 72 * 2 == 218112
     admitted = [D for D in range(16, 1025, 16)
                 if F.tensor_core_route(torch.bfloat16, D)]
     assert max(admitted) == 512
-    assert all(F.tc_smem_bytes(D) <= LIMIT for D in admitted)
+    assert all(F.tc_smem_bytes(D, terms) <= LIMIT for D in admitted
+               for terms in (1, 2))
 
 
 class _Library:
@@ -90,6 +97,7 @@ def fake_card(monkeypatch):
         lib.made.append((tuple(shape[0]) if one else shape, kw.get("dtype")))
         return empty(*shape, **kw)
     monkeypatch.setattr(F, "_route", lambda emb: True)
+    monkeypatch.setattr(F, "_on_card", lambda t: True)
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(F, "_tc_slots", slots)
     monkeypatch.setattr(F, "_stream", lambda dev: None)
@@ -98,6 +106,8 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch, "empty", spy)
     for key in F.route_launches:
         monkeypatch.setitem(F.route_launches, key, 0)
+    monkeypatch.setattr(partial_fc.shard_softmax_ce, "routes",
+                        collections.Counter())
     return lib
 
 
@@ -106,7 +116,7 @@ def _cfg(dtype, margin="ArcFace", D=512):
                      s=30.0, m=0.35, mixed_precision=dtype == torch.bfloat16)
 
 
-def _backward_call(N, D, K, dtype):
+def _backward_call(N, D, K, dtype, terms=1):
     """grad_emb then grad_W on the stand-in card. The operands are left
     unwritten (torch.empty touches no page): nothing reads them."""
     emb, w = torch.empty(N, D, dtype=dtype), torch.empty(K, D, dtype=dtype)
@@ -114,8 +124,8 @@ def _backward_call(N, D, K, dtype):
     cv = torch.ones(K, dtype=torch.bool)
     m, d, g = torch.zeros(N), torch.ones(N), torch.ones(N)
     cfg = _cfg(dtype, D=D)
-    ge = F.margin_ce_grad_emb(emb, w, labels, cv, m, d, g, cfg)
-    gw = F.margin_ce_grad_w(emb, w, labels, cv, m, d, g, cfg)
+    ge = F.margin_ce_grad_emb(emb, w, labels, cv, m, d, g, cfg, terms)
+    gw = F.margin_ce_grad_w(emb, w, labels, cv, m, d, g, cfg, terms)
     assert ge.shape == (N, D) and gw.shape == (K, D)
 
 
@@ -146,11 +156,8 @@ def test_backward_call_takes_its_body_without_a_launch(fake_card, case):
     assert (emb_entry, w_entry) == (f"margin_ce_grad_emb{suffix}",
                                     f"margin_ce_grad_w{suffix}")
     body = "tensor_cores" if tc else "cuda_cores"
-    other = "cuda_cores" if tc else "tensor_cores"
-    assert F.route_launches == {f"grad_emb_{body}": 1, f"grad_w_{body}": 1,
-                                f"grad_emb_{other}": 0, f"grad_w_{other}": 0,
-                                "stats_tensor_cores": 0,
-                                "stats_cuda_cores": 0}
+    assert F.route_launches == dict.fromkeys(F.route_launches, 0) | {
+        f"grad_emb_{body}": 1, f"grad_w_{body}": 1}
     # (emb, w, labels, col_valid, m, d, g, N, K, D, dtype, kind, s, ...)
     code = F._DTYPE_CODE[dtype]
     assert emb_args[7:11] == w_args[7:11] == (N, K, D, code)
@@ -159,7 +166,10 @@ def test_backward_call_takes_its_body_without_a_launch(fake_card, case):
     assert ((K, D), torch.float32) in fake_card.made
     if tc:
         assert splits == F.tc_splits(N, K, SLOTS)
-        assert fake_card.slots == [("margin_ce_grad_emb_tc_occupancy", D)]
+        # one coefficient term, just before the stream
+        assert emb_args[-2] == w_args[-2] == 1
+        assert fake_card.slots == [("margin_ce_grad_emb_tc_occupancy", D,
+                                    1)]
     else:
         assert splits == F._splits(-(-N // 16), -(-K // 64))
         assert fake_card.slots == []
@@ -176,12 +186,9 @@ def test_tensor_core_switch_moves_the_backward(fake_card):
     assert [name for name, _ in fake_card.calls] == [
         "margin_ce_grad_emb", "margin_ce_grad_w", "margin_ce_grad_emb_tc",
         "margin_ce_grad_w_tc"] * 2
-    assert F.route_launches == {"grad_emb_tensor_cores": 2,
-                                "grad_emb_cuda_cores": 2,
-                                "grad_w_tensor_cores": 2,
-                                "grad_w_cuda_cores": 2,
-                                "stats_tensor_cores": 0,
-                                "stats_cuda_cores": 0}
+    assert F.route_launches == dict.fromkeys(F.route_launches, 0) | {
+        "grad_emb_tensor_cores": 2, "grad_emb_cuda_cores": 2,
+        "grad_w_tensor_cores": 2, "grad_w_cuda_cores": 2}
 
 
 def test_fused_function_backward_reaches_the_tensor_cores(fake_card):
@@ -348,3 +355,130 @@ def test_plain_stats_match_stats_jnp_at_the_new_edges(margin, K):
         torch.testing.assert_close(b, a, rtol=0, atol=0)
     # rows without a target have t = 0
     assert not bool(ours[2][torch.from_numpy(labels) < 0].any())
+
+
+# The plain CE's route (use_fused off): (on the card, dtype, D, margin,
+# on the kernels). Only a CUDA tensor in bf16 at a tensor-core width, with
+# a margin the kernels know, leaves plain PyTorch.
+PLAIN_ROUTES = [(True, torch.bfloat16, 512, "CosFace", True),
+                (True, torch.bfloat16, 512, "ArcFace", True),
+                (True, torch.float32, 512, "CosFace", False),
+                (True, torch.bfloat16, 40, "CosFace", False),
+                (True, torch.bfloat16, 512, "SphereFace", False),
+                (False, torch.bfloat16, 512, "CosFace", False)]
+
+
+@pytest.mark.parametrize("case", PLAIN_ROUTES, ids=lambda c: (
+    f"{'card' if c[0] else 'cpu'}-{str(c[1]).split('.')[-1]}-D{c[2]}-"
+    f"{c[3]}"))
+def test_plain_route_takes_the_kernels_only_where_they_fit(request, case):
+    """plain_kernel_route reads the call's device, compute dtype, width and
+    margin; shard_softmax_ce (use_fused off) follows it, launches nothing
+    on plain PyTorch and the stats and the two-term pair on the kernels,
+    and counts the call on shard_softmax_ce.routes."""
+    card, dtype, D, margin, kernels = case
+    lib = request.getfixturevalue("fake_card") if card else None
+    cfg = _cfg(dtype, margin, D)
+    N, K = 8, 130
+    emb = torch.zeros(N, D, dtype=cfg.compute_dtype)
+    assert F.plain_kernel_route(emb, cfg) == kernels
+    if margin not in F._MARGIN_CODE:
+        return   # no margin function either: the plain CE cannot run it
+    routes = partial_fc.shard_softmax_ce.routes
+    before = routes.copy()
+    e = torch.randn(N, D).requires_grad_(True)
+    w = torch.randn(K, D).requires_grad_(True)
+    loss = partial_fc.shard_softmax_ce(
+        cfg, e, torch.arange(N), w, torch.ones(K, dtype=torch.bool))
+    loss.sum().backward()
+    route = "plain_kernels" if kernels else "plain_torch"
+    assert routes - before == collections.Counter({route: 1})
+    if card:
+        assert [name for name, _ in lib.calls] == (
+            ["margin_ce_stats_tc", "margin_ce_grad_emb_tc",
+             "margin_ce_grad_w_tc"] if kernels else [])
+
+
+@pytest.mark.parametrize("use_fused", [False, True], ids=["plain", "fused"])
+def test_backward_terms_follow_the_route(fake_card, use_fused):
+    """On the (stand-in) card the plain CE's backward reaches the
+    tensor-core pair with two coefficient terms, counted as _2term, and
+    use_fused's with one, counted as before; grad_emb's splits come from
+    the occupancy of the body with that many terms."""
+    N, D, K = 130, 48, 131
+    cfg = dataclasses.replace(_cfg(torch.bfloat16, "CosFace", D),
+                              use_fused=use_fused)
+    e = torch.randn(N, D).requires_grad_(True)
+    w = torch.randn(K, D).requires_grad_(True)
+    partial_fc.shard_softmax_ce(cfg, e, torch.arange(N), w,
+                                torch.ones(K, dtype=torch.bool)
+                                ).sum().backward()
+    terms = 1 if use_fused else 2
+    names = [name for name, _ in fake_card.calls]
+    assert names == ["margin_ce_stats_tc", "margin_ce_grad_emb_tc",
+                     "margin_ce_grad_w_tc"]
+    # the number of terms is the argument before the stream
+    assert [args[-2] for _, args in fake_card.calls[1:]] == [terms, terms]
+    suffix = "" if use_fused else "_2term"
+    assert F.route_launches == dict.fromkeys(F.route_launches, 0) | {
+        "stats_tensor_cores": 1, f"grad_emb_tensor_cores{suffix}": 1,
+        f"grad_w_tensor_cores{suffix}": 1}
+    assert ("margin_ce_grad_emb_tc_occupancy", D, terms) in fake_card.slots
+    assert partial_fc.shard_softmax_ce.routes == collections.Counter(
+        {"fused" if use_fused else "plain_kernels": 1})
+
+
+def test_two_terms_need_the_tensor_cores(fake_card):
+    """The CUDA-core pair rounds the coefficient to the compute dtype, so a
+    two-term call at a width the tensor cores do not take is refused."""
+    with pytest.raises(ValueError, match="coefficient terms"):
+        _backward_call(10, 40, 131, torch.bfloat16, terms=2)
+
+
+def _float64_plain_grads(te, tw, labels, col_valid, g, cfg):
+    """Gradients of Σ g·loss of the plain CE (partial_fc.plain_softmax_ce's
+    arithmetic) in float64 from the same bf16 operands."""
+    e = te.double().requires_grad_(True)
+    w = tw.double().requires_grad_(True)
+    logits = torch.clamp(e @ w.t(), -1.0, 1.0)
+    logits = cfg.margin_fn()(logits, labels)
+    logits = torch.where(col_valid[None, :], logits, MASK_VALUE)
+    ex = torch.exp(logits - logits.amax(dim=1, keepdim=True).detach())
+    tgt_ex = torch.gather(ex, 1, torch.clamp_min(labels, 0)[:, None])[:, 0]
+    tgt = torch.where(labels >= 0, tgt_ex, 0.0) / ex.sum(dim=1)
+    loss = -torch.log(torch.clamp_min(tgt, 1e-30))
+    return torch.autograd.grad((g.double() * loss).sum(), [e, w])
+
+
+@pytest.mark.parametrize("margin", ["ArcFace", "CosFace"])
+def test_two_term_twin_is_closer_to_float64_than_one_term(margin):
+    """The plain twin of the kernels' backward with the coefficient as two
+    bf16 terms (the plain route's contract) against float64 autograd of the
+    plain CE: within 1e-5 norm-wise, and over 20 times closer than the
+    one-term twin (use_fused's contract), which the coefficient's bf16
+    rounding keeps near 1e-3. bf16, N = 130, K = 131, D = 48, the edges of
+    _edge_problem."""
+    N, K, D = 130, 131, 48
+    emb, w, labels, col_valid, g = _edge_problem(N, K, D, seed=21)
+    cfg = _cfg(torch.bfloat16, margin, D)
+    te, tw = torch.from_numpy(emb).bfloat16(), torch.from_numpy(w).bfloat16()
+    lab, cv = torch.from_numpy(labels).long(), torch.from_numpy(col_valid)
+    gt = torch.from_numpy(g)
+    ref = _float64_plain_grads(te, tw, lab, cv, gt, cfg)
+    m, d, t = F.margin_ce_stats_reference(te, tw, lab, cv, cfg)
+    # the cotangent as _FusedMarginCE.backward passes it: zero on the rows
+    # under the 1e-30 clamp (here those without a target)
+    gt = torch.where(t / d >= 1e-30, gt, 0.0)
+    err = {}
+    for terms in (1, 2):
+        twin = F.margin_ce_backward_reference(te, tw, lab, cv, m, d, gt, cfg,
+                                              terms)
+        err[terms] = max(((a.double() - b).norm() / b.norm()).item()
+                         for a, b in zip(twin, ref))
+        wrappers = (F.margin_ce_grad_emb(te, tw, lab, cv, m, d, gt, cfg,
+                                         terms),
+                    F.margin_ce_grad_w(te, tw, lab, cv, m, d, gt, cfg, terms))
+        for a, b in zip(wrappers, twin):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert err[2] <= 1e-5, err
+    assert err[2] * 20 <= err[1], err

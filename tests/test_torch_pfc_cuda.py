@@ -11,7 +11,13 @@ logits differ by f32 rounding, which ×s = 30 and the exponential turn into
 ~1e-5 relative differences. Statistics rtol 1e-4; gradients, norm-wise,
 ‖kernel − plain‖ ≤ 1e-4·‖plain‖ in f32 and 1e-2 in bf16 (there coeff is
 rounded to bf16 before the products, and a rounding flip moves an element
-by one bf16 ulp, 2⁻⁸ relative)."""
+by one bf16 ulp, 2⁻⁸ relative).
+
+The plain CE (use_fused off) runs on the same kernels on the card, with the
+backward's coefficient as two bf16 terms: it is held to the plain CE in
+PyTorch (per-sample loss 1e-4 relative, its bf16 gradients 2⁻⁸ norm-wise),
+and its two-term products to float64 products of the f32 coefficient
+(1e-4 norm-wise, where one term reads about 1e-3)."""
 
 import math
 
@@ -21,6 +27,7 @@ import torch
 from fr_tpu_torch.heads.partial_fc import (PFCConfig, label_columns,
                                            sample_groups, shard_group_masks,
                                            shard_softmax_ce)
+from fr_tpu_torch.models.common import l2_normalize
 from fr_tpu_torch.ops import fused_pfc
 from fr_tpu_torch.ops.sparse_rows import expand_group_index
 
@@ -94,12 +101,18 @@ def test_kernels_match_plain_versions_on_card(cuda_device, margin, shape, dt):
 
 
 @pytest.mark.cuda
-def test_fused_ce_under_autograd_matches_plain_ce_on_card(cuda_device):
+def test_fused_ce_under_autograd_matches_plain_ce_on_card(cuda_device,
+                                                         monkeypatch):
     """bf16, the ms1m shapes: loss and both gradients of the fused path
-    against the plain CE (which rounds its logits nowhere)."""
+    against the plain CE in PyTorch (which rounds its logits nowhere;
+    plain_kernel_route is patched off so that it does not take the
+    kernels)."""
     n, d, k = FULL
     emb, w, labels, col_valid, _ = _problem(n, d, k, torch.float32,
                                             cuda_device, seed=1)
+    monkeypatch.setattr(fused_pfc, "plain_kernel_route",
+                        lambda emb, cfg: False)
+    routes = dict(shard_softmax_ce.routes)
     out = []
     for fused in (False, True):
         cfg = PFCConfig(num_classes=k, embedding_size=d, margin="ArcFace",
@@ -110,6 +123,9 @@ def test_fused_ce_under_autograd_matches_plain_ce_on_card(cuda_device):
         loss = shard_softmax_ce(cfg, e, labels, ww, col_valid).mean()
         loss.backward()
         out.append((loss.item(), e.grad, ww.grad))
+    assert {key: v - routes.get(key, 0)
+            for key, v in shard_softmax_ce.routes.items()
+            if v != routes.get(key, 0)} == {"plain_torch": 1, "fused": 1}
     (lp, gep, gwp), (lf, gef, gwf) = out
     assert math.isclose(lf, lp, rel_tol=1e-4)
     assert (gef - gep).norm() <= 1e-2 * gep.norm()
@@ -143,12 +159,13 @@ def _webface_columns(dev, gen):
     return label_columns(cfg, labels, idx), idx < cfg.num_classes
 
 
-def _backward(emb, w, labels, col_valid, m, d, g, cfg):
+def _backward(emb, w, labels, col_valid, m, d, g, cfg, terms=1):
     """(grad_emb, grad_W) and the bodies their launches took."""
     before = dict(fused_pfc.route_launches)
     ge = fused_pfc.margin_ce_grad_emb(emb, w, labels, col_valid, m, d, g,
-                                      cfg)
-    gw = fused_pfc.margin_ce_grad_w(emb, w, labels, col_valid, m, d, g, cfg)
+                                      cfg, terms)
+    gw = fused_pfc.margin_ce_grad_w(emb, w, labels, col_valid, m, d, g, cfg,
+                                    terms)
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in fused_pfc.route_launches.items()
              if v != before[k]}
@@ -311,3 +328,101 @@ def test_cuda_core_stats_take_f32_and_other_widths_on_card(cuda_device, dt,
     assert moved == {"stats_cuda_cores": 1}
     _stats_close(stats, fused_pfc.margin_ce_stats_reference(
         emb, w, labels, col_valid, cfg), CE_STATS_RTOL)
+
+
+# The train cells' heads: (N, D, K, margin, s, m): vit_l_wf42m (b 384, 0.3
+# of the table in 64-row groups) and r100_wf42m (b 256, 0.2) with CosFace
+# s 64, m 0.4; alternet50_ms1m (b 128, int(0.3·86,690)) with ArcFace s 30,
+# m 0.35
+CELL_HEADS = [(384, 512, 617984, "CosFace", 64.0, 0.4),
+              (256, 512, 411968, "CosFace", 64.0, 0.4),
+              (128, 512, 26007, "ArcFace", 30.0, 0.35)]
+
+
+def _cell_head(n, d, k, dev, seed):
+    """f32 unit embeddings and table rows as the step passes them (the rows
+    0.01·randn, as init_pfc_state draws them), every label among the
+    columns, half the labels' rows planted at a cosine near 0.6 with their
+    embedding so that their softmax peaks, the last 40 columns masked."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    emb = l2_normalize(torch.randn(n, d, device=dev, generator=gen))
+    w = 0.01 * torch.randn(k, d, device=dev, generator=gen)
+    labels = torch.randperm(k - 40, device=dev, generator=gen)[:n]
+    half = labels[: n // 2]
+    noise = l2_normalize(torch.randn(n // 2, d, device=dev, generator=gen))
+    w[half] = 0.01 * l2_normalize(0.6 * emb[: n // 2] + 0.8 * noise)
+    col_valid = torch.arange(k, device=dev) < k - 40
+    return emb, w, labels, col_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", CELL_HEADS, ids=lambda h: f"{h[3]}-K{h[2]}")
+def test_plain_route_on_kernels_matches_plain_torch_on_card(
+        cuda_device, monkeypatch, head):
+    """The plain CE at each train cell's head: on the kernels (the route
+    shard_softmax_ce takes on the card, counted on its routes, the stats
+    and the two-term pair launched once each) against the same CE in plain
+    PyTorch (plain_kernel_route patched off): per-sample loss within 1e-4
+    relative, both gradients within 2⁻⁸ norm-wise."""
+    n, d, k, margin, s, m = head
+    emb, w, labels, col_valid = _cell_head(n, d, k, cuda_device, seed=31)
+    cfg = PFCConfig(num_classes=k, embedding_size=d, margin=margin, s=s,
+                    m=m, mixed_precision=True)
+    out = []
+    for kernels in (True, False):
+        if not kernels:
+            monkeypatch.setattr(fused_pfc, "plain_kernel_route",
+                                lambda emb, cfg: False)
+        routes = dict(shard_softmax_ce.routes)
+        launches = dict(fused_pfc.route_launches)
+        e, ww = emb.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        loss = shard_softmax_ce(cfg, e, labels, ww, col_valid)
+        loss.mean().backward()
+        torch.cuda.synchronize()
+        route = "plain_kernels" if kernels else "plain_torch"
+        assert shard_softmax_ce.routes[route] == routes.get(route, 0) + 1
+        moved = {key: v - launches[key]
+                 for key, v in fused_pfc.route_launches.items()
+                 if v != launches[key]}
+        assert moved == ({"stats_tensor_cores": 1,
+                          "grad_emb_tensor_cores_2term": 1,
+                          "grad_w_tensor_cores_2term": 1} if kernels else {})
+        out.append((loss.detach(), e.grad, ww.grad))
+    (lk, gek, gwk), (lp, gep, gwp) = out
+    assert bool(torch.isfinite(lk).all()) and float(lp.min()) > 0.1
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=0)
+    for name, a, b in (("grad_emb", gek, gep), ("grad_w", gwk, gwp)):
+        assert _rel(a, b) <= 2 ** -8, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", CELL_HEADS, ids=lambda h: f"{h[3]}-K{h[2]}")
+def test_two_term_products_match_float64_on_card(cuda_device, head):
+    """The tensor-core pair's f32 outputs with two coefficient terms lie
+    within 1e-4 norm-wise of float64 products of the f32 coefficient; with
+    one term (the coefficient rounded to bf16) they lie beyond 3e-4 of
+    them, so the second term is there. Bits repeat with two terms."""
+    n, d, k, margin, s, m = head
+    emb, w, labels, col_valid = _cell_head(n, d, k, cuda_device, seed=32)
+    cfg = PFCConfig(num_classes=k, embedding_size=d, margin=margin, s=s,
+                    m=m, mixed_precision=True)
+    ne = emb.to(torch.bfloat16)
+    nw = l2_normalize(w).to(torch.bfloat16)
+    args = (ne, nw, labels, col_valid)
+    md, dd, _ = fused_pfc.margin_ce_stats_reference(*args, cfg)
+    g = torch.full((n,), 1.0 / n, device=cuda_device)
+    coeff = fused_pfc.margin_ce_coeff_reference(*args, md, dd, g,
+                                                cfg).double()
+    ref = (coeff @ nw.double(), coeff.t() @ ne.double())
+    del coeff
+    err = {}
+    for terms in (1, 2):
+        ge, gw, moved = _backward(*args, md, dd, g, cfg, terms)
+        suffix = "_2term" if terms == 2 else ""
+        assert moved == {f"grad_emb_tensor_cores{suffix}": 1,
+                         f"grad_w_tensor_cores{suffix}": 1}
+        err[terms] = [_rel(a.double(), b) for a, b in zip((ge, gw), ref)]
+        if terms == 2:
+            ge2, gw2, _ = _backward(*args, md, dd, g, cfg, terms)
+            assert torch.equal(ge, ge2) and torch.equal(gw, gw2)
+    assert max(err[2]) <= 1e-4 and min(err[1]) >= 3e-4, err
