@@ -46,6 +46,14 @@ def forbidden_modules(modules=None) -> List[str]:
     return sorted(n for n in names if n.split(".", 1)[0] in FORBIDDEN)
 
 
+def refuse_forbidden() -> None:
+    """Raises BenchError naming the forbidden modules that are loaded."""
+    found = forbidden_modules()
+    if found:
+        raise BenchError("modules that the port must not load: "
+                         + ", ".join(found))
+
+
 def load_manifest(root: Path) -> dict:
     with open(root / "BENCHMARK.json") as fh:
         manifest = json.load(fh)
@@ -103,9 +111,14 @@ def metric_reader(root: Path, name: str):
     return mod.read
 
 
-def loop_for(traffic: dict):
-    return importlib.import_module(
-        f"benchmark.loops.{traffic['loop']}").Loop
+def loop_for(traffic: dict, mesh: bool = False):
+    """The Loop of the traffic's loop, or of its mesh variant
+    (``loops/<loop>_mesh.py``) for a cell of more than one card."""
+    name = f"{traffic['loop']}_mesh" if mesh else traffic["loop"]
+    path = Path(__file__).resolve().parent / "loops" / f"{name}.py"
+    if not path.is_file():
+        raise BenchError(f"no loop {path}")
+    return importlib.import_module(f"benchmark.loops.{name}").Loop
 
 
 def run_cell(root: Path, cell: str, seed: int, seconds: float, trace: bool,
@@ -145,18 +158,81 @@ def run_cell(root: Path, cell: str, seed: int, seconds: float, trace: bool,
     return result
 
 
+def run_rank(root: Path, cell: str, seed: int, seconds: float,
+             trace: bool, rank: int, world: int, t_start: float,
+             backend: str = "nccl") -> Optional[dict]:
+    """One rank's part of a run of a cell of ``world`` cards
+    (``ranks.py`` starts them): joins the process group, builds the mesh
+    of the configuration's ``deployment.mesh`` and runs the traffic's mesh
+    loop on this rank's card. Set-up ends at a barrier; ``setup_s`` is
+    rank 0's clock from ``t_start``; the peak is the largest of any rank's.
+    With ``trace`` every rank runs the traced steps and rank 0 profiles
+    them. Returns the result line on rank 0, None on the others; raises
+    BenchError where the run must print no result."""
+    import torch
+    import torch.distributed as dist
+    from benchmark import ranks
+    from benchmark import yardstick as ys
+
+    manifest = load_manifest(root)
+    files = cell_files(root, manifest, cell)
+    try:
+        loop = ranks.mesh_loops(files, rank, world, backend)(seed)
+        dev = loop.device
+        cuda = dev.type == "cuda"
+        print(f"set-up of rank {rank}", file=sys.stderr, flush=True)
+        loop.setup()
+        loop.barrier()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        setup_s = time.perf_counter() - t_start
+        print(f"window of rank {rank}", file=sys.stderr, flush=True)
+        win = loop.window(seconds)
+        print(f"rank {rank}: {win['steps']} steps in the window",
+              file=sys.stderr, flush=True)
+        peak_bytes = int(loop.total(
+            torch.cuda.max_memory_allocated(dev) if cuda else 0,
+            dist.ReduceOp.MAX))
+        name = torch.cuda.get_device_name(dev) if cuda else "cpu"
+        run = types.SimpleNamespace(
+            kind=loop.kind, cfg=files["config"], traffic=files["traffic"],
+            window=win, peak=ys.peak_for(name), setup_s=setup_s,
+            peak_bytes=peak_bytes, trace=None)
+        device_info = {"platform": "gpu" if cuda else "cpu", "kind": name,
+                       "count": world, "memory_peak_bytes": peak_bytes}
+        if trace:
+            steps = files["traffic"]["profiled_steps"]
+            if loop.lead:
+                run.trace = profile(loop, steps, cuda)
+                device_info["busy_s"] = run.trace.busy_s
+                device_info["window_s"] = run.trace.window_s
+            else:
+                loop.traced(steps)
+        result = conclude(root, manifest, cell, files, loop, run,
+                          device_info)
+        if result is not None:
+            result["card"] = ys.power_limit(rank) if cuda else "cpu"
+            result["checks"] = result.pop("checks")
+        return result
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def conclude(root: Path, manifest: dict, cell: str, files: dict, loop,
-             run, device_info: dict) -> dict:
+             run, device_info: dict) -> Optional[dict]:
     """What follows the window: the cell's metrics read from ``run``, the
     step recorded after the window, the program's state freed, the check
     of ``correct`` against the reference, and the look for modules that
     must not be loaded. Returns the result line as a dict, ``checks``
-    last."""
+    last. On a mesh every rank records and frees, rank 0 (the loop's
+    ``lead``) alone reads and checks, and the others return None."""
     import torch
 
+    lead = getattr(loop, "lead", True)
     section = "per_layer" if run.trace is not None else "end_to_end"
     metrics = {}
-    for m in cell_metrics(manifest, cell, section):
+    for m in cell_metrics(manifest, cell, section) if lead else ():
         value = metric_reader(root, m["name"])(run)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
@@ -166,6 +242,9 @@ def conclude(root: Path, manifest: dict, cell: str, files: dict, loop,
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+    if not lead:
+        refuse_forbidden()
+        return None
     t_check = time.perf_counter()
     readings = loop.readings(("program",))["program"]
     # each cell compares the numbers its limits name
@@ -175,10 +254,7 @@ def conclude(root: Path, manifest: dict, cell: str, files: dict, loop,
     correct = all(c["value"] <= c["limit"] for c in checks.values())
     print(f"check seconds: {time.perf_counter() - t_check:.1f}",
           file=sys.stderr)
-    found = forbidden_modules()
-    if found:
-        raise BenchError("modules that the port must not load: "
-                         + ", ".join(found))
+    refuse_forbidden()
     result = {"correct": correct, "attempted": run.window["steps"],
               "failed": run.window["failed"], "metrics": metrics,
               "device": device_info}

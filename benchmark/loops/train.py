@@ -33,11 +33,13 @@ from typing import Dict
 import torch
 
 from benchmark import inputs
+from benchmark.reference import train as plain
 from benchmark.reference.train import optimizer
 
 READINGS = ("loss_gap", "loss1_gap", "grad1_gap", "grad1_median_gap",
             "change3_gap", "change3_median_gap", "grad1_diff",
-            "head_grad1_diff", "last_loss_gap", "last_grad_gap",
+            "grad1_leaf_diff", "head_grad1_diff", "last_loss_gap",
+            "last_grad_gap",
             "last_grad_median_gap", "last_head_grad_diff")
 
 
@@ -101,6 +103,13 @@ def _feed(loader):
 
 class Loop:
     kind = "train"
+    # the reference's steps, and each side that stands in the program's
+    # place by the keyword arguments it gives them (``readings``)
+    reference = staticmethod(plain.train_steps)
+    VARIANTS = {"reference": {}, "control": {"q": plain.fp8_rounding},
+                "half_batch": {"half_batch": True},
+                "bf16": {"q": plain.bf16_rounding},
+                "bf16_attention": {"q": plain.bf16_attention}}
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, device):
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
@@ -263,29 +272,25 @@ class Loop:
         reference with the loss taken over half of each batch, a planted
         fault), and two witnesses of the program's own precision, "bf16"
         (every product's operands and gradients rounded to bfloat16) and
-        "bf16_attention" (the window attention's products alone)."""
-        from benchmark.reference import train as ref
-        variants = {"reference": {}, "control": {"q": ref.fp8_rounding},
-                    "half_batch": {"half_batch": True},
-                    "bf16": {"q": ref.bf16_rounding},
-                    "bf16_attention": {"q": ref.bf16_attention}}
+        "bf16_attention" (the window attention's products alone); a mesh's
+        loop adds its own (``VARIANTS``)."""
         others = ["reference"] + [s for s in sides if s != "program"]
         snap = self.last.pop("snap")
         last = {}
-        with ref.no_tf32():
+        with plain.no_tf32():
             for v in others:
-                last[v] = ref.train_steps(
+                last[v] = self.reference(
                     self.cfg, snap["params"], snap["table"],
-                    [self.last["step"]], start=snap, **variants[v])
+                    [self.last["step"]], start=snap, **self.VARIANTS[v])
         del snap
         dev = self.device
         params0 = inputs.encoder_params(self.cfg["model"], self.seed, dev)
         table0 = inputs.class_table(self.cfg["head"], self.seed, dev)
         first = {}
-        with ref.no_tf32():
+        with plain.no_tf32():
             for v in others:
-                first[v] = ref.train_steps(self.cfg, params0, table0,
-                                           self.recorded, **variants[v])
+                first[v] = self.reference(self.cfg, params0, table0,
+                                          self.recorded, **self.VARIANTS[v])
         first["program"], last["program"] = self.program, \
             self.last["program"]
         self.raw = {"first": first, "last": last}
@@ -315,6 +320,25 @@ def _rows_diff(side, ref) -> float:
     return float(torch.sqrt(d2 / torch.sum(vr * vr)))
 
 
+def _moving(ref: dict) -> list:
+    """The leaves whose first reference gradient is not nought to
+    rounding: at least a thousandth of the median leaf's."""
+    leaves = list(ref["grad1"])
+    gmed = float(torch.tensor([ref["gnorm1"][n] for n in leaves]).median())
+    return [n for n in leaves if ref["gnorm1"][n] >= 1e-3 * gmed]
+
+
+def _slot_diffs(side: dict, ref: dict) -> Dict[str, tuple]:
+    """{leaf: (‖m − m_ref‖², ‖m_ref‖²)} of the encoder's read slot after
+    the first step."""
+    out = {}
+    for n, want in ref["mom1"].items():
+        got = side["mom1"][n].to(want.device)
+        out[n] = (float(torch.sum((got - want) ** 2)),
+                  float(torch.sum(want * want)))
+    return out
+
+
 def compare(side: dict, ref: dict) -> Dict[str, float]:
     """The numbers a training cell may compare, each a gap against the
     reference (a cell's limits name those it compares):
@@ -331,6 +355,13 @@ def compare(side: dict, ref: dict) -> Dict[str, float]:
       median leaf's);
     - ``grad1_diff``: ‖m − m_ref‖ / ‖m_ref‖ of the encoder's read slot
       after the first step, taken whole, element by element;
+      ``grad1_leaf_diff``: leaf by leaf, ‖m − m_ref‖ over the norm of
+      the reference's first gradient of that leaf, of the leaf where it
+      is least, over the leaves whose reference gradient is not nought to
+      rounding: the best-determined leaf's gradient, which a gradient of
+      another batch turns even where the global clip gives its norms back
+      (with SGD m − m_ref is g − g_ref, the weight decay's part being the
+      same on both sides);
     - ``head_grad1_diff``: the same of the class table's read slot,
       over the rows either side moved. It is a function of the first
       step's embeddings and drawn rows, so it reads the forward's
@@ -340,20 +371,21 @@ def compare(side: dict, ref: dict) -> Dict[str, float]:
     A norm gap is taken against the reference's norm of that leaf or of
     the median leaf, whichever is larger."""
     losses = [abs(a - b) / abs(b) for a, b in zip(side["loss"], ref["loss"])]
-    leaves = list(ref["grad1"])
-    gmed = float(torch.tensor([ref["gnorm1"][n] for n in leaves]).median())
-    moving = [n for n in leaves if ref["gnorm1"][n] >= 1e-3 * gmed]
+    leaves, moving = list(ref["grad1"]), _moving(ref)
     g1 = _leaf_gaps(side["grad1"], ref["grad1"], leaves)
     c3 = _leaf_gaps(side["change3"], ref["change3"], moving)
     diff = num = 0.0
-    for n, want in ref["mom1"].items():
-        got = side["mom1"][n].to(want.device)
-        diff += float(torch.sum((got - want) ** 2))
-        num += float(torch.sum(want * want))
+    leaf_diffs = []
+    for n, (d2, w2) in _slot_diffs(side, ref).items():
+        diff += d2
+        num += w2
+        if n in moving:
+            leaf_diffs.append(d2 ** 0.5 / ref["gnorm1"][n])
     return {"loss_gap": max(losses), "loss1_gap": losses[0],
             "grad1_gap": g1[0], "grad1_median_gap": g1[len(g1) // 2],
             "change3_gap": c3[0], "change3_median_gap": c3[len(c3) // 2],
             "grad1_diff": (diff / num) ** 0.5,
+            "grad1_leaf_diff": min(leaf_diffs),
             "head_grad1_diff": _rows_diff(side["head1"], ref["head1"])}
 
 
@@ -401,4 +433,12 @@ def explain(side: dict, ref: dict, top: int = 6) -> dict:
             ratios = sorted(ref[key][n] / max(ref["gnorm1"][n], 1e-30)
                             for n in leaves)
             out["grad1_over_g_median"] = ratios[len(ratios) // 2]
+    if "mom1" in side:
+        # every moving leaf's ‖m − m_ref‖ / ‖g_ref‖ and its size, in the
+        # order of the encoder's parameters
+        diffs = _slot_diffs(side, ref)
+        out["grad1_leaf_diffs"] = [
+            [n, diffs[n][0] ** 0.5 / ref["gnorm1"][n],
+             int(ref["mom1"][n].numel())] for n in _moving(ref)
+            if n in diffs]
     return out

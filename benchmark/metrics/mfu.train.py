@@ -1,7 +1,8 @@
-"""The whole training step's share of the card's dense bf16 peak: the
-window's images per second (the traced run's unprofiled steps) × (3 × the
-configuration's forward FLOPs + 6·D·n of the head over its n sampled
-columns)."""
+"""The whole training step's share of the cards' dense bf16 peak: the
+window's images per second (the traced run's unprofiled steps, every
+rank's images on a mesh) × (3 × the configuration's forward FLOPs + 6·D·n
+of the head over its n sampled columns, every shard's), over the peak of
+as many cards as the configuration's mesh holds."""
 
 from benchmark import yardstick as ys
 
@@ -10,4 +11,4 @@ def read(run):
     if run.kind != "train" or run.peak is None:
         return None
     return ys.mfu(ys.train_flops_per_img(run.cfg), run.window["rate"],
-                  run.peak)
+                  run.peak) / ys.chips(run.cfg)

@@ -119,10 +119,36 @@ def margin_ce(emb, labels, w_rows, rows, valid, head: dict, q: Quant):
     return -torch.log(torch.clamp_min(t / ex.sum(dim=1), 1e-30))
 
 
+def step_grads(cfg: dict, st: dict, p: Dict[str, torch.Tensor],
+               stats: Dict[str, torch.Tensor], table: torch.Tensor,
+               q: Quant = identity, half_batch: bool = False):
+    """One step's (loss, the gradient of each leaf of ``p`` in its order,
+    the drawn rows, their gradient) on one card: the batch augmented, the
+    head's draw, the encoder, the margin CE over the drawn rows."""
+    model, head = cfg["model"], cfg["head"]
+    dev = table.device
+    images = st["images"].to(dev)
+    labels = st["labels"].to(dev).long()
+    acfg = aug.cfg_from_config(cfg["augmentation"])
+    x = aug.apply_augment(images, aug.draw_augment(
+        acfg, images.shape, gen_at(st["states"]["augment"], dev), dev),
+        acfg)
+    rows, valid = draw_rows(head, labels, gen_at(st["states"]["sample"],
+                                                 dev))
+    w_rows = table.index_select(0, rows).requires_grad_(True)
+    leaves = {n: v.requires_grad_(True) for n, v in p.items()}
+    emb = forward(model, {**leaves, **stats}, x, True,
+                  gen_at(st["states"]["dropout"], dev), q)
+    per = margin_ce(unit(emb), labels, w_rows, rows, valid, head, q)
+    loss = per[: per.shape[0] // 2].mean() if half_batch else per.mean()
+    grads = torch.autograd.grad(loss, list(leaves.values()) + [w_rows])
+    return loss, list(grads[:-1]), rows, grads[-1]
+
+
 def train_steps(cfg: dict, params0: Dict[str, torch.Tensor],
                 table0: torch.Tensor, steps: List[dict],
-                q: Quant = identity, half_batch: bool = False,
-                start: Optional[dict] = None) -> dict:
+                q: Quant = identity, start: Optional[dict] = None,
+                grads=step_grads, **fault) -> dict:
     """The readings of ``len(steps)`` steps from params0 and the class
     table table0 (both left as they are). Each step is a dict with
     ``images`` (B, H, W, 3) uint8, ``labels`` (B,) and ``states`` (the
@@ -130,11 +156,11 @@ def train_steps(cfg: dict, params0: Dict[str, torch.Tensor],
     optimizer's state to start from (``slots``: {slot: {leaf: tensor}},
     ``head_slots``: {slot: the table's}, ``count`` and ``head_count``: the
     encoder's and the head's steps so far), zero without it.
-    ``half_batch`` takes the loss over the first half of each batch only
-    (a planted fault)."""
-    model, head, opt = cfg["model"], cfg["head"], cfg["optimizer"]
+    ``grads`` gives each step's gradients (``step_grads``, or a mesh's);
+    ``fault`` goes to it: ``half_batch=True`` takes the loss over the
+    first half of each batch only (a planted fault)."""
+    opt = cfg["optimizer"]
     optim = optimizer(opt)
-    acfg = aug.cfg_from_config(cfg["augmentation"])
     names = [n for n in params0 if not n.endswith(("running_mean",
                                                    "running_var"))]
     p = {n: params0[n].clone() for n in names}
@@ -152,23 +178,8 @@ def train_steps(cfg: dict, params0: Dict[str, torch.Tensor],
     table = table0.clone()
     out: dict = {"loss": []}
     for k, st in enumerate(steps):
-        dev = table.device
-        images = st["images"].to(dev)
-        labels = st["labels"].to(dev).long()
-        x = aug.apply_augment(images, aug.draw_augment(
-            acfg, images.shape, gen_at(st["states"]["augment"], dev), dev),
-            acfg)
-        rows, valid = draw_rows(head, labels, gen_at(st["states"]["sample"],
-                                                     dev))
-        w_rows = table.index_select(0, rows).requires_grad_(True)
-        leaves = {n: v.requires_grad_(True) for n, v in p.items()}
-        emb = forward(model, {**leaves, **stats}, x, True,
-                      gen_at(st["states"]["dropout"], dev), q)
-        per = margin_ce(unit(emb), labels, w_rows, rows, valid, head, q)
-        loss = per[: per.shape[0] // 2].mean() if half_batch else per.mean()
-        grads = torch.autograd.grad(loss, [leaves[n] for n in names]
-                                    + [w_rows])
-        g_enc, g_rows = list(grads[:-1]), grads[-1]
+        loss, g_enc, rows, g_rows = grads(cfg, st, p, stats, table, q,
+                                          **fault)
         total = torch.sqrt(sum(torch.sum(g * g) for g in g_enc))
         coef = torch.clamp_max(opt["max_grad_norm"] / (total + 1e-6), 1.0)
         g_enc = [g * coef for g in g_enc]
@@ -192,7 +203,7 @@ def train_steps(cfg: dict, params0: Dict[str, torch.Tensor],
                              for n, g in zip(names, g_enc)}
             out["gnorm1"]["head"] = float(torch.linalg.vector_norm(g_rows))
             out["head1"] = (rows, added)
-        del emb, per, loss, grads, g_enc, g_rows, w_rows, moved, added
+        del loss, g_enc, g_rows, moved, added
     out["change3"] = {n: float(torch.linalg.vector_norm(p[n] - params0[n]))
                       for n in names}
     out["change3"]["head"] = float(torch.linalg.vector_norm(table - table0))

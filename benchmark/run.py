@@ -13,6 +13,12 @@ metrics, or with ``--trace 1`` its per-layer ones), ``device``, with
 beside its limit. It exits non-zero and prints no result where no card is
 found, where the cell cannot run, or where a module of JAX or of the JAX
 package is loaded once the window has closed.
+
+A cell of more than one card runs one rank a card: this script builds the
+program's kernels once, then starts itself once a rank with the private
+arguments ``--rank``, ``--world`` and ``--t-before`` (``ranks.py``); each
+rank joins the NCCL group on its card, rank 0 prints the result, and the
+run fails with no result once any rank fails or stalls.
 """
 
 from __future__ import annotations
@@ -47,10 +53,17 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    p.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--t-before", type=float, default=0.0,
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     import torch
     from benchmark import harness
+
+    if args.rank is not None:
+        return rank_main(args)
 
     manifest = harness.load_manifest(ROOT)
     entry = next((w for w in manifest["workloads"]
@@ -64,8 +77,7 @@ def main(argv=None) -> int:
               f"{found}", file=sys.stderr)
         return 3
     if entry["chips"] != 1:
-        print("this harness drives one card a run", file=sys.stderr)
-        return 2
+        return launch(args, entry["chips"])
     try:
         result = harness.run_cell(ROOT, args.workload, args.seed,
                                   args.seconds, bool(args.trace),
@@ -74,9 +86,46 @@ def main(argv=None) -> int:
         print(f"benchmark: {e}", file=sys.stderr)
         return 4
     print(json.dumps(result), flush=True)
+    print_checks(result)
+    return 0
+
+
+def print_checks(result: dict) -> None:
     for k, c in result["checks"].items():
         print(f"{k}: {c['value']!r} (limit {c['limit']!r})",
               file=sys.stderr, flush=True)
+
+
+def launch(args, world: int) -> int:
+    """Builds the program's kernels once, then runs one rank a card."""
+    from benchmark import ranks
+
+    def command(rank):
+        return [sys.executable, str(Path(__file__).resolve()),
+                "--workload", args.workload, "--seed", str(args.seed),
+                "--seconds", repr(args.seconds), "--trace", str(args.trace),
+                "--rank", str(rank), "--world", str(world),
+                "--t-before", repr(time.perf_counter() - T_START)]
+    code, line = ranks.launch_built(command, world)
+    if code == 0:
+        print(line, flush=True)
+        print_checks(json.loads(line))
+    return code
+
+
+def rank_main(args) -> int:
+    """One rank of a multi-card cell; rank 0 prints the result."""
+    from benchmark import harness
+
+    try:
+        result = harness.run_rank(ROOT, args.workload, args.seed,
+                                  args.seconds, bool(args.trace), args.rank,
+                                  args.world, T_START - args.t_before)
+    except harness.BenchError as e:
+        print(f"benchmark: {e}", file=sys.stderr)
+        return 4
+    if result is not None:
+        print(json.dumps(result), flush=True)
     return 0
 
 

@@ -10,9 +10,13 @@ from __future__ import annotations
 
 import json
 import shutil
+import sys
 import time
 import types
 from pathlib import Path
+from typing import Optional
+
+import torch
 
 from benchmark import harness
 
@@ -28,6 +32,17 @@ TINY_EMBED_LIMITS = {"embed_gap": 0.03}
 # grad1_median_gap 0.0052 / 0.014, change3_median_gap 0.011 / 0.0081,
 # head_grad1_diff 0.065 / 0.30, last_grad_median_gap 0.0041 / 0.0074,
 # last_head_grad_diff 0.022 / 0.059
+# tiny_r18_mesh: from CPU readings over 10 seeds (program's largest;
+# control's smallest; each rank stepping on its own gradient's smallest,
+# each shard scoring its own rows' smallest): grad1_leaf_diff 0.078 /
+# 0.29 / 0.44 / 0.65, head_grad1_diff 0.093 / 0.32 / 0 / 1.02,
+# last_head_grad_diff 0.064 / 0.067 / 0 / 0.58; over 12 seeds grad1_gap
+# 0.133 / 0.130 / 0.140 / 0.320, and 0.266 with the sum left out for the
+# last quarter of the encoder's parameters
+TINY_MESH_LIMITS = {"grad1_median_gap": 0.1, "change3_median_gap": 0.15,
+                    "grad1_gap": 0.2,
+                    "grad1_leaf_diff": 0.15, "head_grad1_diff": 0.15,
+                    "last_grad_median_gap": 0.1, "last_head_grad_diff": 0.1}
 TINY_ADAMW_LIMITS = {"grad1_median_gap": 0.1, "change3_median_gap": 0.15,
                      "head_grad1_diff": 0.12, "last_grad_median_gap": 0.1,
                      "last_head_grad_diff": 0.1}
@@ -116,6 +131,88 @@ def make_root(dst: Path, precision: str = "bfloat16") -> Path:
     return dst
 
 
+def make_mesh_root(dst: Path, precision: str = "bfloat16") -> Path:
+    """``make_root``'s copy with ``tiny_r18_mesh``, tiny_r18 with its
+    class table sharded over two ranks (mesh data 1, model 2; 4 images a
+    rank), and its cell ``tiny_r18_mesh.train`` of 2 chips."""
+    make_root(dst, precision)
+    manifest = json.loads((dst / "BENCHMARK.json").read_text())
+    cfg = json.loads((dst / "benchmark/configs/tiny_r18.json").read_text())
+    cfg["name"] = "tiny_r18_mesh"
+    cfg["deployment"] = {"chips": 2, "mesh": {"data": 1, "model": 2}}
+    cfg["batch_size"] = 4
+    cfg["head"]["sampled_columns"] = 32
+    add_config(dst, manifest, cfg)
+    add_cell(dst, manifest, "tiny_r18_mesh.train", "tiny_r18_mesh", "train",
+             {"limits": TINY_MESH_LIMITS,
+              "traffic": {"steps_per_epoch": 4, "profiled_steps": 2,
+                          "warmup_steps": 3}})
+    manifest["workloads"][-1]["chips"] = 2
+    (dst / "BENCHMARK.json").write_text(json.dumps(manifest, indent=1))
+    return dst
+
+
+def rank_command(root: Path, cell: str, seed: int, seconds: float,
+                 trace: bool, world: int, fail_rank: int = -1,
+                 stall_rank: int = -1, sides: str = ""):
+    """``command(rank)`` for ``ranks.launch``: a rank of a CPU run of a
+    cell of ``world`` ranks over gloo (``python -m benchmark.tests.tiny``),
+    the rank ``fail_rank`` raising once it has joined, the rank
+    ``stall_rank`` sleeping there. With ``sides`` (comma-separated) rank 0
+    prints the readings of those sides (``Loop.readings``) instead of the
+    result line."""
+    def command(rank):
+        return [sys.executable, "-m", "benchmark.tests.tiny", str(root),
+                cell, str(seed), repr(seconds), str(int(trace)), str(rank),
+                str(world), str(fail_rank), str(stall_rank), sides]
+    return command
+
+
+def _readings(root: Path, cell: str, seed: int, seconds: float, rank: int,
+              world: int, sides) -> Optional[dict]:
+    """A rank of a CPU run of a mesh cell up to its readings of ``sides``,
+    as ``calibrate.py`` takes them; rank 0 returns them."""
+    import torch.distributed as dist
+    from benchmark import ranks
+
+    files = harness.cell_files(root, harness.load_manifest(root), cell)
+    try:
+        loop = ranks.mesh_loops(files, rank, world, "gloo")(seed)
+        loop.setup()
+        loop.window(seconds)
+        loop.after_window()
+        loop.release()
+        return loop.readings(sides) if loop.lead else None
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _rank_main(argv) -> int:
+    root, cell, seed, seconds, trace, rank, world, fail, stall, sides = argv
+    rank, world = int(rank), int(world)
+    # the ranks share the host's cores
+    torch.set_num_threads(2)
+    if rank in (int(fail), int(stall)):
+        from benchmark import ranks
+        ranks.join(rank, world, "gloo")
+        print(f"rank {rank} joined", file=sys.stderr, flush=True)
+        if rank == int(stall):
+            time.sleep(3600)
+        raise RuntimeError(f"rank {rank} fails on purpose")
+    if sides:
+        result = _readings(Path(root), cell, int(seed), float(seconds), rank,
+                           world, tuple(sides.split(",")))
+    else:
+        result = harness.run_rank(Path(root), cell, int(seed),
+                                  float(seconds), bool(int(trace)), rank,
+                                  world, time.perf_counter(),
+                                  backend="gloo")
+    if result is not None:
+        print(json.dumps(result), flush=True)
+    return 0
+
+
 def run_cpu(root: Path, cell: str, seed: int, seconds: float,
             trace: bool) -> dict:
     """A whole run of ``cell`` on the CPU, as ``harness.run_cell`` drives
@@ -138,3 +235,7 @@ def run_cpu(root: Path, cell: str, seed: int, seconds: float,
     return harness.conclude(root, manifest, cell, files, loop, run,
                             {"platform": "cpu", "kind": "cpu", "count": 1,
                              "memory_peak_bytes": 0})
+
+
+if __name__ == "__main__":
+    sys.exit(_rank_main(sys.argv[1:]))

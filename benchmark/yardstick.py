@@ -52,13 +52,26 @@ def mfu(flops_per_img: float, imgs_per_s: float, peak: dict) -> float:
     return flops_per_img * imgs_per_s / peak["bf16_flops"]
 
 
+def mesh(cfg: dict) -> tuple:
+    """(data, model): the configuration's mesh, (1, 1) for one card."""
+    shape = cfg.get("deployment", {}).get("mesh", {"data": 1, "model": 1})
+    return shape["data"], shape["model"]
+
+
+def chips(cfg: dict) -> int:
+    data, model = mesh(cfg)
+    return data * model
+
+
 def train_flops_per_img(cfg: dict) -> float:
     """3 × the encoder's forward FLOPs (forward, and the backward's two
     products) + 6·D·n of the head's logits and their two gradients over
-    the n sampled columns."""
+    the n sampled columns: every shard's ``sampled_columns`` on a mesh,
+    since each image meets the columns of every shard."""
     head = cfg["head"]
     return (3.0 * cfg["fwd_flops_per_img"]
-            + 6.0 * head["emd_size"] * head["sampled_columns"])
+            + 6.0 * head["emd_size"] * (head["sampled_columns"]
+                                        * mesh(cfg)[1]))
 
 
 def margin_ce_least_s(b: int, n: int, d: int, peak: dict) -> float:
@@ -116,6 +129,35 @@ def busy_intervals(kernels: Sequence) -> List[List[float]]:
 def busy_s(kernels: Sequence) -> float:
     """Seconds in which at least one of the operations ran."""
     return sum(b - a for a, b in busy_intervals(kernels)) / 1e6
+
+
+def overlap_s(first: Sequence, second: Sequence) -> float:
+    """Seconds in which an operation of ``first`` and one of ``second``
+    both ran."""
+    a, b = busy_intervals(first), busy_intervals(second)
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if hi > lo:
+            total += hi - lo
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total / 1e6
+
+
+# NCCL's kernels (``ncclDevKernel_*``, ``ncclKernel_*``): the collectives
+COLLECTIVE_KERNEL = "nccl"
+
+
+def collective_kernels(kernels: Sequence) -> tuple:
+    """(the collectives' kernels, every other device operation)."""
+    mine, rest = [], []
+    for e in kernels:
+        (mine if COLLECTIVE_KERNEL in e.name.lower() else rest).append(e)
+    return mine, rest
 
 
 def head_ms(events: Sequence, kernels: Sequence, steps: int
